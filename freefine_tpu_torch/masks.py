@@ -1,0 +1,125 @@
+"""Mask engine for the geometric edit (mirrors `freefine_tpu.masks`).
+
+float32 [H, W] tensors in {0, 1} (soft where the reference is soft).
+Dilation/erosion are max/min pools with cv2's even-kernel anchor.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from freefine_tpu_torch.edit import nearest_resize
+
+
+def binarize(mask: torch.Tensor) -> torch.Tensor:
+    """>0 -> 1.0 (the reference's `mask[mask>0]=1`)."""
+    return (mask > 0).float()
+
+
+def prepare_mask(mask: torch.Tensor, h: int, w: int, binary: bool = True) -> torch.Tensor:
+    """Reference `prepare_tensor_mask`: [H, W] or [H, W, C] (channel 0) ->
+    nearest-resized [h, w] float32, binarised (>0) or max-normalised."""
+    m = mask
+    if m.ndim == 3:
+        m = m[:, :, 0]
+    m = m.float()
+    if tuple(m.shape) != (h, w):
+        m = nearest_resize(m, h, w)
+    if binary:
+        return binarize(m)
+    return m / torch.clamp(m.max(), min=1e-8)
+
+
+def _pool(mask: torch.Tensor, factor: int, sign: float) -> torch.Tensor:
+    """factor x factor max pool of sign * mask, cv2 anchor (k//2, k//2):
+    the window covers offsets [-k//2, k - k//2 - 1]."""
+    lo = factor // 2
+    hi = factor - lo - 1
+    x = (sign * mask.float())[None, None]
+    x = F.pad(x, (lo, hi, lo, hi), value=float("-inf"))
+    return sign * F.max_pool2d(x, factor, stride=1)[0, 0]
+
+
+def dilate(mask: torch.Tensor, factor: int) -> torch.Tensor:
+    """cv2.dilate with a `factor` x `factor` all-ones kernel."""
+    if factor <= 1:
+        return mask
+    return _pool(mask, factor, 1.0)
+
+
+def erode(mask: torch.Tensor, factor: int) -> torch.Tensor:
+    """cv2.erode analogue (min pool)."""
+    if factor <= 1:
+        return mask
+    return _pool(mask, factor, -1.0)
+
+
+def to_latent_res(mask: torch.Tensor, lh: int, lw: int) -> torch.Tensor:
+    """Nearest-downsample a full-res mask to the latent grid."""
+    return nearest_resize(mask.float(), lh, lw)
+
+
+class EditMasks(NamedTuple):
+    """Mask family of the `generation` task."""
+
+    fg_retain: torch.Tensor       # full-res TCA query mask == local CFG region
+    fg_retain_st2: torch.Tensor   # full-res bare target mask
+    fg_ref: torch.Tensor          # full-res source-object key mask
+    completion_cfg: torch.Tensor  # latent-res local CFG multiplier
+    local_var: torch.Tensor       # latent-res DDPM perturbation region
+
+
+def prepare_various_mask(
+    shifted_mask: torch.Tensor,
+    ori_mask: torch.Tensor,
+    draw_mask: Optional[torch.Tensor],
+    h: int,
+    w: int,
+    latent_h: int,
+    latent_w: int,
+    use_auto_draw: bool = False,
+    cons_area: Optional[torch.Tensor] = None,
+    reduce_inp_artifacts: bool = False,
+) -> EditMasks:
+    """The four-branch mask builder for geometric edits (reference
+    model.py:1432-1512)."""
+    shifted = prepare_mask(shifted_mask, h, w)
+    ori = prepare_mask(ori_mask, h, w)
+
+    if not use_auto_draw:
+        if draw_mask is None:
+            raise ValueError("draw_mask required when use_auto_draw=False")
+        flexible = prepare_mask(draw_mask, h, w) * (1.0 - shifted)
+        fg = binarize(flexible + shifted)
+        complete = flexible
+        if not reduce_inp_artifacts:
+            local_var = flexible
+        else:
+            if cons_area is None:
+                raise ValueError("cons_area required with reduce_inp_artifacts")
+            dil_ori = prepare_mask(dilate(prepare_mask(ori_mask, h, w), 30), h, w)
+            cons = prepare_mask(cons_area, h, w)
+            local_var = binarize((1.0 - cons) * (1.0 - shifted) * dil_ori + flexible)
+    else:
+        if cons_area is None:
+            raise ValueError("cons_area required with use_auto_draw")
+        dil_tgt = prepare_mask(dilate(prepare_mask(shifted_mask, h, w), 15), h, w)
+        cons = prepare_mask(cons_area, h, w) - ori  # may go negative, as in ref
+        fg = shifted
+        if not reduce_inp_artifacts:
+            complete = (1.0 - cons) * (1.0 - shifted) * dil_tgt
+        else:
+            dil_ori = prepare_mask(dilate(prepare_mask(ori_mask, h, w), 30), h, w)
+            complete = binarize(dil_ori + dil_tgt) * (1.0 - cons) * (1.0 - shifted)
+        local_var = complete
+
+    return EditMasks(
+        fg_retain=fg,
+        fg_retain_st2=shifted,
+        fg_ref=ori,
+        completion_cfg=to_latent_res(complete, latent_h, latent_w),
+        local_var=to_latent_res(local_var, latent_h, latent_w),
+    )

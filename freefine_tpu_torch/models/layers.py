@@ -1,0 +1,251 @@
+"""Building blocks of the SD UNet / VAE in PyTorch (mirrors
+`freefine_tpu.models.layers`).
+
+Parameter names are the diffusers state-dict keys.  Convolution stacks run
+in NCHW; transformer blocks on [B, S, C] tokens (row-major over H, W, as
+the JAX package's NHWC reshape).  Linear/conv weights live in the serving
+dtype; norm parameters are float32 and the norms compute in float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from freefine_tpu_torch.edit import EditConfig, EditState
+from freefine_tpu_torch.ops import attention as attn_ops
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = True,
+    freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers `get_timestep_embedding`),
+    always float32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device
+    )
+    exponent = exponent / (half - freq_shift)
+    freqs = torch.exp(exponent)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin], -1) if flip_sin_to_cos else torch.cat([sin, cos], -1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm in float32 (`group_norm_reference` math), optional fused
+    SiLU, output cast back to the input dtype.  NCHW input."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        if silu:
+            y = F.silu(y)
+        return y.to(x.dtype)
+
+
+class LayerNorm32(nn.Module):
+    """LayerNorm in float32 (eps 1e-5), output in the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+NORM_TYPES = (GroupNorm32, LayerNorm32)
+
+
+class TimestepEmbedding(nn.Module):
+    """time_proj + time_embedding MLP (Linear / SiLU / Linear)."""
+
+    def __init__(self, base_dim: int, embed_dim: int, flip_sin_to_cos: bool,
+                 freq_shift: float, dtype, device=None):
+        super().__init__()
+        self.base_dim, self.flip_sin_to_cos, self.freq_shift = base_dim, flip_sin_to_cos, freq_shift
+        self.linear_1 = nn.Linear(base_dim, embed_dim, dtype=dtype, device=device)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim, dtype=dtype, device=device)
+
+    def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
+        emb = timestep_embedding(
+            timesteps, self.base_dim, self.flip_sin_to_cos, self.freq_shift
+        ).to(self.linear_1.weight.dtype)
+        return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    """SD ResnetBlock2D: GN/SiLU/Conv x2 with optional timestep injection.
+
+    fused_silu=True applies SiLU inside the f32 norm (UNet); False applies
+    it after the cast back to the compute dtype (VAE), as the JAX modules
+    do."""
+
+    def __init__(self, in_ch: int, out_ch: int, temb_ch: Optional[int], groups: int,
+                 eps: float, fused_silu: bool, dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.fused_silu = fused_silu
+        self.norm1 = GroupNorm32(groups, in_ch, eps, device)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1, **kw)
+        self.time_emb_proj = nn.Linear(temb_ch, out_ch, **kw) if temb_ch else None
+        self.norm2 = GroupNorm32(groups, out_ch, eps, device)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, **kw)
+        self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1, **kw) if in_ch != out_ch else None
+
+    def _norm_act(self, norm: GroupNorm32, x: torch.Tensor) -> torch.Tensor:
+        return norm(x, silu=True) if self.fused_silu else F.silu(norm(x))
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(self._norm_act(self.norm1, x))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self._norm_act(self.norm2, h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 3x3 conv.  pad_mode 'symmetric' pads (1, 1) (UNet, torch
+    Conv2d(padding=1)); 'right' pads (0, 1) before a VALID conv (VAE)."""
+
+    def __init__(self, ch: int, pad_mode: str, dtype, device=None):
+        super().__init__()
+        self.pad_mode = pad_mode
+        pad = 1 if pad_mode == "symmetric" else 0
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=pad, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad_mode == "right":
+            x = F.pad(x, (0, 1, 0, 1))
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsample + 3x3 conv."""
+
+    def __init__(self, ch: int, dtype, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, padding=1, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, out_dim: int, dtype, device=None):
+        super().__init__()
+        self.proj = nn.Linear(dim, out_dim * 2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        value, gate = self.proj(x).chunk(2, dim=-1)
+        # flax nn.gelu defaults to the tanh approximation
+        return value * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, dtype, device=None):
+        super().__init__()
+        self.net = nn.ModuleList([
+            GEGLU(dim, dim * 4, dtype, device),
+            nn.Identity(),
+            nn.Linear(dim * 4, dim, dtype=dtype, device=device),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+class EditAttention(nn.Module):
+    """One attention layer (to_q/to_k/to_v without bias, to_out.0) with the
+    edit dispatch: self-attention through `edit_self_attention`, text
+    cross-attention through `edit_cross_attention`."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int, is_cross: bool, dtype,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.heads, self.is_cross = heads, is_cross
+        self.to_q = nn.Linear(dim, dim, bias=False, **kw)
+        self.to_k = nn.Linear(context_dim, dim, bias=False, **kw)
+        self.to_v = nn.Linear(context_dim, dim, bias=False, **kw)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim, **kw)])
+
+    def forward(self, x, context=None, *, edit_cfg: EditConfig,
+                edit_state: Optional[EditState], block_index: int, place: str):
+        ctx = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if self.is_cross:
+            h = attn_ops.edit_cross_attention(q, k, v, self.heads, edit_cfg, edit_state)
+        else:
+            h = attn_ops.edit_self_attention(
+                q, k, v, self.heads, edit_cfg, edit_state, block_index, place
+            )
+        return self.to_out[0](h)
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attn + cross-attn + GEGLU feed-forward with pre-LayerNorms."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int, dtype, device=None):
+        super().__init__()
+        self.norm1 = LayerNorm32(dim, device=device)
+        self.attn1 = EditAttention(dim, dim, heads, False, dtype, device)
+        self.norm2 = LayerNorm32(dim, device=device)
+        self.attn2 = EditAttention(dim, context_dim, heads, True, dtype, device)
+        self.norm3 = LayerNorm32(dim, device=device)
+        self.ff = FeedForward(dim, dtype, device)
+
+    def forward(self, x, context, *, edit_cfg, edit_state, block_index, place):
+        kw = dict(edit_cfg=edit_cfg, edit_state=edit_state, block_index=block_index,
+                  place=place)
+        x = x + self.attn1(self.norm1(x), **kw)
+        x = x + self.attn2(self.norm2(x), context, **kw)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """Transformer2DModel with 1x1-conv projections: GN -> proj_in ->
+    depth x block -> proj_out + skip.  Block d gets block_index + d."""
+
+    def __init__(self, ch: int, context_dim: int, heads: int, groups: int, depth: int,
+                 dtype, device=None):
+        super().__init__()
+        self.norm = GroupNorm32(groups, ch, 1e-6, device)
+        self.proj_in = nn.Conv2d(ch, ch, 1, dtype=dtype, device=device)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(ch, context_dim, heads, dtype, device) for _ in range(depth)
+        ])
+        self.proj_out = nn.Conv2d(ch, ch, 1, dtype=dtype, device=device)
+
+    def forward(self, x, context, *, edit_cfg, edit_state, block_index, place):
+        b, c, hh, ww = x.shape
+        h = self.proj_in(self.norm(x))
+        h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        for d, blk in enumerate(self.transformer_blocks):
+            h = blk(h, context, edit_cfg=edit_cfg, edit_state=edit_state,
+                    block_index=block_index + d, place=place)
+        h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        return self.proj_out(h) + x
