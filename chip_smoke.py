@@ -97,10 +97,12 @@ FLASH_SHAPES = [
     (2, 1, 4096, 512, "float32", 2),
 ]
 # check-only: masked keys with fully masked rows, ragged lengths
-FLASH_EXTRA = [(2, 8, 1000, 80, "bfloat16"), (2, 1, 300, 512, "float32"), (3, 2, 77, 16, "float32")]
+FLASH_EXTRA = [(2, 8, 1000, 80, "bfloat16"), (2, 1, 300, 512, "float32"),
+               (3, 2, 77, 16, "float32"), (3, 2, 77, 16, "bfloat16"), (1, 2, 5, 24, "bfloat16")]
 # TCA after the head-parity split: batch 2*3 streams, 4 heads
 TCA_SHAPES = [(6, 4, 1024, 80, "bfloat16", 45), (6, 4, 4096, 40, "bfloat16", 45)]
-TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32")]
+TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
+             (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
 
 
 def _inputs(gen, b, h, s, d, dtype, n):
@@ -312,7 +314,10 @@ def profile_edit(pipe, run):
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    rows = sorted(((e.key, dev_us(e), e.count) for e in events if dev_us(e) > 0),
+    # device-side events only: an aten op's own entry repeats its kernels' time
+    kernels = [e for e in events
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    rows = sorted(((e.key, dev_us(e), e.count) for e in kernels if dev_us(e) > 0),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

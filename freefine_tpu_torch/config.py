@@ -23,9 +23,6 @@ class UNetConfig:
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     num_attention_heads: int = 8
-    # per-level heads = block_out_channels[level] // head_dim when set
-    head_dim: Optional[int] = None
-    use_linear_projection: bool = False
     cross_attention_dim: int = 768
     down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
     up_block_has_attn: Tuple[bool, ...] = (False, True, True, True)
@@ -53,11 +50,6 @@ class UNetConfig:
         )
         return down + mid + up, down + mid
 
-    def heads_at(self, level: int) -> int:
-        if self.head_dim is not None:
-            return self.block_out_channels[level] // self.head_dim
-        return self.num_attention_heads
-
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
@@ -83,7 +75,6 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_length: int = 77
-    activation: str = "quick_gelu"
     dtype: torch.dtype = torch.bfloat16
 
 

@@ -11,6 +11,8 @@
 //   * keys past the sequence end are excluded (probability exactly 0);
 //   * with bf16 operands the probabilities are rounded to bf16 before the
 //     P.V product, whose sum stays float32.
+// bf16 operands run on the tensor cores (mma.sync); float32 operands on the
+// FMA pipes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,9 +37,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Eight consecutive elements -> float[8].  p is 16-byte aligned (bf16) or
-// 32-byte aligned (float); the wrappers check head dims are multiples of 8
-// and base pointers are 16-byte aligned.
+// Eight consecutive floats (32-byte aligned: head dims are multiples of 8 and
+// base pointers 16-byte aligned, checked by the wrappers).
 __device__ __forceinline__ void load8(const float* p, float* o) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -45,37 +46,13 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
-// Probability as the P.V product sees it: rounded to the value dtype.
-template <typename T> __device__ __forceinline__ float as_operand(float x);
-template <> __device__ __forceinline__ float as_operand<float>(float x) { return x; }
-template <> __device__ __forceinline__ float as_operand<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Copy rows [row0, row0 + nrows) of one head into shared memory as float32,
+// float32 kernels: copy rows [row0, row0 + nrows) of one head into shared memory,
 // row stride DP + 4 floats (DP = head dim padded to the template width).
 // base points at element (s = 0, c = 0) of the head; rows are `stride`
 // elements apart.  Rows past `rows_valid` and columns past `d` are zero,
 // so the padding never reaches a dot product.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, int row0, int nrows,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* base, int row0, int nrows,
                                           int rows_valid, int stride, int d, int tid,
                                           int nthreads) {
   constexpr int kChunks = DP / 8;
@@ -94,6 +71,179 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, int row0, i
     float* o = dst + r * kLd + c;
     *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
     *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core pieces for the bf16 kernels: mma.sync m16n8k16 (bf16 in, f32
+// accumulate).  Fragment layout, with g = lane / 4 and t = lane % 4:
+//   A (16x16, row major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
+//                         a3 = (g+8, 2t+8..)
+//   B (16x8, "col"):      b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
+//   C (16x8, f32):        c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// Shared-memory tiles are bf16 with rows padded by 8 elements, which makes the
+// 32-bit fragment loads of the 8 rows x 4 columns a warp touches hit 32
+// distinct banks for every width that is a multiple of 16.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats -> packed bf16x2 (lo in the low half), round to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Rows [row0, row0 + nrows) of one head into a bf16 tile [nrows][COLS + 8],
+// 16 bytes per copy; rows past rows_valid and columns past d are zero.
+template <int COLS>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base, int row0, int nrows,
+                                               int rows_valid, int stride, int d, int tid,
+                                               int nthreads) {
+  constexpr int kChunks = COLS / 8;
+  constexpr int kLd = COLS + 8;
+  for (int idx = tid; idx < nrows * kChunks; idx += nthreads) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const int s = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (s < rows_valid && c < d) v = *reinterpret_cast<const uint4*>(base + (size_t)s * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) = v;
+  }
+}
+
+// The same rows stored transposed: dst[c][r] with row stride NROWS + 8, so
+// that P.V reads V's columns as contiguous pairs of keys.
+template <int COLS, int NROWS>
+__device__ __forceinline__ void load_tile_bf16_t(bf16* dst, const bf16* base, int row0,
+                                                 int rows_valid, int stride, int d, int tid,
+                                                 int nthreads) {
+  constexpr int kChunks = COLS / 8;
+  constexpr int kLd = NROWS + 8;
+  for (int idx = tid; idx < NROWS * kChunks; idx += nthreads) {
+    const int r = idx % NROWS;  // consecutive threads: consecutive keys
+    const int c = (idx / NROWS) * 8;
+    const int s = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (s < rows_valid && c < d) v = *reinterpret_cast<const uint4*>(base + (size_t)s * stride + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(c + i) * kLd + r] = e[i];
+  }
+}
+
+// A warp's 16 query rows of the Q tile -> A fragments for every 16-wide
+// k-step of the head dim.
+template <int KT, int LDK>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[KT][4], const bf16* qw, int g, int t) {
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    const bf16* r0 = qw + g * LDK + kt * 16 + 2 * t;
+    const bf16* r1 = r0 + 8 * LDK;
+    qa[kt][0] = ld_u32(r0);
+    qa[kt][1] = ld_u32(r1);
+    qa[kt][2] = ld_u32(r0 + 8);
+    qa[kt][3] = ld_u32(r1 + 8);
+  }
+}
+
+// s[16 x 8*NT] = Q (16 x 16*KT) . K_tile^T; K tile [8*NT][LDK] in shared memory.
+template <int KT, int NT, int LDK>
+__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qa)[KT][4],
+                                        const bf16* ks, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  }
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const bf16* kr = ks + (nt * 8 + g) * LDK + kt * 16 + 2 * t;
+      mma_bf16(s[nt], qa[kt], ld_u32(kr), ld_u32(kr + 8));
+    }
+  }
+}
+
+// Online softmax over one key tile for the thread's two rows (g, g + 8):
+// update the running max m and partial sum l, rescale the accumulator o, and
+// turn the logits s into probabilities in place.  The row max is reduced
+// over the 4 lanes sharing a row; l stays a per-lane partial sum.
+template <int NT, int OT>
+__device__ __forceinline__ void softmax_update(float (&s)[NT][4], float (&o)[OT][4],
+                                               float (&m)[2], float (&l)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+  }
+  float corr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    const float mn = fmaxf(m[hh], mx[hh]);
+    corr[hh] = __expf(m[hh] - mn);
+    m[hh] = mn;
+    l[hh] *= corr[hh];
+  }
+#pragma unroll
+  for (int ot = 0; ot < OT; ++ot) {
+    o[ot][0] *= corr[0];
+    o[ot][1] *= corr[0];
+    o[ot][2] *= corr[1];
+    o[ot][3] *= corr[1];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(s[nt][e] - m[e >> 1]);
+      l[e >> 1] += p;
+      s[nt][e] = p;
+    }
+  }
+}
+
+// o[16 x 8*OT] += P (16 x 8*NT, rounded to bf16) . V_tile; V stored
+// transposed in shared memory as vt[8*OT][LDV].
+template <int NT, int OT, int LDV>
+__device__ __forceinline__ void pv_tile(float (&o)[OT][4], const float (&p)[NT][4],
+                                        const bf16* vt, int g, int t) {
+#pragma unroll
+  for (int kt = 0; kt < NT / 2; ++kt) {
+    const uint32_t pa[4] = {
+        pack_bf16(p[2 * kt][0], p[2 * kt][1]), pack_bf16(p[2 * kt][2], p[2 * kt][3]),
+        pack_bf16(p[2 * kt + 1][0], p[2 * kt + 1][1]),
+        pack_bf16(p[2 * kt + 1][2], p[2 * kt + 1][3])};
+#pragma unroll
+    for (int ot = 0; ot < OT; ++ot) {
+      const bf16* vr = vt + (ot * 8 + g) * LDV + kt * 16 + 2 * t;
+      mma_bf16(o[ot], pa, ld_u32(vr), ld_u32(vr + 8));
+    }
+  }
+}
+
+// Full row sums of the two rows from the per-lane partials.
+__device__ __forceinline__ void finish_rows(float (&l)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = fmaxf(l[hh], 1e-30f);
   }
 }
 

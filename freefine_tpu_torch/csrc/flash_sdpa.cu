@@ -16,24 +16,27 @@
 // (B*H=2, S=4096) is 69 GFLOP of f32 FMA (1 ms).  Everything is far above
 // the memory line: attention at these shapes is compute bound.
 //
-// Design (the first, simple version): one block per (query tile, b*h);
-// a loop over key tiles of 32 keys, one key per lane; float32 running max,
-// sum and accumulators.  Each warp owns ROWS query rows.  Q, K and V tiles
-// are staged in shared memory as float32 (bf16 is widened on load; head
-// dims are zero-padded in shared memory to the template width DP, never
-// copied in device memory), rows padded by 4 floats so the per-lane float4
-// reads of K rows are free of bank conflicts.  QK^T and P.V run on the FMA
-// pipes, not the tensor cores: this version does not reach the bound and
-// is the correctness baseline for a wgmma/TMA version.  Its measured time
-// is in PERF.md.
+// Design (first versions; wgmma/TMA and pipelined tiles are later work):
+// one block per (64- or 32-query tile, b*h), a loop over key tiles, float32
+// running max, sum and accumulators.  Head dims are zero-padded in shared
+// memory, never copied in device memory; keys past Sk are excluded.
+//   * bf16 (the UNet, d <= 160): 4 warps of 16 query rows; S = Q K^T and
+//     O += P V on the tensor cores (mma.sync m16n8k16, f32 accumulate), the
+//     Q fragments held in registers, V staged transposed so P.V reads key
+//     pairs; online softmax on the accumulator fragments.
+//   * float32 (the VAE, d = 512): FMA pipes, one key per lane, ROWS query
+//     rows per warp; 32-key tiles keep the f32 K and V tiles inside shared
+//     memory at d = 512 (no cast to bf16: the JAX package feeds f32 here).
+// Measured times against the bound: PERF.md.
 #include "attention_common.cuh"
 
 namespace ff {
 
-template <typename T, int DP, int WARPS, int ROWS>
+// float32 version (FMA pipes).
+template <int DP, int WARPS, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ key_mask, T* __restrict__ out, int heads, int sq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ key_mask, float* __restrict__ out, int heads, int sq,
                  int sk, int d, float scale) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
@@ -49,12 +52,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
   const int e = heads * d;
   const int q0 = blockIdx.x * kBQ;
-  const T* qb = q + (size_t)b * sq * e + h * d;
-  const T* kb = k + (size_t)b * sk * e + h * d;
-  const T* vb = v + (size_t)b * sk * e + h * d;
+  const float* qb = q + (size_t)b * sq * e + h * d;
+  const float* kb = k + (size_t)b * sk * e + h * d;
+  const float* vb = v + (size_t)b * sk * e + h * d;
   const float* mb = key_mask ? key_mask + (size_t)b * sk : nullptr;
 
-  load_tile<T, DP>(qs, qb, q0, kBQ, sq, e, d, tid, nthreads);
+  load_tile<DP>(qs, qb, q0, kBQ, sq, e, d, tid, nthreads);
 
   float m[ROWS], l[ROWS], acc[ROWS][kNC];
 #pragma unroll
@@ -69,8 +72,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = 0; k0 < sk; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and Q is in place)
-    load_tile<T, DP>(ks, kb, k0, kBK, sk, e, d, tid, nthreads);
-    load_tile<T, DP>(vs, vb, k0, kBK, sk, e, d, tid, nthreads);
+    load_tile<DP>(ks, kb, k0, kBK, sk, e, d, tid, nthreads);
+    load_tile<DP>(vs, vb, k0, kBK, sk, e, d, tid, nthreads);
     __syncthreads();
 
     // logits of this lane's key against the warp's ROWS queries
@@ -105,7 +108,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int i = 0; i < kNC; ++i) acc[r][i] *= corr;
       m[r] = mn;
-      pw[r * kBK + lane] = as_operand<T>(p);
+      pw[r * kBK + lane] = p;
     }
     __syncwarp();
 
@@ -142,24 +145,140 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float lt = fmaxf(warp_sum(l[r]), 1e-30f);
     const int qi = q0 + warp * ROWS + r;
     if (qi < sq) {
-      T* o = out + ((size_t)b * sq + qi) * e + h * d;
+      float* o = out + ((size_t)b * sq + qi) * e + h * d;
 #pragma unroll
       for (int i = 0; i < kNC; ++i) {
         const int c = lane + 32 * i;
-        if (c < d) o[c] = from_float<T>(acc[r][i] / lt);
+        if (c < d) o[c] = (acc[r][i] / lt);
       }
     }
   }
 }
 
-template <typename T, int DP, int WARPS, int ROWS>
+// Tensor-core version for bf16 operands (head dim <= 160): 4 warps, 16 query
+// rows each; per key tile of BK keys, S = Q K^T and O += P V on mma.sync
+// m16n8k16 with f32 accumulation.  DK is the head dim padded to the mma
+// depth 16 (zeros in shared memory), DV the output width (multiple of 8).
+template <int DK, int DV, int BK>
+__global__ void __launch_bounds__(128)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                     bf16* __restrict__ out, int heads, int sq, int sk, int d, float scale) {
+  constexpr int kBQ = 64;
+  constexpr int kLdK = DK + 8, kLdV = BK + 8;
+  constexpr int kKT = DK / 16, kNT = BK / 8, kOT = DV / 8;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* ks = qs + kBQ * kLdK;
+  bf16* vt = ks + BK * kLdK;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int e = heads * d;
+  const int q0 = blockIdx.x * kBQ;
+  const bf16* kb = k + (size_t)b * sk * e + h * d;
+  const bf16* vb = v + (size_t)b * sk * e + h * d;
+  const float* mb = key_mask ? key_mask + (size_t)b * sk : nullptr;
+
+  load_tile_bf16<DK>(qs, q + (size_t)b * sq * e + h * d, q0, kBQ, sq, e, d, tid, 128);
+  __syncthreads();
+  uint32_t qa[kKT][4];
+  load_q_frags<kKT, kLdK>(qa, qs + warp * 16 * kLdK, g, t);
+
+  float o[kOT][4], m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int ot = 0; ot < kOT; ++ot) o[ot][0] = o[ot][1] = o[ot][2] = o[ot][3] = 0.f;
+
+  for (int k0 = 0; k0 < sk; k0 += BK) {
+    __syncthreads();
+    load_tile_bf16<DK>(ks, kb, k0, BK, sk, e, d, tid, 128);
+    load_tile_bf16_t<DV, BK>(vt, vb, k0, sk, e, d, tid, 128);
+    __syncthreads();
+
+    float s[kNT][4];
+    qk_tile<kKT, kNT, kLdK>(s, qa, ks, g, t);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = k0 + nt * 8 + 2 * t + (c & 1);
+        float x = -INFINITY;
+        if (col < sk) {
+          x = s[nt][c] * scale;
+          if (mb) x += (mb[col] - 1.0f) * kMaskBias;
+        }
+        s[nt][c] = x;
+      }
+    }
+    softmax_update<kNT, kOT>(s, o, m, l);
+    pv_tile<kNT, kOT, kLdV>(o, s, vt, g, t);
+  }
+
+  finish_rows(l);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + warp * 16 + g + 8 * hh;
+    if (row < sq) {
+      bf16* orow = out + ((size_t)b * sq + row) * e + h * d;
+#pragma unroll
+      for (int ot = 0; ot < kOT; ++ot) {
+        const int col = ot * 8 + 2 * t;
+        if (col < d) {
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o[ot][2 * hh] / l[hh], o[ot][2 * hh + 1] / l[hh]);
+        }
+      }
+    }
+  }
+}
+
+template <int DK, int DV, int BK>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       int batch, int heads, int sq, int sk, int d, float scale,
+                       cudaStream_t stream) {
+  constexpr int kBQ = 64;
+  const size_t smem = sizeof(bf16) * (size_t)((kBQ + BK) * (DK + 8) + DV * (BK + 8));
+  auto kern = flash_fwd_mma_kernel<DK, DV, BK>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
+  kern<<<grid, 128, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(mask), static_cast<bf16*>(out), heads, sq, sk, d, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void* mask,
+                         void* out, int batch, int heads, int sq, int sk, int d, float scale,
+                         cudaStream_t stream) {
+#define FF_MMA_CASE(DK, DV)                                                                 \
+  if (d <= DV)                                                                              \
+    return launch_mma<DK, DV, 64>(q, k, v, mask, out, batch, heads, sq, sk, d, scale, stream);
+  FF_MMA_CASE(16, 16)
+  FF_MMA_CASE(32, 32)
+  FF_MMA_CASE(48, 40)
+  FF_MMA_CASE(64, 64)
+  FF_MMA_CASE(80, 80)
+  FF_MMA_CASE(128, 128)
+  FF_MMA_CASE(160, 160)
+#undef FF_MMA_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <int DP, int WARPS, int ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    int batch, int heads, int sq, int sk, int d, float scale,
                    cudaStream_t stream) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
   const size_t smem = sizeof(float) * (size_t)(kBQ * kLd + 2 * kBK * kLd + kBQ * kBK);
-  auto kern = flash_fwd_kernel<T, DP, WARPS, ROWS>;
+  auto kern = flash_fwd_kernel<DP, WARPS, ROWS>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err =
@@ -169,26 +288,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
   kern<<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mask), static_cast<T*>(out), heads, sq, sk, d, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(mask), static_cast<float*>(out), heads, sq, sk, d, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                     int batch, int heads, int sq, int sk, int d, float scale,
-                     cudaStream_t stream) {
-#define FF_FLASH_CASE(DP, W, R)                                                       \
-  if (d <= DP)                                                                        \
-    return launch<T, DP, W, R>(q, k, v, mask, out, batch, heads, sq, sk, d, scale, \
-                               stream);
+cudaError_t dispatch_fma(const void* q, const void* k, const void* v, const void* mask,
+                         void* out, int batch, int heads, int sq, int sk, int d, float scale,
+                         cudaStream_t stream) {
+#define FF_FLASH_CASE(DP, W, R) \
+  if (d <= DP) return launch<DP, W, R>(q, k, v, mask, out, batch, heads, sq, sk, d, scale, stream);
   FF_FLASH_CASE(16, 8, 8)
   FF_FLASH_CASE(32, 8, 8)
-  FF_FLASH_CASE(40, 8, 8)
   FF_FLASH_CASE(64, 8, 8)
-  FF_FLASH_CASE(80, 8, 8)
   FF_FLASH_CASE(128, 8, 8)
-  FF_FLASH_CASE(160, 8, 8)
   FF_FLASH_CASE(512, 4, 4)
 #undef FF_FLASH_CASE
   return cudaErrorInvalidValue;
@@ -196,16 +309,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* ma
 
 }  // namespace ff
 
-// dtype: 0 = float32, 1 = bfloat16.  mask may be null.  Returns the CUDA
-// error of the launch (0 = launched).
+// dtype: 0 = float32 (FMA kernel, d <= 512), 1 = bfloat16 (tensor cores,
+// d <= 160); d a multiple of 8.  mask may be null.  Returns the CUDA error of
+// the launch (0 = launched).
 extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* out, int batch, int heads, int sq, int sk, int d,
                               float scale, int dtype, void* stream) {
-  if (d <= 0 || d > 512 || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 8 != 0 || d > (dtype == 1 ? 160 : 512)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1 ? ff::dispatch<__nv_bfloat16>(q, k, v, mask, out, batch, heads, sq, sk, d,
-                                                scale, s)
-                 : ff::dispatch<float>(q, k, v, mask, out, batch, heads, sq, sk, d, scale, s);
-  return (int)err;
+  return (int)(dtype == 1
+                   ? ff::dispatch_mma(q, k, v, mask, out, batch, heads, sq, sk, d, scale, s)
+                   : ff::dispatch_fma(q, k, v, mask, out, batch, heads, sq, sk, d, scale, s));
 }

@@ -23,22 +23,25 @@
 // and finite (its weight 1 - tq is 0, and a NaN would survive the 0 weight);
 // -inf masking would be wrong here.
 //
-// Design (first, simple version): one block per (query tile, b*h), a loop
-// over 32-key tiles with one key per lane, float32 statistics and three
-// float32 accumulators per query row (ROWS rows per warp).  The four K/V
-// tiles are staged in shared memory as float32, zero-padded to the
-// template head width DP.  The products run on the FMA pipes; a
-// tensor-core (wgmma) version is later work.  Measured times: PERF.md.
+// Design (first versions; wgmma/TMA are later work): one block per (query
+// tile, b*h), a loop over 32-key tiles, float32 statistics and three float32
+// accumulators per query row; head dims zero-padded in shared memory.
+//   * bf16 (the UNet's TCA layers, d <= 80): 4 warps of 16 query rows, the two
+//     QK^T and three P.V products on the tensor cores (mma.sync m16n8k16),
+//     the three accumulators in registers (252 registers at d = 80).
+//   * float32 (tests and the tiny config): FMA pipes, one key per lane.
+// Measured times: PERF.md.
 #include "attention_common.cuh"
 
 namespace ff {
 
-template <typename T, int DP, int WARPS, int ROWS>
+// float32 version (FMA pipes).
+template <int DP, int WARPS, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32)
-tca_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_self,
-               const T* __restrict__ v_self, const T* __restrict__ k_mod,
-               const T* __restrict__ v_mod, const float* __restrict__ fg,
-               const float* __restrict__ tq, float cg, T* __restrict__ out, int heads, int seq,
+tca_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k_self,
+               const float* __restrict__ v_self, const float* __restrict__ k_mod,
+               const float* __restrict__ v_mod, const float* __restrict__ fg,
+               const float* __restrict__ tq, float cg, float* __restrict__ out, int heads, int seq,
                int d, float scale) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
@@ -59,7 +62,7 @@ tca_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_self,
   const size_t off = (size_t)b * seq * e + h * d;
   const float* fgb = fg + (size_t)b * seq;
 
-  load_tile<T, DP>(qs, q + off, q0, kBQ, seq, e, d, tid, nthreads);
+  load_tile<DP>(qs, q + off, q0, kBQ, seq, e, d, tid, nthreads);
 
   float m[3][ROWS], l[3][ROWS], acc[3][ROWS][kNC];
 #pragma unroll
@@ -79,10 +82,10 @@ tca_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_self,
 
   for (int k0 = 0; k0 < seq; k0 += kBK) {
     __syncthreads();
-    load_tile<T, DP>(kss, k_self + off, k0, kBK, seq, e, d, tid, nthreads);
-    load_tile<T, DP>(vss, v_self + off, k0, kBK, seq, e, d, tid, nthreads);
-    load_tile<T, DP>(kms, k_mod + off, k0, kBK, seq, e, d, tid, nthreads);
-    load_tile<T, DP>(vms, v_mod + off, k0, kBK, seq, e, d, tid, nthreads);
+    load_tile<DP>(kss, k_self + off, k0, kBK, seq, e, d, tid, nthreads);
+    load_tile<DP>(vss, v_self + off, k0, kBK, seq, e, d, tid, nthreads);
+    load_tile<DP>(kms, k_mod + off, k0, kBK, seq, e, d, tid, nthreads);
+    load_tile<DP>(vms, v_mod + off, k0, kBK, seq, e, d, tid, nthreads);
     __syncthreads();
 
     float s_self[ROWS], s_mod[ROWS];
@@ -127,7 +130,7 @@ tca_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_self,
 #pragma unroll
         for (int i = 0; i < kNC; ++i) acc[a][r][i] *= corr;
         m[a][r] = mn;
-        pw[a][r * kBK + lane] = as_operand<T>(p);
+        pw[a][r * kBK + lane] = p;
       }
     }
     __syncwarp();
@@ -181,7 +184,7 @@ tca_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_self,
     const int qi = q0 + warp * ROWS + r;
     if (qi < seq) {
       const float t = tq[(size_t)b * seq + qi];
-      T* o = out + ((size_t)b * seq + qi) * e + h * d;
+      float* o = out + ((size_t)b * seq + qi) * e + h * d;
 #pragma unroll
       for (int i = 0; i < kNC; ++i) {
         const int c = lane + 32 * i;
@@ -190,21 +193,170 @@ tca_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_self,
           const float o_fg = acc[1][r][i] / lf;
           const float o_bg = acc[2][r][i] / lb;
           const float modulated = t * o_fg + (1.0f - t) * o_bg;
-          o[c] = from_float<T>(cg * modulated + (1.0f - cg) * o_self);
+          o[c] = (cg * modulated + (1.0f - cg) * o_self);
         }
       }
     }
   }
 }
 
-template <typename T, int DP, int WARPS, int ROWS>
+// Tensor-core version for bf16 operands (head dim <= 80): 4 warps of 16
+// query rows; per 32-key tile two S = Q K^T products (self, mod) and three
+// P.V products on mma.sync m16n8k16, three online softmaxes in registers.
+template <int DK, int DV, int BK>
+__global__ void __launch_bounds__(128)
+tca_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_self,
+                   const bf16* __restrict__ v_self, const bf16* __restrict__ k_mod,
+                   const bf16* __restrict__ v_mod, const float* __restrict__ fg,
+                   const float* __restrict__ tq, float cg, bf16* __restrict__ out, int heads,
+                   int seq, int d, float scale) {
+  constexpr int kBQ = 64;
+  constexpr int kLdK = DK + 8, kLdV = BK + 8;
+  constexpr int kKT = DK / 16, kNT = BK / 8, kOT = DV / 8;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* kss = qs + kBQ * kLdK;
+  bf16* kms = kss + BK * kLdK;
+  bf16* vts = kms + BK * kLdK;
+  bf16* vtm = vts + DV * kLdV;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int e = heads * d;
+  const int q0 = blockIdx.x * kBQ;
+  const size_t off = (size_t)b * seq * e + h * d;
+  const float* fgb = fg + (size_t)b * seq;
+
+  load_tile_bf16<DK>(qs, q + off, q0, kBQ, seq, e, d, tid, 128);
+  __syncthreads();
+  uint32_t qa[kKT][4];
+  load_q_frags<kKT, kLdK>(qa, qs + warp * 16 * kLdK, g, t);
+
+  // accumulators and statistics of the self, fg and bg passes
+  float os[kOT][4], of[kOT][4], ob[kOT][4];
+  float m[3][2], l[3][2];
+#pragma unroll
+  for (int ot = 0; ot < kOT; ++ot) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) os[ot][c] = of[ot][c] = ob[ot][c] = 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    m[a][0] = m[a][1] = kMInit;
+    l[a][0] = l[a][1] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < seq; k0 += BK) {
+    __syncthreads();
+    load_tile_bf16<DK>(kss, k_self + off, k0, BK, seq, e, d, tid, 128);
+    load_tile_bf16<DK>(kms, k_mod + off, k0, BK, seq, e, d, tid, 128);
+    load_tile_bf16_t<DV, BK>(vts, v_self + off, k0, seq, e, d, tid, 128);
+    load_tile_bf16_t<DV, BK>(vtm, v_mod + off, k0, seq, e, d, tid, 128);
+    __syncthreads();
+
+    float ss[kNT][4], sb[kNT][4], sf[kNT][4];
+    qk_tile<kKT, kNT, kLdK>(ss, qa, kss, g, t);
+    qk_tile<kKT, kNT, kLdK>(sb, qa, kms, g, t);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = k0 + nt * 8 + 2 * t + (c & 1);
+        if (col < seq) {
+          const float fgc = fgb[col];
+          const float x = sb[nt][c] * scale;
+          ss[nt][c] *= scale;
+          sf[nt][c] = x + (fgc - 1.0f) * kMaskBias;
+          sb[nt][c] = x + fgc * -kMaskBias;
+        } else {
+          ss[nt][c] = sf[nt][c] = sb[nt][c] = -INFINITY;
+        }
+      }
+    }
+    softmax_update<kNT, kOT>(ss, os, m[0], l[0]);
+    softmax_update<kNT, kOT>(sf, of, m[1], l[1]);
+    softmax_update<kNT, kOT>(sb, ob, m[2], l[2]);
+    pv_tile<kNT, kOT, kLdV>(os, ss, vts, g, t);
+    pv_tile<kNT, kOT, kLdV>(of, sf, vtm, g, t);
+    pv_tile<kNT, kOT, kLdV>(ob, sb, vtm, g, t);
+  }
+
+#pragma unroll
+  for (int a = 0; a < 3; ++a) finish_rows(l[a]);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + warp * 16 + g + 8 * hh;
+    if (row < seq) {
+      const float w = tq[(size_t)b * seq + row];
+      bf16* orow = out + ((size_t)b * seq + row) * e + h * d;
+#pragma unroll
+      for (int ot = 0; ot < kOT; ++ot) {
+        const int col = ot * 8 + 2 * t;
+        if (col < d) {
+          float r[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int i = 2 * hh + c;
+            const float o_self = os[ot][i] / l[0][hh];
+            const float o_fg = of[ot][i] / l[1][hh];
+            const float o_bg = ob[ot][i] / l[2][hh];
+            r[c] = cg * (w * o_fg + (1.0f - w) * o_bg) + (1.0f - cg) * o_self;
+          }
+          *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(r[0], r[1]);
+        }
+      }
+    }
+  }
+}
+
+template <int DK, int DV, int BK>
+cudaError_t launch_mma(const void* q, const void* ks, const void* vs, const void* km,
+                       const void* vm, const void* fg, const void* tq, float cg, void* out,
+                       int batch, int heads, int seq, int d, float scale, cudaStream_t stream) {
+  constexpr int kBQ = 64;
+  const size_t smem = sizeof(bf16) * (size_t)((kBQ + 2 * BK) * (DK + 8) + 2 * DV * (BK + 8));
+  auto kern = tca_fwd_mma_kernel<DK, DV, BK>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
+  kern<<<grid, 128, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(ks), static_cast<const bf16*>(vs),
+      static_cast<const bf16*>(km), static_cast<const bf16*>(vm), static_cast<const float*>(fg),
+      static_cast<const float*>(tq), cg, static_cast<bf16*>(out), heads, seq, d, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(const void* q, const void* ks, const void* vs, const void* km,
+                         const void* vm, const void* fg, const void* tq, float cg, void* out,
+                         int batch, int heads, int seq, int d, float scale,
+                         cudaStream_t stream) {
+#define FF_TCA_MMA_CASE(DK, DV)                                                         \
+  if (d <= DV)                                                                          \
+    return launch_mma<DK, DV, 32>(q, ks, vs, km, vm, fg, tq, cg, out, batch, heads, seq, \
+                                  d, scale, stream);
+  FF_TCA_MMA_CASE(16, 16)
+  FF_TCA_MMA_CASE(32, 32)
+  FF_TCA_MMA_CASE(48, 40)
+  FF_TCA_MMA_CASE(64, 64)
+  FF_TCA_MMA_CASE(80, 80)
+#undef FF_TCA_MMA_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <int DP, int WARPS, int ROWS>
 cudaError_t launch(const void* q, const void* ks, const void* vs, const void* km,
                    const void* vm, const void* fg, const void* tq, float cg, void* out,
                    int batch, int heads, int seq, int d, float scale, cudaStream_t stream) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
   const size_t smem = sizeof(float) * (size_t)(kBQ * kLd + 4 * kBK * kLd + 3 * kBQ * kBK);
-  auto kern = tca_fwd_kernel<T, DP, WARPS, ROWS>;
+  auto kern = tca_fwd_kernel<DP, WARPS, ROWS>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err =
@@ -214,26 +366,23 @@ cudaError_t launch(const void* q, const void* ks, const void* vs, const void* km
   }
   const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
   kern<<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ks), static_cast<const T*>(vs),
-      static_cast<const T*>(km), static_cast<const T*>(vm), static_cast<const float*>(fg),
-      static_cast<const float*>(tq), cg, static_cast<T*>(out), heads, seq, d, scale);
+      static_cast<const float*>(q), static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const float*>(km), static_cast<const float*>(vm), static_cast<const float*>(fg),
+      static_cast<const float*>(tq), cg, static_cast<float*>(out), heads, seq, d, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* ks, const void* vs, const void* km,
-                     const void* vm, const void* fg, const void* tq, float cg, void* out,
-                     int batch, int heads, int seq, int d, float scale, cudaStream_t stream) {
-#define FF_TCA_CASE(DP, W, R)                                                            \
-  if (d <= DP)                                                                           \
-    return launch<T, DP, W, R>(q, ks, vs, km, vm, fg, tq, cg, out, batch, heads, seq, d, \
-                               scale, stream);
+cudaError_t dispatch_fma(const void* q, const void* ks, const void* vs, const void* km,
+                         const void* vm, const void* fg, const void* tq, float cg, void* out,
+                         int batch, int heads, int seq, int d, float scale,
+                         cudaStream_t stream) {
+#define FF_TCA_CASE(DP, W, R)                                                                \
+  if (d <= DP)                                                                               \
+    return launch<DP, W, R>(q, ks, vs, km, vm, fg, tq, cg, out, batch, heads, seq, d, scale, \
+                            stream);
   FF_TCA_CASE(16, 8, 4)
   FF_TCA_CASE(32, 8, 4)
-  FF_TCA_CASE(40, 8, 4)
   FF_TCA_CASE(64, 8, 4)
-  FF_TCA_CASE(80, 8, 4)
-  FF_TCA_CASE(128, 8, 2)
   FF_TCA_CASE(160, 8, 2)
 #undef FF_TCA_CASE
   return cudaErrorInvalidValue;
@@ -241,17 +390,16 @@ cudaError_t dispatch(const void* q, const void* ks, const void* vs, const void* 
 
 }  // namespace ff
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the CUDA error of the launch.
+// dtype: 0 = float32 (FMA kernel, d <= 160), 1 = bfloat16 (tensor cores,
+// d <= 80); d a multiple of 8.  Returns the CUDA error of the launch.
 extern "C" int tca_flash_fwd(const void* q, const void* k_self, const void* v_self,
                              const void* k_mod, const void* v_mod, const void* fg,
                              const void* tq, float cg, void* out, int batch, int heads, int seq,
                              int d, float scale, int dtype, void* stream) {
-  if (d <= 0 || d > 160 || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 8 != 0 || d > (dtype == 1 ? 80 : 160)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 1 ? ff::dispatch<__nv_bfloat16>(q, k_self, v_self, k_mod, v_mod, fg, tq, cg,
-                                                out, batch, heads, seq, d, scale, s)
-                 : ff::dispatch<float>(q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out,
-                                       batch, heads, seq, d, scale, s);
-  return (int)err;
+  return (int)(dtype == 1 ? ff::dispatch_mma(q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out,
+                                             batch, heads, seq, d, scale, s)
+                          : ff::dispatch_fma(q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out,
+                                             batch, heads, seq, d, scale, s));
 }

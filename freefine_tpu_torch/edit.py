@@ -14,6 +14,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 DEFAULT_LAYER_RANGE = (10, 16)
+# UNet stages whose self-attention TCA modulates (the decoder).
+TCA_SCOPE = ("up",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +27,6 @@ class EditConfig:
     method: Optional[str] = None
     local_cfg: bool = True
     layer_range: Tuple[int, int] = DEFAULT_LAYER_RANGE
-    tca_scope: Tuple[str, ...] = ("up",)
-    # Reference-stream semantics: False replicates the reference's
-    # head-parity mask consumption in every stream (see ops.attention).
-    ref_vanilla: bool = False
 
     def __post_init__(self):
         if self.mode not in ("none", "edit"):

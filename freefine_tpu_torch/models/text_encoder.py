@@ -9,7 +9,6 @@ package: it is not one of the ported kernels.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from freefine_tpu_torch.config import CLIPTextConfig
@@ -44,19 +43,16 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, dim: int, intermediate: int, activation: str, dtype, device=None):
+    """fc1 -> QuickGELU (x * sigmoid(1.702 x), OpenAI CLIP) -> fc2."""
+
+    def __init__(self, dim: int, intermediate: int, dtype, device=None):
         super().__init__()
-        self.activation = activation
         self.fc1 = nn.Linear(dim, intermediate, dtype=dtype, device=device)
         self.fc2 = nn.Linear(intermediate, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
-        if self.activation == "gelu":
-            h = F.gelu(h)
-        else:  # QuickGELU: x * sigmoid(1.702 x)
-            h = h * torch.sigmoid(1.702 * h)
-        return self.fc2(h)
+        return self.fc2(h * torch.sigmoid(1.702 * h))
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -64,8 +60,7 @@ class CLIPEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, cfg.dtype, device)
         self.layer_norm1 = LayerNorm32(cfg.hidden_size, device=device)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.activation, cfg.dtype,
-                           device)
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.dtype, device)
         self.layer_norm2 = LayerNorm32(cfg.hidden_size, device=device)
 
     def forward(self, x, causal_mask):

@@ -31,8 +31,6 @@ class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig, device=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.use_linear_projection:
-            raise NotImplementedError("linear transformer projections (ROADMAP A11)")
         dt, dev = cfg.dtype, device
         ch = cfg.block_out_channels
         nb = len(ch)
@@ -40,7 +38,7 @@ class UNet2DCondition(nn.Module):
         g = cfg.norm_num_groups
 
         def transformer(c, level):
-            return SpatialTransformer(c, cfg.cross_attention_dim, cfg.heads_at(level), g,
+            return SpatialTransformer(c, cfg.cross_attention_dim, cfg.num_attention_heads, g,
                                       cfg.transformer_depth[level], dt, dev)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1, dtype=dt, device=dev)

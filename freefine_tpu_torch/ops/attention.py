@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from freefine_tpu_torch.edit import EditConfig, EditState
+from freefine_tpu_torch.edit import TCA_SCOPE, EditConfig, EditState
 from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa, tca_flash
 
 
@@ -73,12 +73,8 @@ def _tca_fused(q, k_self, v_self, k_mod, v_mod, fg_rows, tq_rows, ecg: float, he
 
 # Stream index of the reference K/V source per edit-layout batch size:
 #   4-stream [u_e, u_r, c_e, c_r] -> [u_r, u_r, c_r, c_r] (legacy layout);
-#   3-stream [u_e, r, c_e]        -> [r, r, r]  (deduped layout);
-#   1-stream [r]                  -> [r].
-_REF_GATHER = {1: (0,), 3: (1, 1, 1), 4: (1, 1, 3, 3)}
-
-# Which streams are edit streams per layout (consulted under ref_vanilla).
-_EDIT_STREAMS = {1: (0,), 3: (1, 0, 1), 4: (1, 0, 1, 0)}
+#   3-stream [u_e, r, c_e]        -> [r, r, r]  (deduped layout).
+_REF_GATHER = {3: (1, 1, 1), 4: (1, 1, 3, 3)}
 
 
 def _ref_stream_gather(x: torch.Tensor) -> torch.Tensor:
@@ -124,15 +120,12 @@ def _merge_parity(x: torch.Tensor, heads: int) -> torch.Tensor:
     return torch.cat([xe, xo], dim=3).reshape(b, s, -1)
 
 
-def _parity_rows(per_token: torch.Tensor, b: int, edit_only: bool = False) -> torch.Tensor:
+def _parity_rows(per_token: torch.Tensor, b: int) -> torch.Tensor:
     """[S] mask -> [2B, S] rows: even-head block masked, odd-head block
-    unmasked.  edit_only masks only the edit streams' even heads."""
-    ones = torch.ones_like(per_token)
-    if edit_only:
-        even = torch.stack([per_token if e else ones for e in _EDIT_STREAMS[b]])
-    else:
-        even = per_token[None].expand(b, -1)
-    return torch.cat([even, ones[None].expand(b, -1)], dim=0)
+    unmasked."""
+    return torch.cat(
+        [per_token[None].expand(b, -1), torch.ones_like(per_token)[None].expand(b, -1)], dim=0
+    )
 
 
 def _check_parity_heads(heads: int) -> None:
@@ -154,7 +147,7 @@ def edit_self_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[Ed
     """Self-attention dispatch by editing mode (modes none / edit)."""
     if cfg.mode == "none" or cfg.method is None or state is None:
         return masked_sdpa(q, k, v, heads)
-    if place not in cfg.tca_scope or not cfg.block_gated(block_index):
+    if place not in TCA_SCOPE or not cfg.block_gated(block_index):
         return masked_sdpa(q, k, v, heads)
     if cfg.mode == "edit":
         return _tca_edit(q, k, v, heads, cfg, state)
@@ -177,8 +170,8 @@ def _tca_edit(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.T
 
     qp, kp, vp = (_split_parity(x, heads) for x in (q, k, v))
     kcp, vcp = _split_parity(kc, heads), _split_parity(vc, heads)
-    rows_fg = _parity_rows(fg_ref, b, cfg.ref_vanilla)
-    rows_tgt = _parity_rows(tgt, b, cfg.ref_vanilla)
+    rows_fg = _parity_rows(fg_ref, b)
+    rows_tgt = _parity_rows(tgt, b)
     fused = _tca_fused(qp, kp, vp, kcp, vcp, rows_fg, rows_tgt,
                        _effective_cg(cfg, state), heads // 2)
     return _merge_parity(fused, heads)

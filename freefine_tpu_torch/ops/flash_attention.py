@@ -86,6 +86,12 @@ def tca_flash_reference(
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Head dims the kernels are built for: bf16 runs on the tensor cores, float32
+# on the FMA pipes (csrc/flash_sdpa.cu, csrc/tca_flash.cu).
+_MAX_HEAD_DIM = {
+    "flash_sdpa": {torch.bfloat16: 160, torch.float32: 512},
+    "tca_flash": {torch.bfloat16: 80, torch.float32: 160},
+}
 
 
 def _check_qkv(name: str, heads: int, q: torch.Tensor, *kv: torch.Tensor) -> int:
@@ -133,8 +139,9 @@ def flash_sdpa(q, k, v, key_mask=None, *, heads: int) -> torch.Tensor:
         return flash_sdpa_reference(q, k, v, key_mask, heads=heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_sdpa: unsupported device {q.device}")
-    if d % 8 or d > 512:
-        raise ValueError(f"flash_sdpa: head dim {d} must be a multiple of 8 and <= 512")
+    limit = _MAX_HEAD_DIM["flash_sdpa"][q.dtype]
+    if d % 8 or d > limit:
+        raise ValueError(f"flash_sdpa: {q.dtype} head dim {d} must be a multiple of 8, <= {limit}")
     ops = (q, k, v) if key_mask is None else (q, k, v, key_mask)
     _check_cuda("flash_sdpa", *ops)
     lib = cuda_build.library("flash_sdpa")
@@ -173,8 +180,9 @@ def tca_flash(
         )
     if q.device.type != "cuda":
         raise ValueError(f"tca_flash: unsupported device {q.device}")
-    if d % 8 or d > 160:
-        raise ValueError(f"tca_flash: head dim {d} must be a multiple of 8 and <= 160")
+    limit = _MAX_HEAD_DIM["tca_flash"][q.dtype]
+    if d % 8 or d > limit:
+        raise ValueError(f"tca_flash: {q.dtype} head dim {d} must be a multiple of 8, <= {limit}")
     _check_cuda("tca_flash", q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask)
     lib = cuda_build.library("tca_flash")
     out = torch.empty_like(q)

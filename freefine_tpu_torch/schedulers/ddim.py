@@ -108,7 +108,7 @@ def ctrl_step(
     model_output: torch.Tensor,
     timestep: int,
     x: torch.Tensor,
-    mask: Optional[torch.Tensor],
+    mask: torch.Tensor,
     eta: float,
     noise: Optional[torch.Tensor],
     ddim_streams_from: Optional[int] = None,
@@ -118,7 +118,7 @@ def ctrl_step(
     DDIM with the mask treated as ones.
 
     model_output, x: [B, H, W, C] (NHWC, as the JAX package);
-    mask: [H, W] (1 = DDPM region) or None; noise: [B, H, W, C] float32
+    mask: [H, W] (1 = DDPM region); noise: [B, H, W, C] float32
     standard normal draws (required when eta > 0).
     """
     dtype = x.dtype
@@ -133,13 +133,7 @@ def ctrl_step(
     pred_x0 = (x32 - _f32(np.sqrt(beta_t)) * eps) / _f32(np.sqrt(alpha_t))
     std_dev_t = np.float32(eta) * np.sqrt(schedule.variance(t))
 
-    if mask is None:
-        mask_b = torch.ones_like(x32)
-    else:
-        m = mask.float()
-        if m.ndim == 2:
-            m = m[None, :, :, None]
-        mask_b = m.expand(x.shape)
+    mask_b = mask.float()[None, :, :, None].expand(x.shape)
 
     b = x.shape[0]
     std = torch.full((b,) + (1,) * (x.ndim - 1), _f32(std_dev_t), device=x.device)

@@ -87,7 +87,7 @@ def _rewrites_for(model: nn.Module):
     raise TypeError(f"no flax key layout known for {type(model).__name__}")
 
 
-def flax_key(path, rewrites=()) -> str:
+def _flax_key(path, rewrites=()) -> str:
     """Flax param path (module names..., leaf) -> diffusers state-dict key."""
     *mods, leaf = path
     segs = [
@@ -108,7 +108,7 @@ def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Ten
     want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree):
-        key = flax_key(path, rewrites)
+        key = _flax_key(path, rewrites)
         a = np.asarray(leaf)
         if path[-1] == "kernel":
             if a.ndim == 4:        # HWIO -> OIHW
@@ -131,12 +131,10 @@ def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Ten
 def random_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill `model` in place with the bench's random-weight scheme; draws
     come from a `torch.Generator` on each parameter's device."""
-    norm_params = {
-        id(p) for m in model.modules() if isinstance(m, NORM_TYPES) for p in (m.weight,)
-    }
+    norm_weights = {id(m.weight) for m in model.modules() if isinstance(m, NORM_TYPES)}
     gens: Dict[torch.device, torch.Generator] = {}
     for p in model.parameters():
-        if id(p) in norm_params:
+        if id(p) in norm_weights:
             p.fill_(1.0)
         elif p.ndim <= 1:
             p.zero_()
