@@ -393,7 +393,8 @@ def phase_sd15(record, timed_runs: int, profile: bool = False):
                  "random weights, batch 1",
     )
     log(f"  SD-1.5 512^2 edit: {record['sd15']['edits_per_min']:.3f} edits/min, "
-        f"s/edit {secs}, peak {peak / 2**30:.2f} GiB, launches {launches}")
+        f"s/edit {secs}, peak {peak / 2**30:.2f} GiB, launches {launches} "
+        f"[{record['card']}]")
     return launches
 
 

@@ -27,7 +27,10 @@
 //   * float32 (the VAE, d = 512): FMA pipes, one key per lane, ROWS query
 //     rows per warp; 32-key tiles keep the f32 K and V tiles inside shared
 //     memory at d = 512 (no cast to bf16: the JAX package feeds f32 here).
-// Measured times against the bound: PERF.md.
+// Against the bound: the tensor cores take both products, which leaves the
+// exponentials (one __expf per logit, on the SFU) and the row max/sum
+// shuffles as the kernel's own work; tile loads are not yet overlapped with
+// compute.  Measured times against the bound: PERF.md.
 #include "attention_common.cuh"
 
 namespace ff {

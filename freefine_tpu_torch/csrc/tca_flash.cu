@@ -30,7 +30,10 @@
 //     QK^T and three P.V products on the tensor cores (mma.sync m16n8k16),
 //     the three accumulators in registers (252 registers at d = 80).
 //   * float32 (tests and the tiny config): FMA pipes, one key per lane.
-// Measured times: PERF.md.
+// Against the bound: the five products go to the tensor cores and fg/bg share
+// one q.k_mod product, so each logit costs one __expf per softmax (three in
+// all) on the SFU, the bound's own term; tile loads are not yet overlapped
+// with compute.  Measured times: PERF.md.
 #include "attention_common.cuh"
 
 namespace ff {

@@ -94,9 +94,11 @@ def test_masked_sdpa_matches_jax(seq, masked, flash_mode, monkeypatch):
             rows[1] = 0.0
     want = JA.masked_sdpa(*(jnp.asarray(x) for x in (q, k, v)), HEADS,
                           None if rows is None else jnp.asarray(rows))
+    FA.reset_launch_counts()
     got = A.masked_sdpa(*(torch.from_numpy(x) for x in (q, k, v)), HEADS,
                         None if rows is None else torch.from_numpy(rows))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert FA.LAUNCHES == {"flash_sdpa": 0, "tca_flash": 0}  # CPU tensors: the twin
 
 
 @pytest.mark.parametrize("b", [3, 4])

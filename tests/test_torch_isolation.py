@@ -9,6 +9,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "freefine_tpu")
