@@ -6,19 +6,23 @@ NVIDIA H100.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
-     `freefine_tpu_torch/csrc` (one nvcc per source, in parallel);
+     `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
+     each instantiation's registers, stack and spills;
   2. hold each kernel against its plain PyTorch twin on the card at every
      shape of the SD-1.5 512^2 main path (bf16, and f32 at the VAE shape),
-     plus fully masked and ragged cases; time the kernel, the twin and, as
-     a yardstick only, `F.scaled_dot_product_attention`;
+     plus fully masked and ragged cases, within limits scaled to the
+     output; time the kernel, the twin and, as a yardstick only,
+     `F.scaled_dot_product_attention`;
   3. the tiny config end to end on CUDA and on the CPU with the same f32
      weights and noise (TF32 off), final latents compared;
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights; one warm-up and two timed edits, launch counters checked
-     against the expected per-edit counts;
-  5. the result lines: the `kernels` JSON line, the nvidia-smi line, and
-     last `{"ok": true, "device": {...}}`.
+     against the expected per-edit counts, and the launches by call shape
+     against the shapes of phase 2;
+  5. the result lines: the `kernels` JSON line (per-edit times weight each
+     shape's time by its launches counted in phase 4), the nvidia-smi line,
+     and last `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
 Exits with code 2 and prints no result when CUDA is not available.
@@ -27,6 +31,7 @@ Exits with code 2 and prints no result when CUDA is not available.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -42,9 +47,18 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 
-BF16_TOL = 1e-2   # one bf16 rounding of the probabilities and of the output
-F32_TOL = 1e-4    # f32 throughout; fast exp and another summation order
-
+# Each kernel is held to its twin, per shape, on two counts:
+#  * max |out - ref| <= ABS_OF_MAX[dtype] * max |ref|: the limit scales with
+#    the output (bf16 keeps 8 significant bits, so 2^-5 is 4 to 8 units in
+#    the last place of the largest output), and one wrong row fails it;
+#  * ||out - ref|| / ||ref|| <= REL_TOL[dtype] over the whole output.
+# Both twins round P to bf16 before P.V as the kernels do, so in bf16 what
+# remains is the output's own rounding; in f32 the summation order and the
+# fast exp.  At every main-path shape the script also checks that the twin
+# with its first DROP_KEYS keys left out fails these limits (`_teeth`).
+ABS_OF_MAX = {"bfloat16": 2.0**-5, "float32": 1e-4}
+REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+DROP_KEYS = 32  # the smallest key tile of either kernel
 
 def log(*a):
     print(*a, flush=True)
@@ -82,25 +96,51 @@ def bound(nbytes: float, flops: float, exps: float, dtype: str) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_report(libs) -> list:
+    """Registers, stack and spills of every kernel instantiation, from the
+    ptxas report that `cuda_build` keeps beside each library."""
+    rows = []
+    for name, lib in sorted(libs.items()):
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" not in line:
+                continue
+            fn = line.split("Function properties for", 1)[1].strip()
+            props = lines[i + 1].strip() if i + 1 < len(lines) else ""
+            used = next((ln.split("Used", 1)[1].strip() for ln in lines[i + 2 : i + 4]
+                         if "Used" in ln), "")
+            rows.append(dict(library=name, function=fn, properties=props, used=used))
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r["function"] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r["function"] = n
+    for r in rows:
+        log(f"  ptxas {r['library']}: {r['function'].split('(')[0]}: {r['properties']}; "
+            f"{r['used']}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
-# (batch, heads, seq, head_dim, dtype, launches per edit) on the SD-1.5 512^2
-# main path: inversion batch 2, regeneration batch 3 outside the TCA window,
-# VAE mid-block f32 one head of 512.
+# (batch, heads, seq, head_dim, dtype) of every call on the SD-1.5 512^2 main
+# path: inversion batch 2, regeneration batch 3 outside the TCA window, VAE
+# mid-block f32 one head of 512.  Phase 4 counts the launches at each shape
+# and fails unless they are exactly these.
 FLASH_SHAPES = [
-    (2, 8, 4096, 40, "bfloat16", 75), (2, 8, 1024, 80, "bfloat16", 75),
-    (2, 8, 256, 160, "bfloat16", 75), (2, 8, 64, 160, "bfloat16", 15),
-    (3, 8, 4096, 40, "bfloat16", 30), (3, 8, 1024, 80, "bfloat16", 30),
-    (3, 8, 256, 160, "bfloat16", 75), (3, 8, 64, 160, "bfloat16", 15),
-    (2, 1, 4096, 512, "float32", 2),
+    (2, 8, 4096, 40, "bfloat16"), (2, 8, 1024, 80, "bfloat16"),
+    (2, 8, 256, 160, "bfloat16"), (2, 8, 64, 160, "bfloat16"),
+    (3, 8, 4096, 40, "bfloat16"), (3, 8, 1024, 80, "bfloat16"),
+    (3, 8, 256, 160, "bfloat16"), (3, 8, 64, 160, "bfloat16"),
+    (2, 1, 4096, 512, "float32"),
 ]
 # check-only: masked keys with fully masked rows, ragged lengths
 FLASH_EXTRA = [(2, 8, 1000, 80, "bfloat16"), (2, 1, 300, 512, "float32"),
                (3, 2, 77, 16, "float32"), (3, 2, 77, 16, "bfloat16"), (1, 2, 5, 24, "bfloat16")]
 # TCA after the head-parity split: batch 2*3 streams, 4 heads
-TCA_SHAPES = [(6, 4, 1024, 80, "bfloat16", 45), (6, 4, 4096, 40, "bfloat16", 45)]
+TCA_SHAPES = [(6, 4, 1024, 80, "bfloat16"), (6, 4, 4096, 40, "bfloat16")]
 TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
              (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
 
@@ -109,7 +149,7 @@ def _inputs(gen, b, h, s, d, dtype, n):
     import torch
 
     dt = getattr(torch, dtype)
-    return [torch.randn(b, s, h * d, generator=gen, device="cuda").to(dt) for _ in range(n)]
+    return [torch.randn(b, s, h * d, generator=gen, device=gen.device).to(dt) for _ in range(n)]
 
 
 def _parity_rows(gen, b, s, frac):
@@ -117,9 +157,37 @@ def _parity_rows(gen, b, s, frac):
     head-parity split's unmasked block)."""
     import torch
 
-    rows = torch.ones(b, s, device="cuda")
-    rows[: b // 2] = (torch.rand(b // 2, s, generator=gen, device="cuda") > frac).float()
+    rows = torch.ones(b, s, device=gen.device)
+    rows[: b // 2] = (torch.rand(b // 2, s, generator=gen, device=gen.device) > frac).float()
     return rows
+
+
+def compare(out, ref) -> dict:
+    diff = out.float() - ref.float()
+    return dict(max_abs_err=float(diff.abs().max()), max_ref=float(ref.float().abs().max()),
+                rel_err=float(diff.norm() / ref.float().norm()),
+                finite=bool(out.float().isfinite().all()))
+
+
+def err_over_tol(c: dict, dtype: str) -> float:
+    """The larger of the two errors over its limit: <= 1 passes."""
+    return max(c["max_abs_err"] / (ABS_OF_MAX[dtype] * c["max_ref"]),
+               c["rel_err"] / REL_TOL[dtype])
+
+
+def _hold(name, out, ref, row):
+    row.update(compare(out, ref))
+    row["err_over_tol"] = err_over_tol(row, row["dtype"])
+    if not row["finite"] or not row["err_over_tol"] <= 1.0:
+        raise AssertionError(f"{name} disagrees with its twin: {row}")
+
+
+def _teeth(name, ref, dropped, row):
+    """The limits must reject the twin with its first DROP_KEYS keys left
+    out, as a kernel that skipped one key tile would give."""
+    row["dropped_tile_err_over_tol"] = err_over_tol(compare(dropped, ref), row["dtype"])
+    if row["dropped_tile_err_over_tol"] <= 1.0:
+        raise AssertionError(f"{name}: the limits accept a dropped key tile: {row}")
 
 
 def check_flash(gen, shape, timed: bool):
@@ -128,22 +196,20 @@ def check_flash(gen, shape, timed: bool):
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    b, h, s, d, dtype = shape[:5]
+    b, h, s, d, dtype = shape
     q, k, v = _inputs(gen, b, h, s, d, dtype, 3)
     mask = None
     if not timed:
-        mask = (torch.rand(b, s, generator=gen, device="cuda") > 0.5).float()
+        mask = (torch.rand(b, s, generator=gen, device=gen.device) > 0.5).float()
         mask[b - 1] = 0.0  # a fully masked row block
     out = FA.flash_sdpa(q, k, v, mask, heads=h)
     ref = FA.flash_sdpa_reference(q, k, v, mask, heads=h)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
-    row = dict(batch=b, heads=h, seq=s, head_dim=d, dtype=dtype, masked=mask is not None,
-               max_abs_err=err, tol=tol)
-    if not torch.isfinite(out.float()).all() or not err <= tol:
-        raise AssertionError(f"flash_sdpa disagrees with its twin: {row}")
+    row = dict(batch=b, heads=h, seq=s, head_dim=d, dtype=dtype, masked=mask is not None)
+    _hold("flash_sdpa", out, ref, row)
     if timed:
+        n = min(DROP_KEYS, s // 2)
+        _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(q, k[:, n:], v[:, n:], heads=h), row)
         itemsize = q.element_size()
         nbytes = 4 * b * s * h * d * itemsize
         row.update(bound(nbytes, 4.0 * b * h * s * s * d, float(b * h * s * s), dtype))
@@ -160,7 +226,7 @@ def check_tca(gen, shape, timed: bool):
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    b, h, s, d, dtype = shape[:5]
+    b, h, s, d, dtype = shape
     q, ks, vs, km, vm = _inputs(gen, b, h, s, d, dtype, 5)
     fg = _parity_rows(gen, b, s, 0.5)
     tq = _parity_rows(gen, b, s, 0.4)
@@ -168,12 +234,12 @@ def check_tca(gen, shape, timed: bool):
     out = FA.tca_flash(q, ks, vs, km, vm, fg, tq, cg, heads=h)
     ref = FA.tca_flash_reference(q, ks, vs, km, vm, fg, tq, cg, heads=h)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
-    row = dict(batch=b, heads=h, seq=s, head_dim=d, dtype=dtype, max_abs_err=err, tol=tol)
-    if not torch.isfinite(out.float()).all() or not err <= tol:
-        raise AssertionError(f"tca_flash disagrees with its twin: {row}")
+    row = dict(batch=b, heads=h, seq=s, head_dim=d, dtype=dtype, masked=True)
+    _hold("tca_flash", out, ref, row)
     if timed:
+        n = min(DROP_KEYS, s // 2)
+        _teeth("tca_flash", ref, FA.tca_flash_reference(
+            q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg, heads=h), row)
         itemsize = q.element_size()
         nbytes = 6 * b * s * h * d * itemsize + 2 * b * s * 4
         row.update(bound(nbytes, 10.0 * b * h * s * s * d, 3.0 * b * h * s * s, dtype))
@@ -185,50 +251,76 @@ def check_tca(gen, shape, timed: bool):
     return row
 
 
-def per_edit(rows, key):
-    """Sum of a per-call number over the main path's launches of one edit."""
-    if any(r[key] is None for r in rows):
-        return None
-    return sum(r[key] * r["per_edit"] for r in rows)
+KERNELS = (
+    ("flash_sdpa", FLASH_SHAPES, FLASH_EXTRA, check_flash,
+     "freefine_tpu_torch/csrc/flash_sdpa.cu", "freefine_tpu/ops/flash_attention.py:80"),
+    ("tca_flash", TCA_SHAPES, TCA_EXTRA, check_tca,
+     "freefine_tpu_torch/csrc/tca_flash.cu", "freefine_tpu/ops/flash_attention.py:175"),
+)
 
 
-def phase_kernels(record):
+def phase_kernels():
+    """Every kernel at every main-path shape (timed) and every extra case:
+    {name: (rows, checks)}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    summary = []
-    for name, shapes, extra, fn, source, replaces in (
-        ("flash_sdpa", FLASH_SHAPES, FLASH_EXTRA, check_flash,
-         "freefine_tpu_torch/csrc/flash_sdpa.cu", "freefine_tpu/ops/flash_attention.py:80"),
-        ("tca_flash", TCA_SHAPES, TCA_EXTRA, check_tca,
-         "freefine_tpu_torch/csrc/tca_flash.cu", "freefine_tpu/ops/flash_attention.py:175"),
-    ):
+    out = {}
+    for name, shapes, extra, fn, _, _ in KERNELS:
         rows = []
         for shape in shapes:
             r = fn(gen, shape, timed=True)
-            r["per_edit"] = shape[5]
             rows.append(r)
-            log(f"  {name} {shape[:5]}: err {r['max_abs_err']:.3g} kernel {r['kernel_ms']:.4f} ms "
+            log(f"  {name} {shape}: err {r['max_abs_err']:.3g} (max|ref| {r['max_ref']:.3g}, "
+                f"rel {r['rel_err']:.3g}, {r['err_over_tol']:.3f} of tol; dropped tile "
+                f"{r['dropped_tile_err_over_tol']:.3g} of tol) kernel {r['kernel_ms']:.4f} ms "
                 f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         checks = [fn(gen, shape, timed=False) for shape in extra]
         for r in checks:
             log(f"  {name} {r['batch'], r['heads'], r['seq'], r['head_dim'], r['dtype']} "
-                f"masked/ragged: err {r['max_abs_err']:.3g}")
-        summary.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=None, launches_per_edit=sum(r["per_edit"] for r in rows),
-            max_abs_err=max(r["max_abs_err"] for r in rows + checks),
-            tol=max(r["tol"] for r in rows + checks),
-            ms=per_edit(rows, "kernel_ms"), kernel_ms=per_edit(rows, "kernel_ms"),
-            plain_ms=per_edit(rows, "plain_ms"), bound_ms=per_edit(rows, "bound_ms"),
-            bound_by=("operations" if per_edit(rows, "ops_ms") >= per_edit(rows, "bytes_ms")
-                      else "bytes"),
-            library_ms=per_edit(rows, "library_ms"),
-            per="edit (sum over the main-path launches of one edit)",
-            shapes=rows, checks=checks,
-        ))
-    record["kernels"] = summary
-    return summary
+                f"masked/ragged: err {r['max_abs_err']:.3g} (max|ref| {r['max_ref']:.3g}, "
+                f"rel {r['rel_err']:.3g}, {r['err_over_tol']:.3f} of tol)")
+        out[name] = (rows, checks)
+    return out
+
+
+def summarize(name, source, replaces, rows, checks, shape_counts):
+    """One kernel's entry of the `kernels` line.  Per-edit times weight each
+    timed shape by the launches counted at that shape in one edit of phase 4
+    (`shape_counts`); without that edit they and the launches are null."""
+    launches = None
+    if shape_counts is not None:
+        counted = {key[1:]: n for key, n in shape_counts.items() if key[0] == name}
+        timed = {(r["batch"], r["heads"], r["seq"], r["seq"], r["head_dim"], r["dtype"],
+                  r["masked"]): r for r in rows}
+        if set(counted) != set(timed):
+            raise AssertionError(f"{name}: shapes launched in the edit {sorted(counted)} are "
+                                 f"not the shapes timed {sorted(timed)}")
+        for key, r in timed.items():
+            r["launches"] = counted[key]
+        launches = sum(counted.values())
+
+    def per_edit(key):
+        if launches is None or any(r[key] is None for r in rows):
+            return None
+        return sum(r[key] * r["launches"] for r in rows)
+
+    both = rows + checks
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, launches_per_edit=launches,
+        max_abs_err=max(r["max_abs_err"] for r in both),
+        max_rel_err=max(r["rel_err"] for r in both),
+        err_over_tol=max(r["err_over_tol"] for r in both),
+        tol=dict(max_abs_err_of_max_ref=ABS_OF_MAX, rel_err=REL_TOL),
+        ms=per_edit("kernel_ms"), kernel_ms=per_edit("kernel_ms"),
+        plain_ms=per_edit("plain_ms"), bound_ms=per_edit("bound_ms"),
+        bound_by=None if launches is None else (
+            "operations" if per_edit("ops_ms") >= per_edit("bytes_ms") else "bytes"),
+        library_ms=per_edit("library_ms"),
+        per="edit (sum over the main-path launches of one edit)",
+        shapes=rows, checks=checks,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +426,8 @@ def profile_edit(pipe, run):
 
 
 def phase_sd15(record, timed_runs: int, profile: bool = False):
+    """The full-width edit; returns the launches of one edit by call shape
+    (`FA.LAUNCH_SHAPES`), the same in every timed edit."""
     import torch
 
     from freefine_tpu_torch.config import sd15_pipeline_config
@@ -360,6 +454,7 @@ def phase_sd15(record, timed_runs: int, profile: bool = False):
     expect = {"flash_sdpa": k * n_layers + k * (n_layers - (hi - lo)) + 2,
               "tca_flash": k * (hi - lo)}
     store = {}
+    first_shapes = None
     _capture_latents(pipe, store)
 
     t0 = time.perf_counter()
@@ -378,6 +473,10 @@ def phase_sd15(record, timed_runs: int, profile: bool = False):
         launches = dict(FA.LAUNCHES)
         if launches != expect:
             raise AssertionError(f"launch counts {launches} != expected per edit {expect}")
+        shapes = dict(FA.LAUNCH_SHAPES)
+        if first_shapes is not None and shapes != first_shapes:
+            raise AssertionError(f"launches by shape differ between edits: {shapes}")
+        first_shapes = shapes
         if out.shape != (h, w, 3) or out.dtype != np.uint8:
             raise AssertionError(f"output {out.shape} {out.dtype}")
         if not torch.isfinite(store["lat"]).all():
@@ -389,13 +488,14 @@ def phase_sd15(record, timed_runs: int, profile: bool = False):
     record["sd15"] = dict(
         seconds_per_edit=secs, edits_per_min=60.0 / float(np.mean(secs)),
         peak_memory_bytes=peak, launches=launches, expected_launches=expect,
+        launches_by_shape=[[*key, n] for key, n in sorted(shapes.items())],
         protocol="SD-1.5 512^2, 50-step DDIM, start 35, guidance 7.5, eta 1.0, TCA, bf16 "
                  "random weights, batch 1",
     )
     log(f"  SD-1.5 512^2 edit: {record['sd15']['edits_per_min']:.3f} edits/min, "
         f"s/edit {secs}, peak {peak / 2**30:.2f} GiB, launches {launches} "
         f"[{record['card']}]")
-    return launches
+    return shapes
 
 
 def main():
@@ -425,15 +525,19 @@ def main():
     record["build_s"] = time.perf_counter() - t0
     log(f"  built {sorted(p.name for p in libs.values())} in {record['build_s']:.1f} s")
 
+    record["ptxas"] = ptxas_report(libs)
+
     log("phase 2: kernels against their twins")
-    kernels = phase_kernels(record)
+    checked = phase_kernels()
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
+    shape_counts = None
     if not args.skip_sd15:
         log("phase 4: SD-1.5 512^2 edit")
-        launches = phase_sd15(record, args.timed_runs, args.profile)
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
+        shape_counts = phase_sd15(record, args.timed_runs, args.profile)
+    kernels = [summarize(name, source, replaces, *checked[name], shape_counts)
+               for name, _, _, _, source, replaces in KERNELS]
+    record["kernels"] = kernels
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -15,11 +15,13 @@ gets a finite -1e9 bias, so a fully masked row degrades to uniform
 attention instead of NaN.
 
 Dispatch: a tensor on the CPU goes to the plain twin; a CUDA tensor
-launches the kernel or raises.  `LAUNCHES` counts kernel launches.
+launches the kernel or raises.  `LAUNCHES` counts kernel launches and
+`LAUNCH_SHAPES` the same launches by call shape.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -29,11 +31,20 @@ from freefine_tpu_torch.ops import cuda_build
 NEG_INF = -1e9
 
 LAUNCHES = {"flash_sdpa": 0, "tca_flash": 0}
+# (kernel, batch, heads, seq_q, seq_k, head_dim, dtype name, masked) -> launches
+LAUNCH_SHAPES: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _count_launch(name: str, b: int, heads: int, sq: int, sk: int, d: int,
+                  dtype: torch.dtype, masked: bool) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, b, heads, sq, sk, d, str(dtype).removeprefix("torch."), masked)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +165,7 @@ def flash_sdpa(q, k, v, key_mask=None, *, heads: int) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(lib, "flash_sdpa", code)
-    LAUNCHES["flash_sdpa"] += 1
+    _count_launch("flash_sdpa", b, heads, sq, k.shape[1], d, q.dtype, key_mask is not None)
     return out
 
 
@@ -193,5 +204,5 @@ def tca_flash(
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(lib, "tca_flash", code)
-    LAUNCHES["tca_flash"] += 1
+    _count_launch("tca_flash", b, heads, s, s, d, q.dtype, True)
     return out

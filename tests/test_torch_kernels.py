@@ -108,6 +108,7 @@ def test_cpu_dispatch_never_counts_launches():
     rows = torch.ones(B, S)
     FA.tca_flash(*args, *args[1:], rows, rows, 0.5, heads=HEADS)
     assert FA.LAUNCHES == {"flash_sdpa": 0, "tca_flash": 0}
+    assert not FA.LAUNCH_SHAPES
 
 
 def test_wrapper_rejects_bad_operands():
