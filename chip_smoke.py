@@ -9,20 +9,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
      each instantiation's registers, stack and spills;
   2. hold each kernel against its plain PyTorch twin on the card at every
-     shape of the SD-1.5 512^2 main path (bf16, and f32 at the VAE shape),
-     plus fully masked and ragged cases, within limits scaled to the
-     output; time the kernel, the twin and, as a yardstick only,
-     `F.scaled_dot_product_attention`;
+     shape of the two SD-1.5 512^2 paths (bf16, and f32 at the VAE shape),
+     plus fully masked, ragged and f32 cases, within limits scaled to each
+     output tensor, with teeth (the twin with a key or query tile dropped
+     must fail); time the kernel, the twin and, as a yardstick only, the
+     PyTorch call that computes the same (`F.scaled_dot_product_attention`,
+     its forward or its autograd backward); check one gradient through
+     `flash_sdpa_diff` on the card against the twin's autograd gradient;
   3. the tiny config end to end on CUDA and on the CPU with the same f32
-     weights and noise (TF32 off), final latents compared;
+     weights and noise (TF32 off), `generation` and `guided_generation`,
+     final latents compared;
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights; one warm-up and two timed edits, launch counters checked
      against the expected per-edit counts, and the launches by call shape
      against the shapes of phase 2;
-  5. the result lines: the `kernels` JSON line (per-edit times weight each
-     shape's time by its launches counted in phase 4), the nvidia-smi line,
-     and last `{"ok": true, "device": {...}}`.
+  5. the full-width SD-1.5 512^2 energy-guided edit: `guided_generation`
+     with its defaults (50 steps, start 25, energy on the first 0.6 of the
+     25 regeneration steps, energy scale 2.0, TCA); one warm-up and two
+     timed edits, the same checks; one more edit measures the forward of the
+     differentiated pass that no gradient reads (up blocks 2-3, conv_out);
+  6. the result lines: the `kernels` JSON line (launches and per-edit times
+     per path: each shape's time weighted by its launches counted in phases
+     4 and 5), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
 Exits with code 2 and prints no result when CUDA is not available.
@@ -125,15 +134,18 @@ def ptxas_report(libs) -> list:
 # Phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
-# (batch, heads, seq, head_dim, dtype) of every call on the SD-1.5 512^2 main
-# path: inversion batch 2, regeneration batch 3 outside the TCA window, VAE
-# mid-block f32 one head of 512.  Phase 4 counts the launches at each shape
-# and fails unless they are exactly these.
+# (batch, heads, seq, head_dim, dtype) of every call on the two SD-1.5 512^2
+# paths: inversion batch 2, regeneration batch 3 outside the TCA window, the
+# energy's no-grad reference-feature pass batch 1, VAE mid-block f32 one
+# head of 512.  Phases 4 and 5 count the launches at each shape and fail on
+# a shape not timed here, or a shape timed here that neither launches.
 FLASH_SHAPES = [
     (2, 8, 4096, 40, "bfloat16"), (2, 8, 1024, 80, "bfloat16"),
     (2, 8, 256, 160, "bfloat16"), (2, 8, 64, 160, "bfloat16"),
     (3, 8, 4096, 40, "bfloat16"), (3, 8, 1024, 80, "bfloat16"),
     (3, 8, 256, 160, "bfloat16"), (3, 8, 64, 160, "bfloat16"),
+    (1, 8, 4096, 40, "bfloat16"), (1, 8, 1024, 80, "bfloat16"),
+    (1, 8, 256, 160, "bfloat16"), (1, 8, 64, 160, "bfloat16"),
     (2, 1, 4096, 512, "float32"),
 ]
 # check-only: masked keys with fully masked rows, ragged lengths
@@ -143,6 +155,18 @@ FLASH_EXTRA = [(2, 8, 1000, 80, "bfloat16"), (2, 1, 300, 512, "float32"),
 TCA_SHAPES = [(6, 4, 1024, 80, "bfloat16"), (6, 4, 4096, 40, "bfloat16")]
 TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
              (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
+# The differentiated pass of energy guidance: batch 1, every self-attention
+# of the plain UNet (forward with logsumexp; the backward reaches the 10
+# layers upstream of the feature taps: down 6, mid 1, up block 1 3).
+GRAD_SHAPES = [(1, 8, 4096, 4096, 40, "bfloat16"), (1, 8, 1024, 1024, 80, "bfloat16"),
+               (1, 8, 256, 256, 160, "bfloat16"), (1, 8, 64, 64, 160, "bfloat16")]
+# check-only, all masked with one fully masked batch row: ragged Sq != Sk,
+# and f32 at the tiny configuration's head dims (16, 32, 64)
+GRAD_EXTRA = [(2, 2, 1024, 1024, 80, "bfloat16"), (2, 2, 300, 77, 40, "bfloat16"),
+              (2, 2, 100, 260, 160, "bfloat16"), (2, 2, 5, 7, 24, "bfloat16"),
+              (2, 2, 64, 64, 16, "float32"), (2, 2, 16, 16, 32, "float32"),
+              (2, 2, 50, 33, 64, "float32"), (2, 2, 4, 4, 64, "float32")]
+AUTOGRAD_SHAPE = (1, 8, 1024, 80, "bfloat16")
 
 
 def _inputs(gen, b, h, s, d, dtype, n):
@@ -175,19 +199,34 @@ def err_over_tol(c: dict, dtype: str) -> float:
                c["rel_err"] / REL_TOL[dtype])
 
 
-def _hold(name, out, ref, row):
-    row.update(compare(out, ref))
-    row["err_over_tol"] = err_over_tol(row, row["dtype"])
-    if not row["finite"] or not row["err_over_tol"] <= 1.0:
-        raise AssertionError(f"{name} disagrees with its twin: {row}")
+def _hold(name, out, ref, row, dtype=None, tensor=None):
+    """Hold one output tensor to its twin; with several outputs per kernel
+    (`tensor` names each) the row keeps each one's numbers and the worst."""
+    c = compare(out, ref)
+    c["err_over_tol"] = err_over_tol(c, dtype or row["dtype"])
+    if tensor is None:
+        row.update(c)
+    else:
+        row.setdefault("tensors", {})[tensor] = c
+        for key in ("max_abs_err", "rel_err", "err_over_tol"):
+            row[key] = max(row.get(key, 0.0), c[key])
+        row["max_ref"] = max(row.get("max_ref", 0.0), c["max_ref"])
+        row["finite"] = row.get("finite", True) and c["finite"]
+    if not c["finite"] or not c["err_over_tol"] <= 1.0:
+        raise AssertionError(f"{name} disagrees with its twin ({tensor or 'out'}): {row}")
 
 
-def _teeth(name, ref, dropped, row):
-    """The limits must reject the twin with its first DROP_KEYS keys left
-    out, as a kernel that skipped one key tile would give."""
-    row["dropped_tile_err_over_tol"] = err_over_tol(compare(dropped, ref), row["dtype"])
-    if row["dropped_tile_err_over_tol"] <= 1.0:
-        raise AssertionError(f"{name}: the limits accept a dropped key tile: {row}")
+def _teeth(name, ref, dropped, row, what="key", tensor=None):
+    """The limits must reject the twin with its first DROP_KEYS keys (or
+    queries) left out, as a kernel that skipped one tile would give.  The
+    row keeps the weakest such margin (and each tensor's under `tensors`)."""
+    e = err_over_tol(compare(dropped, ref), row["dtype"])
+    row["dropped_tile_err_over_tol"] = min(row.get("dropped_tile_err_over_tol", e), e)
+    if tensor is not None:
+        row["tensors"][tensor][f"dropped_{what}_tile_err_over_tol"] = e
+    if e <= 1.0:
+        raise AssertionError(f"{name}: the limits accept a dropped {what} tile "
+                             f"({tensor or 'out'}): {row}")
 
 
 def check_flash(gen, shape, timed: bool):
@@ -205,7 +244,8 @@ def check_flash(gen, shape, timed: bool):
     out = FA.flash_sdpa(q, k, v, mask, heads=h)
     ref = FA.flash_sdpa_reference(q, k, v, mask, heads=h)
     torch.cuda.synchronize()
-    row = dict(batch=b, heads=h, seq=s, head_dim=d, dtype=dtype, masked=mask is not None)
+    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype,
+               masked=mask is not None)
     _hold("flash_sdpa", out, ref, row)
     if timed:
         n = min(DROP_KEYS, s // 2)
@@ -234,7 +274,7 @@ def check_tca(gen, shape, timed: bool):
     out = FA.tca_flash(q, ks, vs, km, vm, fg, tq, cg, heads=h)
     ref = FA.tca_flash_reference(q, ks, vs, km, vm, fg, tq, cg, heads=h)
     torch.cuda.synchronize()
-    row = dict(batch=b, heads=h, seq=s, head_dim=d, dtype=dtype, masked=True)
+    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True)
     _hold("tca_flash", out, ref, row)
     if timed:
         n = min(DROP_KEYS, s // 2)
@@ -251,81 +291,237 @@ def check_tca(gen, shape, timed: bool):
     return row
 
 
+def _sdpa_heads(x, h):
+    b, s, e = x.shape
+    return x.reshape(b, s, h, e // h).transpose(1, 2).contiguous()
+
+
+def check_grad(gen, shape, timed: bool):
+    """The three kernels of the differentiable attention at one shape:
+    {kernel name: row}.  The backward kernels and their twins get the same
+    residuals (the twin's out and lse) and the same dO."""
+    import torch
+    import torch.nn.functional as F
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    b, h, sq, sk, d, dtype = shape
+    q, do = _inputs(gen, b, h, sq, d, dtype, 2)
+    k, v = _inputs(gen, b, h, sk, d, dtype, 2)
+    mask = None
+    if not timed:
+        mask = (torch.rand(b, sk, generator=gen, device=gen.device) > 0.5).float()
+        mask[b - 1] = 0.0  # a fully masked row block
+    base = dict(batch=b, heads=h, seq_q=sq, seq_k=sk, head_dim=d, dtype=dtype,
+                masked=mask is not None)
+    rows = {n: dict(base) for n in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq",
+                                    "flash_sdpa_bwd_dkv")}
+    out, lse = FA.flash_sdpa_fwd_lse(q, k, v, mask, heads=h)
+    ref_out, ref_lse = FA.flash_sdpa_fwd_lse_reference(q, k, v, mask, heads=h)
+    delta = FA.row_delta(ref_out, do, h)
+    res = (q, k, v, mask, do, ref_lse, delta)
+    dq = FA.flash_sdpa_bwd_dq(*res, heads=h)
+    dk, dv = FA.flash_sdpa_bwd_dkv(*res, heads=h)
+    ref_dq = FA.flash_sdpa_bwd_dq_reference(*res, heads=h)
+    ref_dk, ref_dv = FA.flash_sdpa_bwd_dkv_reference(*res, heads=h)
+    torch.cuda.synchronize()
+    r = rows["flash_sdpa_fwd_lse"]
+    _hold("flash_sdpa_fwd_lse", out, ref_out, r, tensor="out")
+    _hold("flash_sdpa_fwd_lse", lse, ref_lse, r, dtype="float32", tensor="lse")
+    _hold("flash_sdpa_bwd_dq", dq, ref_dq, rows["flash_sdpa_bwd_dq"], tensor="dq")
+    _hold("flash_sdpa_bwd_dkv", dk, ref_dk, rows["flash_sdpa_bwd_dkv"], tensor="dk")
+    _hold("flash_sdpa_bwd_dkv", dv, ref_dv, rows["flash_sdpa_bwd_dkv"], tensor="dv")
+    if not timed:
+        return rows
+
+    n = min(DROP_KEYS, sk // 2, sq // 2)
+    _teeth("flash_sdpa_fwd_lse", ref_out, FA.flash_sdpa_fwd_lse_reference(
+        q, k[:, n:], v[:, n:], heads=h)[0], r, tensor="out")
+    _teeth("flash_sdpa_bwd_dq", ref_dq, FA.flash_sdpa_bwd_dq_reference(
+        q, k[:, n:], v[:, n:], None, do, ref_lse, delta, heads=h), rows["flash_sdpa_bwd_dq"])
+    dropped = FA.flash_sdpa_bwd_dkv_reference(q[:, n:], k, v, None, do[:, n:],
+                                              ref_lse[..., n:].contiguous(),
+                                              delta[..., n:].contiguous(), heads=h)
+    for name, ref_t, drop_t in (("dk", ref_dk, dropped[0]), ("dv", ref_dv, dropped[1])):
+        _teeth("flash_sdpa_bwd_dkv", ref_t, drop_t, rows["flash_sdpa_bwd_dkv"], what="query",
+               tensor=name)
+
+    it = q.element_size()
+    bh, work = b * h, float(b * h * sq * sk)
+    rows["flash_sdpa_fwd_lse"].update(bound(
+        (2 * sq + 2 * sk) * bh * d * it + bh * sq * 4, 4.0 * work * d, work, dtype))
+    rows["flash_sdpa_bwd_dq"].update(bound(
+        (3 * sq + 2 * sk) * bh * d * it + 2 * bh * sq * 4, 6.0 * work * d, work, dtype))
+    rows["flash_sdpa_bwd_dkv"].update(bound(
+        (2 * sq + 4 * sk) * bh * d * it + 2 * bh * sq * 4, 8.0 * work * d, work, dtype))
+    iters = 3 if sq >= 4096 else 10
+    timings = {
+        "flash_sdpa_fwd_lse": (lambda: FA.flash_sdpa_fwd_lse(q, k, v, heads=h),
+                               lambda: FA.flash_sdpa_fwd_lse_reference(q, k, v, heads=h)),
+        "flash_sdpa_bwd_dq": (lambda: FA.flash_sdpa_bwd_dq(*res, heads=h),
+                              lambda: FA.flash_sdpa_bwd_dq_reference(*res, heads=h)),
+        "flash_sdpa_bwd_dkv": (lambda: FA.flash_sdpa_bwd_dkv(*res, heads=h),
+                               lambda: FA.flash_sdpa_bwd_dkv_reference(*res, heads=h)),
+    }
+    for name, (kern, plain) in timings.items():
+        rows[name]["kernel_ms"] = cuda_ms(kern, iters)
+        rows[name]["plain_ms"] = cuda_ms(plain, iters)
+    qh, kh, vh = (_sdpa_heads(x, h).requires_grad_() for x in (q, k, v))
+    rows["flash_sdpa_fwd_lse"]["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(qh.detach(), kh.detach(), vh.detach()), iters)
+    o = F.scaled_dot_product_attention(qh, kh, vh)
+    doh = _sdpa_heads(do, h)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (qh, kh, vh), doh, retain_graph=True), iters)
+    for name in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+        rows[name]["library_ms"] = bwd_ms
+        rows[name]["library_call"] = ("autograd backward of F.scaled_dot_product_attention "
+                                      "(dq, dk and dv in one call)")
+    return rows
+
+
+def check_autograd(record):
+    """One gradient through `flash_sdpa_diff` on the card (forward with
+    logsumexp, dQ and dK/dV kernels, wired by `FlashSDPA`) against the same
+    autograd call on the CPU, where the function runs its plain twins."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    b, h, s, d, dtype = AUTOGRAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = _inputs(gen, b, h, s, d, dtype, 4)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        out = FA.flash_sdpa_diff(*leaves, heads=h)
+        if out.grad_fn is None:
+            raise AssertionError("flash_sdpa_diff under grad mode returned no grad_fn")
+        grads[dev] = torch.autograd.grad(out, leaves, do.to(dev))
+    torch.cuda.synchronize()
+    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=False)
+    for name, got, want in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+        _hold("flash_sdpa_diff autograd", got.cpu(), want, row, tensor=name)
+    record["autograd_check"] = row
+    log(f"  flash_sdpa_diff autograd on the card vs the CPU twin {AUTOGRAD_SHAPE}: "
+        f"{row['err_over_tol']:.3f} of tol")
+
+
+# name, timed shapes, check-only shapes, source, TPU kernel replaced
 KERNELS = (
-    ("flash_sdpa", FLASH_SHAPES, FLASH_EXTRA, check_flash,
+    ("flash_sdpa", FLASH_SHAPES, FLASH_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa.cu", "freefine_tpu/ops/flash_attention.py:80"),
-    ("tca_flash", TCA_SHAPES, TCA_EXTRA, check_tca,
+    ("tca_flash", TCA_SHAPES, TCA_EXTRA,
      "freefine_tpu_torch/csrc/tca_flash.cu", "freefine_tpu/ops/flash_attention.py:175"),
+    ("flash_sdpa_fwd_lse", GRAD_SHAPES, GRAD_EXTRA,
+     "freefine_tpu_torch/csrc/flash_sdpa.cu", "freefine_tpu/ops/flash_attention.py:307"),
+    ("flash_sdpa_bwd_dq", GRAD_SHAPES, GRAD_EXTRA,
+     "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:344"),
+    ("flash_sdpa_bwd_dkv", GRAD_SHAPES, GRAD_EXTRA,
+     "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:378"),
 )
 
 
-def phase_kernels():
-    """Every kernel at every main-path shape (timed) and every extra case:
+def _log_row(name, r, timed):
+    shape = (r["batch"], r["heads"], r["seq_q"], r["seq_k"], r["head_dim"], r["dtype"])
+    msg = (f"  {name} {shape}{'' if timed else ' masked/ragged'}: err {r['max_abs_err']:.3g} "
+           f"(max|ref| {r['max_ref']:.3g}, rel {r['rel_err']:.3g}, "
+           f"{r['err_over_tol']:.3f} of tol)")
+    if timed:
+        lib = r["library_ms"]
+        msg += (f"; dropped tile {r['dropped_tile_err_over_tol']:.3g} of tol; kernel "
+                f"{r['kernel_ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+                f"{'-' if lib is None else f'{lib:.4f}'} ms bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    log(msg)
+
+
+def phase_kernels(record):
+    """Every kernel at every path shape (timed) and every extra case:
     {name: (rows, checks)}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {}
-    for name, shapes, extra, fn, _, _ in KERNELS:
-        rows = []
-        for shape in shapes:
-            r = fn(gen, shape, timed=True)
-            rows.append(r)
-            log(f"  {name} {shape}: err {r['max_abs_err']:.3g} (max|ref| {r['max_ref']:.3g}, "
-                f"rel {r['rel_err']:.3g}, {r['err_over_tol']:.3f} of tol; dropped tile "
-                f"{r['dropped_tile_err_over_tol']:.3g} of tol) kernel {r['kernel_ms']:.4f} ms "
-                f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        checks = [fn(gen, shape, timed=False) for shape in extra]
-        for r in checks:
-            log(f"  {name} {r['batch'], r['heads'], r['seq'], r['head_dim'], r['dtype']} "
-                f"masked/ragged: err {r['max_abs_err']:.3g} (max|ref| {r['max_ref']:.3g}, "
-                f"rel {r['rel_err']:.3g}, {r['err_over_tol']:.3f} of tol)")
-        out[name] = (rows, checks)
+    out = {name: ([], []) for name, *_ in KERNELS}
+    for name, fn, shapes, extra in (("flash_sdpa", check_flash, FLASH_SHAPES, FLASH_EXTRA),
+                                    ("tca_flash", check_tca, TCA_SHAPES, TCA_EXTRA)):
+        for timed, group in ((True, shapes), (False, extra)):
+            for shape in group:
+                r = fn(gen, shape, timed=timed)
+                out[name][0 if timed else 1].append(r)
+                _log_row(name, r, timed)
+    for timed, group in ((True, GRAD_SHAPES), (False, GRAD_EXTRA)):
+        for shape in group:
+            for name, r in check_grad(gen, shape, timed).items():
+                out[name][0 if timed else 1].append(r)
+                _log_row(name, r, timed)
+    check_autograd(record)
     return out
 
 
-def summarize(name, source, replaces, rows, checks, shape_counts):
-    """One kernel's entry of the `kernels` line.  Per-edit times weight each
-    timed shape by the launches counted at that shape in one edit of phase 4
-    (`shape_counts`); without that edit they and the launches are null."""
-    launches = None
-    if shape_counts is not None:
-        counted = {key[1:]: n for key, n in shape_counts.items() if key[0] == name}
-        timed = {(r["batch"], r["heads"], r["seq"], r["seq"], r["head_dim"], r["dtype"],
-                  r["masked"]): r for r in rows}
-        if set(counted) != set(timed):
-            raise AssertionError(f"{name}: shapes launched in the edit {sorted(counted)} are "
-                                 f"not the shapes timed {sorted(timed)}")
-        for key, r in timed.items():
-            r["launches"] = counted[key]
-        launches = sum(counted.values())
+TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
 
-    def per_edit(key):
-        if launches is None or any(r[key] is None for r in rows):
+
+def summarize(name, source, replaces, rows, checks, counts_by_path):
+    """One kernel's entry of the `kernels` line.  For each path (phase 4
+    `generation`, phase 5 `guided`) the per-edit times weight each timed
+    shape by the launches counted at that shape in one edit of that path
+    (`counts_by_path`: {path: LAUNCH_SHAPES of one edit}); the top-level
+    launches and times are one edit of each path together.  Without the
+    edits (--skip-sd15) they are null."""
+    timed = {(r["batch"], r["heads"], r["seq_q"], r["seq_k"], r["head_dim"], r["dtype"],
+              r["masked"]): r for r in rows}
+    paths = None
+    if counts_by_path is not None:
+        paths, launched = {}, set()
+        for path, counts in counts_by_path.items():
+            counted = {key[1:]: n for key, n in counts.items() if key[0] == name}
+            if set(counted) - set(timed):
+                raise AssertionError(f"{name}: shapes launched in the {path} edit "
+                                     f"{sorted(set(counted) - set(timed))} are not timed")
+            launched |= set(counted)
+            entry = dict(launches=sum(counted.values()))
+            for field in TIMES:
+                vals = [timed[key][field] for key in counted]
+                entry[field.replace("kernel_ms", "ms")] = (
+                    None if any(x is None for x in vals)
+                    else sum(timed[key][field] * n for key, n in counted.items()))
+            paths[path] = entry
+            for key, n in counted.items():
+                timed[key].setdefault("launches", {})[path] = n
+        if launched != set(timed):
+            raise AssertionError(f"{name}: shapes timed but launched on no path: "
+                                 f"{sorted(set(timed) - launched)}")
+
+    def total(field):
+        if paths is None or any(p[field] is None for p in paths.values()):
             return None
-        return sum(r[key] * r["launches"] for r in rows)
+        return sum(p[field] for p in paths.values())
 
     both = rows + checks
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches, launches_per_edit=launches,
+        launches=total("launches"),
         max_abs_err=max(r["max_abs_err"] for r in both),
         max_rel_err=max(r["rel_err"] for r in both),
         err_over_tol=max(r["err_over_tol"] for r in both),
         tol=dict(max_abs_err_of_max_ref=ABS_OF_MAX, rel_err=REL_TOL),
-        ms=per_edit("kernel_ms"), kernel_ms=per_edit("kernel_ms"),
-        plain_ms=per_edit("plain_ms"), bound_ms=per_edit("bound_ms"),
-        bound_by=None if launches is None else (
-            "operations" if per_edit("ops_ms") >= per_edit("bytes_ms") else "bytes"),
-        library_ms=per_edit("library_ms"),
-        per="edit (sum over the main-path launches of one edit)",
-        shapes=rows, checks=checks,
+        ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+        bound_by=None if paths is None else (
+            "operations" if total("ops_ms") >= total("bytes_ms") else "bytes"),
+        library_ms=total("library_ms"),
+        library_call=next((r["library_call"] for r in rows if "library_call" in r),
+                          None if rows[0]["library_ms"] is None
+                          else "F.scaled_dot_product_attention"),
+        per="one edit of each path together; per path under `paths`",
+        paths=paths, shapes=rows, checks=checks,
     )
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the pipeline
+# Phases 3 to 5: the pipeline
 # ---------------------------------------------------------------------------
+
+TINY_TOL = 2e-3  # final latents, CUDA vs CPU, float32 with TF32 off
 
 
 def _case(h, w, seed):
@@ -347,6 +543,8 @@ def _capture_latents(pipe, store):
 
 
 def phase_tiny(record):
+    """`generation` and `guided_generation` on the tiny config, CUDA against
+    the CPU with the same weights and noise."""
     import torch
 
     from freefine_tpu_torch.config import tiny_pipeline_config
@@ -370,28 +568,39 @@ def phase_tiny(record):
     rng = np.random.default_rng(2)
     noise = [rng.standard_normal((2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)
              for _ in range(k)]
-    kw = dict(num_step=num_step, start_step=start_step, end_step=1, use_auto_draw=True,
-              cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True)
-    lats = {}
-    outs = {}
-    for name, pipe, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
-        store = {}
-        _capture_latents(pipe, store)
-        outs[name] = pipe.generation(img, mask, coarse_c, tm_c, "a photo",
-                                     noise=[torch.from_numpy(z).to(dev) for z in noise], **kw)
-        lats[name] = store["lat"]
-    err = float((lats["cpu"] - lats["cuda"]).abs().max())
-    img_err = int(np.abs(outs["cpu"].astype(int) - outs["cuda"].astype(int)).max())
-    record["tiny"] = dict(latent_max_abs_err=err, latent_tol=2e-3, image_max_level_diff=img_err)
-    log(f"  tiny CUDA vs CPU: latents max |diff| {err:.3g} (tol 2e-3), image {img_err} levels")
-    if not err <= 2e-3 or img_err > 1:
-        raise AssertionError(f"tiny end to end: CUDA and CPU disagree: {record['tiny']}")
+    cons = np.zeros((h, w), np.uint8)
+    runs = {
+        "generation": dict(num_step=num_step, start_step=start_step, end_step=1,
+                           use_auto_draw=True, cons_area=cons, reduce_inp_artifacts=True),
+        "guided_generation": dict(num_step=num_step, start_step=start_step, end_step=1,
+                                  energy_fraction=0.5, cons_area=cons),
+    }
+    stores = {name: {} for name in ("cpu", "cuda")}
+    for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+        _capture_latents(pipe, stores[name])
+    record["tiny"] = {}
+    for entry, kw in runs.items():
+        lats, outs = {}, {}
+        for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+            outs[name] = getattr(pipe, entry)(
+                img, mask, coarse_c, tm_c, "a photo",
+                noise=[torch.from_numpy(z).to(name) for z in noise], **kw)
+            lats[name] = stores[name]["lat"]
+        err = float((lats["cpu"] - lats["cuda"]).abs().max())
+        img_err = int(np.abs(outs["cpu"].astype(int) - outs["cuda"].astype(int)).max())
+        record["tiny"][entry] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
+                                     image_max_level_diff=img_err,
+                                     finite=bool(torch.isfinite(lats["cuda"]).all()))
+        log(f"  tiny {entry} CUDA vs CPU: latents max |diff| {err:.3g} (tol {TINY_TOL}), "
+            f"image {img_err} levels")
+        if not err <= TINY_TOL or img_err > 1 or not record["tiny"][entry]["finite"]:
+            raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {record['tiny'][entry]}")
 
 
-def profile_edit(pipe, run):
+def profile_edit(run, out_name):
     """One edit under torch.profiler: device time by kernel name, device
     busy share of the edit's wall time; the table goes to
-    chiprun_out/profile_sd15.txt."""
+    chiprun_out/<out_name>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -413,7 +622,7 @@ def profile_edit(pipe, run):
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "profile_sd15.txt"), "w") as f:
+    with open(os.path.join(HERE, "chiprun_out", out_name), "w") as f:
         f.write(f"wall {wall:.4f} s, device busy {busy:.4f} s\n")
         for name, us, n in rows:
             f.write(f"{us / 1e3:12.3f} ms {n:8d}  {name}\n")
@@ -425,13 +634,53 @@ def profile_edit(pipe, run):
     return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall, top=top)
 
 
-def phase_sd15(record, timed_runs: int, profile: bool = False):
-    """The full-width edit; returns the launches of one edit by call shape
-    (`FA.LAUNCH_SHAPES`), the same in every timed edit."""
+def timed_edits(record, key, run, expect, timed_runs, store, hw):
+    """One warm-up and `timed_runs` timed edits of one path; the launch
+    counters are set to 0 just before each edit and read just after, and
+    must equal `expect`.  Returns the launches of one edit by call shape."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    record[f"{key}_warmup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    secs, first_shapes = [], None
+    for _ in range(timed_runs):
+        FA.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = dict(FA.LAUNCHES)
+        if launches != expect:
+            raise AssertionError(f"{key}: launch counts {launches} != expected per edit {expect}")
+        shapes = dict(FA.LAUNCH_SHAPES)
+        if first_shapes is not None and shapes != first_shapes:
+            raise AssertionError(f"{key}: launches by shape differ between edits: {shapes}")
+        first_shapes = shapes
+        if out.shape != (*hw, 3) or out.dtype != np.uint8:
+            raise AssertionError(f"{key}: output {out.shape} {out.dtype}")
+        if not torch.isfinite(store["lat"]).all():
+            raise AssertionError(f"{key}: non-finite final latents")
+    peak = torch.cuda.max_memory_allocated()
+    record[key] = dict(
+        seconds_per_edit=secs, edits_per_min=60.0 / float(np.mean(secs)),
+        peak_memory_bytes=peak, launches=launches, expected_launches=expect,
+        launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
+    )
+    log(f"  {key}: {record[key]['edits_per_min']:.3f} edits/min, s/edit {secs}, "
+        f"peak {peak / 2**30:.2f} GiB, launches {launches} [{record['card']}]")
+    return shapes
+
+
+def sd15_setup(record):
     import torch
 
     from freefine_tpu_torch.config import sd15_pipeline_config
-    from freefine_tpu_torch.ops import flash_attention as FA
     from freefine_tpu_torch.ops.geometry import re_edit_2d
     from freefine_tpu_torch.pipeline import FreeFine
 
@@ -444,57 +693,122 @@ def phase_sd15(record, timed_runs: int, profile: bool = False):
     img, mask = _case(h, w, 3)
     coarse, tm, _ = re_edit_2d(img, mask, dx=40, dy=-20, rotation=10, scale_x=1.1,
                                scale_y=1.1, device="cuda")
+    store = {}
+    _capture_latents(pipe, store)
+    return pipe, (img, mask, coarse, tm), store
+
+
+def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2)):
+    """Launches per edit worked out from the config: every self-attention
+    of each inversion pass; the layers outside the TCA window of each
+    regeneration pass (`tca_flash` inside it); per energy step the no-grad
+    reference-feature pass (`flash_sdpa`), the differentiated pass (forward
+    with logsumexp) and two gradient pulls through the layers upstream of
+    the deepest feature tap used; 2 VAE calls."""
+    u = cfg.unet
+    nb = len(u.block_out_channels)
+    n_layers, _ = u.attn_layer_layout
+    lo, hi = pipe._layer_range
+    down = sum(u.transformer_depth[i] * u.layers_per_block for i in range(nb)
+               if u.down_block_has_attn[i])
+    up = sum(u.transformer_depth[nb - 1 - i] * (u.layers_per_block + 1)
+             for i in range(max(feature_indices)) if u.up_block_has_attn[i])
+    upstream = down + u.transformer_depth[nb - 1] + up
+    return {
+        "flash_sdpa": k_inv * n_layers + k_edit * (n_layers - (hi - lo))
+        + energy_steps * n_layers + 2,
+        "tca_flash": k_edit * (hi - lo),
+        "flash_sdpa_fwd_lse": energy_steps * n_layers,
+        "flash_sdpa_bwd_dq": energy_steps * 2 * upstream,
+        "flash_sdpa_bwd_dkv": energy_steps * 2 * upstream,
+    }
+
+
+def phase_sd15(record, pipe, case, store, timed_runs, profile):
+    """The full-width `generation` edit (GeoBench-2D protocol)."""
+    img, mask, coarse, tm = case
+    h, w = pipe.config.height, pipe.config.width
     num_step, start_step = 50, 35
     kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
               end_step=10, method_type="tca", use_auto_draw=True,
               cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True, seed=42)
     k = num_step - start_step
-    n_layers, _ = cfg.unet.attn_layer_layout
-    lo, hi = pipe._layer_range
-    expect = {"flash_sdpa": k * n_layers + k * (n_layers - (hi - lo)) + 2,
-              "tca_flash": k * (hi - lo)}
-    store = {}
-    first_shapes = None
-    _capture_latents(pipe, store)
 
-    t0 = time.perf_counter()
-    pipe.generation(img, mask, coarse, tm, "a photo of a cat", **kw)
-    torch.cuda.synchronize()
-    record["sd15_warmup_s"] = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    secs = []
-    for _ in range(timed_runs):
-        FA.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = pipe.generation(img, mask, coarse, tm, "a photo of a cat", **kw)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        launches = dict(FA.LAUNCHES)
-        if launches != expect:
-            raise AssertionError(f"launch counts {launches} != expected per edit {expect}")
-        shapes = dict(FA.LAUNCH_SHAPES)
-        if first_shapes is not None and shapes != first_shapes:
-            raise AssertionError(f"launches by shape differ between edits: {shapes}")
-        first_shapes = shapes
-        if out.shape != (h, w, 3) or out.dtype != np.uint8:
-            raise AssertionError(f"output {out.shape} {out.dtype}")
-        if not torch.isfinite(store["lat"]).all():
-            raise AssertionError("non-finite final latents")
-    peak = torch.cuda.max_memory_allocated()
+    def run():
+        return pipe.generation(img, mask, coarse, tm, "a photo of a cat", **kw)
+
+    shapes = timed_edits(record, "sd15", run, _expected(pipe.config, pipe, k, k), timed_runs,
+                         store, (h, w))
+    record["sd15"]["protocol"] = ("SD-1.5 512^2, 50-step DDIM, start 35, guidance 7.5, eta 1.0, "
+                                  "TCA, bf16 random weights, batch 1")
     if profile:
-        record["sd15_profile"] = profile_edit(pipe, lambda: pipe.generation(
-            img, mask, coarse, tm, "a photo of a cat", **kw))
-    record["sd15"] = dict(
-        seconds_per_edit=secs, edits_per_min=60.0 / float(np.mean(secs)),
-        peak_memory_bytes=peak, launches=launches, expected_launches=expect,
-        launches_by_shape=[[*key, n] for key, n in sorted(shapes.items())],
-        protocol="SD-1.5 512^2, 50-step DDIM, start 35, guidance 7.5, eta 1.0, TCA, bf16 "
-                 "random weights, batch 1",
-    )
-    log(f"  SD-1.5 512^2 edit: {record['sd15']['edits_per_min']:.3f} edits/min, "
-        f"s/edit {secs}, peak {peak / 2**30:.2f} GiB, launches {launches} "
-        f"[{record['card']}]")
+        record["sd15_profile"] = profile_edit(run, "profile_sd15.txt")
+    return shapes
+
+
+def unused_tail_ms(pipe, run):
+    """Device-stream time, per edit, of the forward of the differentiated
+    energy pass (grad mode on) in total and from up block 2 to conv_out,
+    which no gradient reads (the features tapped are up blocks 0 and 1),
+    from CUDA events recorded by forward hooks during one edit."""
+    import torch
+
+    unet = pipe.unet
+    marks = {"start": [], "tail": [], "end": []}
+
+    def mark(name):
+        def hook(*_):
+            if torch.is_grad_enabled():
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks[name].append(ev)
+        return hook
+
+    handles = [unet.register_forward_pre_hook(mark("start")),
+               unet.up_blocks[2].resnets[0].register_forward_pre_hook(mark("tail")),
+               unet.conv_out.register_forward_hook(mark("end"))]
+    try:
+        run()
+    finally:
+        for hd in handles:
+            hd.remove()
+    torch.cuda.synchronize()
+    if not marks["start"] or not len(marks["start"]) == len(marks["tail"]) == len(marks["end"]):
+        seen = {k: len(v) for k, v in marks.items()}
+        raise AssertionError(f"differentiated passes not seen: {seen}")
+    total = sum(a.elapsed_time(b) for a, b in zip(marks["start"], marks["end"]))
+    tail = sum(a.elapsed_time(b) for a, b in zip(marks["tail"], marks["end"]))
+    return dict(passes=len(marks["start"]), forward_ms=total, unused_tail_ms=tail,
+                unused_share=tail / total)
+
+
+def phase_guided(record, pipe, case, store, timed_runs, profile):
+    """The full-width energy-guided edit with `guided_generation`'s defaults."""
+    img, mask, coarse, tm = case
+    h, w = pipe.config.height, pipe.config.width
+    num_step, start_step, fraction = 50, 25, 0.6
+    kw = dict(energy_scale=2.0, energy_fraction=fraction, guidance_scale=7.5, eta=1.0,
+              num_step=num_step, start_step=start_step, end_step=10, method_type="tca",
+              seed=42)
+    k = num_step - start_step
+    energy_steps = int(round(k * fraction))
+
+    def run():
+        return pipe.guided_generation(img, mask, coarse, tm, "a photo of a cat", **kw)
+
+    expect = _expected(pipe.config, pipe, k, k, energy_steps)
+    shapes = timed_edits(record, "sd15_guided", run, expect, timed_runs, store, (h, w))
+    record["sd15_guided"]["protocol"] = (
+        "SD-1.5 512^2, guided_generation defaults: 50-step DDIM, start 25, energy on the first "
+        f"{energy_steps} of {k} steps, energy scale 2.0, guidance 7.5, eta 1.0, TCA, bf16 "
+        "random weights, batch 1")
+    tail = unused_tail_ms(pipe, run)
+    record["sd15_guided"]["differentiated_forward"] = tail
+    log(f"  differentiated forward: {tail['forward_ms']:.1f} ms per edit over "
+        f"{tail['passes']} passes, of which up blocks 2-3 and conv_out (read by no gradient) "
+        f"{tail['unused_tail_ms']:.1f} ms ({tail['unused_share']:.3f}) [{record['card']}]")
+    if profile:
+        record["sd15_guided_profile"] = profile_edit(run, "profile_sd15_guided.txt")
     return shapes
 
 
@@ -504,7 +818,7 @@ def main():
                     help="stop after phase 3 (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one SD-1.5 edit (torch.profiler)")
+                    help="also profile one SD-1.5 edit of each path (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -528,16 +842,22 @@ def main():
     record["ptxas"] = ptxas_report(libs)
 
     log("phase 2: kernels against their twins")
-    checked = phase_kernels()
+    checked = phase_kernels(record)
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
-    shape_counts = None
+    counts = None
     if not args.skip_sd15:
-        log("phase 4: SD-1.5 512^2 edit")
-        shape_counts = phase_sd15(record, args.timed_runs, args.profile)
-    kernels = [summarize(name, source, replaces, *checked[name], shape_counts)
-               for name, _, _, _, source, replaces in KERNELS]
+        pipe, case, store = sd15_setup(record)
+        log("phase 4: SD-1.5 512^2 edit (generation)")
+        counts = {"generation": phase_sd15(record, pipe, case, store, args.timed_runs,
+                                           args.profile)}
+        log("phase 5: SD-1.5 512^2 energy-guided edit (guided_generation)")
+        counts["guided"] = phase_guided(record, pipe, case, store, args.timed_runs,
+                                        args.profile)
+    kernels = [summarize(name, source, replaces, *checked[name], counts)
+               for name, _, _, source, replaces in KERNELS]
     record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - t0
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -37,6 +37,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The scaled logit plus its key's mask bias (mask may be null), each step
+// rounded on its own (no FMA contraction), in the order of the plain twins.
+// The forward and the backward kernels must give a masked logit the same
+// value: in a fully masked row every logit rounds to exactly -1e9, and the
+// backward's exp(logit - lse) has to see that row as the forward did.
+__device__ __forceinline__ float masked_logit(float s, float scale, const float* mask, int col) {
+  const float x = __fmul_rn(s, scale);
+  return mask ? __fadd_rn(x, (mask[col] - 1.0f) * kMaskBias) : x;
+}
+
 // Eight consecutive floats (32-byte aligned: head dims are multiples of 8 and
 // base pointers 16-byte aligned, checked by the wrappers).
 __device__ __forceinline__ void load8(const float* p, float* o) {

@@ -7,6 +7,12 @@
 // float32 0/1 (or none) applied as a finite -1e9 bias on the scaled f32
 // logit; output [B, Sq, H*D] in q's dtype.
 //
+// With an lse pointer the same kernels also write the per-row logsumexp
+// m + log(max(l, 1e-30)) as float32 [B, H, Sq]: the forward of the
+// differentiable attention, replacing `_flash_fwd_lse_kernel` (:307, via
+// `_flash_fwd_lse` :442).  Exported as its own entry point
+// (`flash_sdpa_fwd_lse`) and counted as its own kernel by the wrapper.
+//
 // Bound on an H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the
 // tensor cores, 3.35 TB/s, about 4e12 exp/s from 16 SFU ops/clk/SM): the
 // work is 4*Sq*Sk*D*B*H FLOPs and Sq*Sk*B*H exponentials against
@@ -39,8 +45,9 @@ namespace ff {
 template <int DP, int WARPS, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ key_mask, float* __restrict__ out, int heads, int sq,
-                 int sk, int d, float scale) {
+                 const float* __restrict__ key_mask, float* __restrict__ out,
+                 float* __restrict__ lse, int heads, int sq, int sk, int d,
+                 float scale) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
   constexpr int kNC = (DP + 31) / 32;  // output columns per lane
@@ -98,12 +105,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     }
     const int j = k0 + lane;
     const bool valid = j < sk;
-    const float bias = (valid && mb) ? (mb[j] - 1.0f) * kMaskBias : 0.f;
 
     // online softmax; l is a per-lane partial sum (the max is warp-uniform)
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const float sv = valid ? s[r] * scale + bias : -INFINITY;
+      const float sv = valid ? masked_logit(s[r], scale, mb, j) : -INFINITY;
       const float mn = fmaxf(m[r], warp_max(sv));
       const float corr = __expf(m[r] - mn);
       const float p = __expf(sv - mn);
@@ -147,6 +153,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   for (int r = 0; r < ROWS; ++r) {
     const float lt = fmaxf(warp_sum(l[r]), 1e-30f);
     const int qi = q0 + warp * ROWS + r;
+    if (lse && lane == 0 && qi < sq) lse[(size_t)bh * sq + qi] = m[r] + logf(lt);
     if (qi < sq) {
       float* o = out + ((size_t)b * sq + qi) * e + h * d;
 #pragma unroll
@@ -166,7 +173,8 @@ template <int DK, int DV, int BK>
 __global__ void __launch_bounds__(128)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ key_mask,
-                     bf16* __restrict__ out, int heads, int sq, int sk, int d, float scale) {
+                     bf16* __restrict__ out, float* __restrict__ lse, int heads, int sq, int sk,
+                     int d, float scale) {
   constexpr int kBQ = 64;
   constexpr int kLdK = DK + 8, kLdV = BK + 8;
   constexpr int kKT = DK / 16, kNT = BK / 8, kOT = DV / 8;
@@ -206,12 +214,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + nt * 8 + 2 * t + (c & 1);
-        float x = -INFINITY;
-        if (col < sk) {
-          x = s[nt][c] * scale;
-          if (mb) x += (mb[col] - 1.0f) * kMaskBias;
-        }
-        s[nt][c] = x;
+        s[nt][c] = col < sk ? masked_logit(s[nt][c], scale, mb, col) : -INFINITY;
       }
     }
     softmax_update<kNT, kOT>(s, o, m, l);
@@ -222,6 +225,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = q0 + warp * 16 + g + 8 * hh;
+    if (lse && t == 0 && row < sq) lse[(size_t)bh * sq + row] = m[hh] + logf(l[hh]);
     if (row < sq) {
       bf16* orow = out + ((size_t)b * sq + row) * e + h * d;
 #pragma unroll
@@ -238,7 +242,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DK, int DV, int BK>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       int batch, int heads, int sq, int sk, int d, float scale,
+                       float* lse, int batch, int heads, int sq, int sk, int d, float scale,
                        cudaStream_t stream) {
   constexpr int kBQ = 64;
   const size_t smem = sizeof(bf16) * (size_t)((kBQ + BK) * (DK + 8) + DV * (BK + 8));
@@ -253,16 +257,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
   kern<<<grid, 128, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), heads, sq, sk, d, scale);
+      static_cast<const float*>(mask), static_cast<bf16*>(out), lse, heads, sq, sk, d, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void* mask,
-                         void* out, int batch, int heads, int sq, int sk, int d, float scale,
-                         cudaStream_t stream) {
+                         void* out, float* lse, int batch, int heads, int sq, int sk, int d,
+                         float scale, cudaStream_t stream) {
 #define FF_MMA_CASE(DK, DV)                                                                 \
   if (d <= DV)                                                                              \
-    return launch_mma<DK, DV, 64>(q, k, v, mask, out, batch, heads, sq, sk, d, scale, stream);
+    return launch_mma<DK, DV, 64>(q, k, v, mask, out, lse, batch, heads, sq, sk, d, scale,     \
+                                  stream);
   FF_MMA_CASE(16, 16)
   FF_MMA_CASE(32, 32)
   FF_MMA_CASE(48, 40)
@@ -276,7 +281,7 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void
 
 template <int DP, int WARPS, int ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   int batch, int heads, int sq, int sk, int d, float scale,
+                   float* lse, int batch, int heads, int sq, int sk, int d, float scale,
                    cudaStream_t stream) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
@@ -292,15 +297,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
   kern<<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(mask), static_cast<float*>(out), heads, sq, sk, d, scale);
+      static_cast<const float*>(mask), static_cast<float*>(out), lse, heads, sq, sk, d, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_fma(const void* q, const void* k, const void* v, const void* mask,
-                         void* out, int batch, int heads, int sq, int sk, int d, float scale,
-                         cudaStream_t stream) {
+                         void* out, float* lse, int batch, int heads, int sq, int sk, int d,
+                         float scale, cudaStream_t stream) {
 #define FF_FLASH_CASE(DP, W, R) \
-  if (d <= DP) return launch<DP, W, R>(q, k, v, mask, out, batch, heads, sq, sk, d, scale, stream);
+  if (d <= DP)                     \
+    return launch<DP, W, R>(q, k, v, mask, out, lse, batch, heads, sq, sk, d, scale, stream);
   FF_FLASH_CASE(16, 8, 8)
   FF_FLASH_CASE(32, 8, 8)
   FF_FLASH_CASE(64, 8, 8)
@@ -312,15 +318,32 @@ cudaError_t dispatch_fma(const void* q, const void* k, const void* v, const void
 
 }  // namespace ff
 
+namespace {
+
+int fwd(const void* q, const void* k, const void* v, const void* mask, void* out, float* lse,
+        int batch, int heads, int sq, int sk, int d, float scale, int dtype, void* stream) {
+  if (d <= 0 || d % 8 != 0 || d > (dtype == 1 ? 160 : 512)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1
+                   ? ff::dispatch_mma(q, k, v, mask, out, lse, batch, heads, sq, sk, d, scale, s)
+                   : ff::dispatch_fma(q, k, v, mask, out, lse, batch, heads, sq, sk, d, scale, s));
+}
+
+}  // namespace
+
 // dtype: 0 = float32 (FMA kernel, d <= 512), 1 = bfloat16 (tensor cores,
 // d <= 160); d a multiple of 8.  mask may be null.  Returns the CUDA error of
 // the launch (0 = launched).
 extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v, const void* mask,
                               void* out, int batch, int heads, int sq, int sk, int d,
                               float scale, int dtype, void* stream) {
-  if (d <= 0 || d % 8 != 0 || d > (dtype == 1 ? 160 : 512)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1
-                   ? ff::dispatch_mma(q, k, v, mask, out, batch, heads, sq, sk, d, scale, s)
-                   : ff::dispatch_fma(q, k, v, mask, out, batch, heads, sq, sk, d, scale, s));
+  return fwd(q, k, v, mask, out, nullptr, batch, heads, sq, sk, d, scale, dtype, stream);
+}
+
+// The same attention, also writing lse [batch, heads, sq] float32.
+extern "C" int flash_sdpa_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
+                                  void* out, void* lse, int batch, int heads, int sq, int sk,
+                                  int d, float scale, int dtype, void* stream) {
+  return fwd(q, k, v, mask, out, static_cast<float*>(lse), batch, heads, sq, sk, d, scale, dtype,
+             stream);
 }

@@ -100,9 +100,13 @@ class UNet2DCondition(nn.Module):
         *,
         edit_cfg: EditConfig = none_config(),
         edit_state: Optional[EditState] = None,
-    ) -> torch.Tensor:
+        return_features: bool = False,
+    ):
         """sample [B, C, H, W]; timestep int, 0-d or [B]; context [B, 77, D].
-        Returns the noise prediction [B, C_out, H, W] in the model dtype."""
+        Returns the noise prediction [B, C_out, H, W] in the model dtype;
+        with return_features, (eps, [mid, up_0, .., up_{n-1}]): the mid-block
+        output and each up block's output after its upsampler (NCHW), the
+        feature taps of energy guidance (JAX `return_features`)."""
         cfg = self.config
         dt = cfg.dtype
         sample = sample.to(dt)
@@ -132,6 +136,7 @@ class UNet2DCondition(nn.Module):
         h = self.mid_block.attentions[0](h, context, block_index=attn_index, place="mid", **ekw)
         attn_index += cfg.transformer_depth[nb - 1]
         h = self.mid_block.resnets[1](h, temb)
+        features = [h]
 
         for i, blk in enumerate(self.up_blocks):
             level = nb - 1 - i
@@ -142,6 +147,8 @@ class UNet2DCondition(nn.Module):
                     attn_index += cfg.transformer_depth[level]
             if i < nb - 1:
                 h = blk.upsamplers[0](h)
+            features.append(h)
 
         h = self.conv_norm_out(h, silu=True)
-        return self.conv_out(h)
+        out = self.conv_out(h)
+        return (out, features) if return_features else out

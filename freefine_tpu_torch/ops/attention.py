@@ -6,10 +6,13 @@ and return [B, Sq, E].  Masks are per-key [B, Sk] rows (rank-1 additive
 biases) and per-query rows (output blends); no S x S mask is built.
 
 Routing: every self-attention goes through a kernel wrapper of
-`ops.flash_attention` (`masked_sdpa` -> `flash_sdpa`, the TCA layers ->
-`tca_flash`), which runs the CUDA kernel on a CUDA tensor and the plain
-twin on a CPU tensor.  Text cross-attention (`sdpa`) is plain math, as in
-the JAX package, where it is left to XLA.
+`ops.flash_attention` (`masked_sdpa` -> `flash_sdpa_diff`, the TCA layers
+-> `tca_flash`), which runs the CUDA kernel on a CUDA tensor and the plain
+twin on a CPU tensor.  `flash_sdpa_diff` is the plain `flash_sdpa` kernel
+outside differentiation and the forward-with-logsumexp and backward kernels
+under it (energy guidance differentiates the plain UNet).  Text
+cross-attention (`sdpa`) is plain math, as in the JAX package, where it is
+left to XLA.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Optional
 import torch
 
 from freefine_tpu_torch.edit import TCA_SCOPE, EditConfig, EditState
-from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa, tca_flash
+from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa_diff, tca_flash
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -57,9 +60,9 @@ def sdpa(q, k, v, heads: int, bias: Optional[torch.Tensor] = None) -> torch.Tens
 
 def masked_sdpa(q, k, v, heads: int, key_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention with an optional per-key [B, Sk] 0/1 mask, through the
-    `flash_sdpa` kernel wrapper at every sequence length."""
+    differentiable `flash_sdpa_diff` at every sequence length."""
     rows = None if key_rows is None else key_rows.float().contiguous()
-    return flash_sdpa(q.contiguous(), k.contiguous(), v.contiguous(), rows, heads=heads)
+    return flash_sdpa_diff(q.contiguous(), k.contiguous(), v.contiguous(), rows, heads=heads)
 
 
 def _tca_fused(q, k_self, v_self, k_mod, v_mod, fg_rows, tq_rows, ecg: float, heads: int):

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_sdpa", "tca_flash")
+KERNEL_SOURCES = ("flash_sdpa", "tca_flash", "flash_sdpa_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -29,12 +29,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# library -> {exported function: argument types}
 _SIGNATURES = {
-    "flash_sdpa": ("flash_sdpa_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
-    "tca_flash": (
-        "tca_flash_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _F, _I, _P],
-    ),
+    "flash_sdpa": {
+        "flash_sdpa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_sdpa_fwd_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "tca_flash": {
+        "tca_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_sdpa_bwd": {
+        "flash_sdpa_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_sdpa_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                               _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -92,10 +100,10 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.ff_error_string.argtypes = [ctypes.c_int]
         lib.ff_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

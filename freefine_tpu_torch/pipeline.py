@@ -1,14 +1,19 @@
 """FreeFine geometric-edit pipeline in PyTorch (mirrors
-`freefine_tpu.pipeline` for `FreeFine.generation`).
+`freefine_tpu.pipeline` for `FreeFine.generation` and the energy-guided
+`FreeFine.guided_generation`).
 
 The JAX package compiles each loop into one `lax.scan`; here the loops are
 plain Python over eager PyTorch modules.  Public functions keep the JAX
 layouts: `generation` takes and returns NHWC uint8 images, the latent
 functions take and return NHWC float32 latents.
 
-Noise: `sample_edit_loop` draws one standard-normal tensor per step from a
-`torch.Generator` seeded by `seed`, or takes an explicit per-step noise
-sequence (the tests replay JAX's `split` -> `normal` chain through it).
+Noise: `sample_edit_loop` and `sample_guided_loop` draw one standard-normal
+tensor per step from a `torch.Generator` seeded by `seed`, or take an
+explicit per-step noise sequence (the tests replay JAX's `split` ->
+`normal` chain through it).
+
+The pipeline is inference only: its parameters never require grad.  The
+one gradient it takes, energy guidance, is with respect to the latent.
 
 The pipeline runs on CUDA unless the caller passes `device="cpu"`; asking
 for CUDA on a machine without it raises.
@@ -23,11 +28,18 @@ import torch
 
 from freefine_tpu_torch import masks as mask_ops
 from freefine_tpu_torch.config import PipelineConfig, sd15_pipeline_config
-from freefine_tpu_torch.edit import DEFAULT_LAYER_RANGE, EditConfig, EditState, build_mask_pyramid
+from freefine_tpu_torch.edit import (
+    DEFAULT_LAYER_RANGE,
+    EditConfig,
+    EditState,
+    build_mask_pyramid,
+    nearest_resize,
+)
 from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
 from freefine_tpu_torch.models.tokenizer import load_tokenizer
 from freefine_tpu_torch.models.unet import UNet2DCondition
 from freefine_tpu_torch.models.vae import AutoencoderKL, from_uint8, to_uint8
+from freefine_tpu_torch.ops.guidance import energy_guidance
 from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, ctrl_step, inv_step, method_and_gates
 from freefine_tpu_torch.weights import random_weights
 
@@ -126,12 +138,89 @@ def sample_edit_loop(
             pred = nu + guidance_scale * (nc - nu) * cfg_mask
         else:
             pred = nu + guidance_scale * (nc - nu)
-        if isinstance(noise, torch.Generator):
-            z = torch.randn(lat.shape, generator=noise, device=lat.device, dtype=torch.float32)
-        else:
-            z = noise[i]
-        lat, _ = ctrl_step(schedule, pred, t, lat, var_mask, eta, z, ddim_streams_from=1)
+        lat, _ = ctrl_step(schedule, pred, t, lat, var_mask, eta, _draw(noise, i, lat),
+                           ddim_streams_from=1)
     return lat
+
+
+def _draw(noise: NoiseSource, i: int, lat: torch.Tensor) -> torch.Tensor:
+    """Step i's standard-normal draw shaped like `lat`."""
+    if isinstance(noise, torch.Generator):
+        return torch.randn(lat.shape, generator=noise, device=lat.device, dtype=torch.float32)
+    return noise[i]
+
+
+def sample_guided_loop(
+    unet_apply: Callable,          # FreeFine.unet_apply: edit pass and plain feature taps
+    schedule: DDIMSchedule,
+    ecfg: EditConfig,
+    traj: torch.Tensor,            # [K+1, 2, h, w, c] inversion trajectory
+    text_emb: torch.Tensor,        # [3, 77, D] [u, u_ref, edit]
+    state: EditState,
+    cg: np.ndarray,
+    gates: np.ndarray,
+    completion_cfg: torch.Tensor,
+    local_var: torch.Tensor,
+    energy_masks: tuple,           # (mask_cur, mask_other, mask_non_overlap)
+    noise: NoiseSource,
+    *,
+    start_step: int,
+    guidance_scale: float,
+    eta: float,
+    energy_scale: float,
+    energy_until: int,
+    feature_indices: Sequence[int] = (1, 2),
+) -> torch.Tensor:
+    """`sample_edit_loop` (local CFG, local perturbation) with
+    DragonDiffusion-style energy guidance added to the edit stream's noise
+    prediction for the first `energy_until` steps.
+
+    `unet_apply` runs the edit pass with `ecfg` and the plain UNet's feature
+    taps with `return_features=True` (JAX passes two applies).  The edit UNet
+    pass runs under no_grad; the energy gradient is taken on a
+    detached copy of the edit latent (`energy_guidance`).  JAX's scan
+    computes the energy at every step and multiplies it by
+    (step < energy_until); here it is computed only on those steps, which
+    gives the same latents wherever the energy gradient is finite."""
+    mask_cur, mask_other, mask_no = energy_masks
+    target_hw = tuple(mask_cur.shape)
+    k = traj.shape[0] - 1
+    nstr = text_emb.shape[0]
+    ts = schedule.timesteps[start_step : start_step + k]
+    refs = torch.flip(traj[:k], dims=[0])[:, 1:]
+    lat = traj[-1].clone()
+    cfg_mask = completion_cfg[None, :, :, None]
+    for i in range(k):
+        t = int(ts[i])
+        lat[1:] = refs[i]
+        state.context_guidance = float(cg[i])
+        state.share_gate = float(gates[i])
+        with torch.no_grad():
+            eps = unet_apply(_cfg_model_in(lat, nstr), t, text_emb, ecfg, state)
+        nu, nc = _cfg_split(eps, nstr)
+        pred = nu + guidance_scale * (nc - nu) * cfg_mask
+        if i < energy_until:
+            g = energy_guidance(
+                unet_apply, lat[:1], refs[i], t, text_emb[2:3], energy_scale=energy_scale,
+                guidance_mask=local_var, feature_indices=feature_indices, target_hw=target_hw,
+                inv_warp=None, mask_cur=mask_cur, mask_other=mask_other,
+                mask_non_overlap=mask_no,
+            )
+            pred[:1] += g
+        lat, _ = ctrl_step(schedule, pred, t, lat, local_var, eta, _draw(noise, i, lat),
+                           ddim_streams_from=1)
+    return lat
+
+
+def _guided_energy_masks(cfg: PipelineConfig, em: mask_ops.EditMasks):
+    """(mask_cur, mask_other, mask_non_overlap) at the guidance feature
+    resolution (2x latent)."""
+    hw = (cfg.latent_height * 2, cfg.latent_width * 2)
+    return (
+        nearest_resize(em.fg_retain, *hw),
+        nearest_resize(1.0 - torch.maximum(em.fg_retain, em.fg_ref), *hw),
+        nearest_resize(em.fg_ref * (1.0 - em.fg_retain), *hw),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +254,7 @@ class FreeFine:
                 mod.load_state_dict(params[name])
             else:
                 random_weights(mod, seed + i)
+            mod.requires_grad_(False)
         self.tokenizer = load_tokenizer(
             tokenizer_path, vocab_size=cfg.text.vocab_size, max_length=cfg.text.max_length
         )
@@ -189,10 +279,15 @@ class FreeFine:
         return self._schedules[num_step]
 
     def unet_apply(self, lat, t, ctx, ecfg: Optional[EditConfig] = None,
-                   state: Optional[EditState] = None) -> torch.Tensor:
-        """NHWC latents -> NHWC noise prediction (model dtype)."""
+                   state: Optional[EditState] = None, return_features: bool = False):
+        """NHWC latents -> NHWC noise prediction (model dtype); with
+        return_features, (eps, features) with NHWC features (the plain
+        UNet's taps that energy guidance reads)."""
         kw = {} if ecfg is None else dict(edit_cfg=ecfg, edit_state=state)
-        out = self.unet(lat.permute(0, 3, 1, 2), t, ctx, **kw)
+        out = self.unet(lat.permute(0, 3, 1, 2), t, ctx, return_features=return_features, **kw)
+        if return_features:
+            eps, feats = out
+            return eps.permute(0, 2, 3, 1), [f.permute(0, 2, 3, 1) for f in feats]
         return out.permute(0, 2, 3, 1)
 
     @torch.no_grad()
@@ -316,3 +411,71 @@ class FreeFine:
         )
         imgs = self.latent_to_image(lat)
         return (imgs[0], imgs[1]) if return_ori else imgs[0]
+
+    def guided_generation(
+        self,
+        ori_img: np.ndarray,
+        ori_mask: np.ndarray,
+        coarse_input: np.ndarray,
+        target_mask: np.ndarray,
+        guidance_text: str,
+        energy_scale: float = 2.0,
+        energy_fraction: float = 0.6,
+        guidance_scale: float = 7.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 25,
+        method_type: str = "tca",
+        use_auto_draw: bool = True,
+        cons_area: Optional[np.ndarray] = None,
+        end_scale: float = 0.5,
+        seed: int = 42,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> np.ndarray:
+        """Geometric edit with DragonDiffusion-parity energy guidance on top
+        of the TCA regeneration: feature-cosine gradients (`ops.guidance`)
+        are added to the noise prediction for the first `energy_fraction` of
+        the denoise steps.  Returns the edited uint8 image [H, W, 3].
+        `noise` optionally replaces the seeded per-step draws with K tensors
+        [2, lh, lw, 4]."""
+        if method_type not in METHOD_TYPES:
+            raise ValueError(method_type)
+        if method_type in ("ssa", "sdsa"):
+            raise NotImplementedError(f"method {method_type!r} is not ported yet (ROADMAP A9)")
+        cfg = self.config
+        lh, lw = cfg.latent_height, cfg.latent_width
+        dev = self.device
+
+        coarse = self._prep_image(coarse_input)
+        ori = self._prep_image(ori_img)
+        lat2 = self.image_to_latent(np.stack([coarse, ori]))
+        traj = self.invert(lat2, num_step, start_step)
+
+        if cons_area is None:
+            cons_area = np.zeros((cfg.height, cfg.width), np.float32)
+        em = mask_ops.prepare_various_mask(
+            *(torch.as_tensor(np.asarray(x), device=dev) for x in (target_mask, ori_mask)),
+            None, cfg.height, cfg.width, lh, lw, use_auto_draw=use_auto_draw,
+            cons_area=torch.as_tensor(np.asarray(cons_area), device=dev),
+        )
+        state = EditState(
+            fg_retain=build_mask_pyramid(em.fg_retain, lh, lw),
+            fg_ref=build_mask_pyramid(em.fg_ref, lh, lw),
+            local_region=build_mask_pyramid(em.fg_retain, lh, lw),
+        )
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = EditConfig(mode="edit", method=method, local_cfg=True,
+                          layer_range=self._layer_range)
+        text_emb = self._edit_text_embeddings(guidance_text)
+        energy_until = int(round((num_step - start_step) * energy_fraction))
+        if noise is None:
+            noise = torch.Generator(device=dev).manual_seed(seed)
+        lat = sample_guided_loop(
+            self.unet_apply, self._schedule(num_step), ecfg, traj, text_emb,
+            state, cg, gates, em.completion_cfg, em.local_var, _guided_energy_masks(cfg, em),
+            noise, start_step=start_step, guidance_scale=guidance_scale, eta=eta,
+            energy_scale=energy_scale, energy_until=energy_until,
+        )
+        return self.latent_to_image(lat)[0]

@@ -55,7 +55,7 @@ def test_tca_edit_matches_jax(flash_mode, method, monkeypatch):
     got = A.edit_self_attention(*(torch.from_numpy(x) for x in (q, k, v)), HEADS,
                                 EditConfig(mode="edit", method=method), tstate, 12, "up")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
-    assert FA.LAUNCHES == {"flash_sdpa": 0, "tca_flash": 0}
+    assert not any(FA.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("block_index,place", [(3, "down"), (6, "mid"), (9, "up")])
@@ -98,7 +98,7 @@ def test_masked_sdpa_matches_jax(seq, masked, flash_mode, monkeypatch):
     got = A.masked_sdpa(*(torch.from_numpy(x) for x in (q, k, v)), HEADS,
                         None if rows is None else torch.from_numpy(rows))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
-    assert FA.LAUNCHES == {"flash_sdpa": 0, "tca_flash": 0}  # CPU tensors: the twin
+    assert not any(FA.LAUNCHES.values())  # CPU tensors: the twin
 
 
 @pytest.mark.parametrize("b", [3, 4])

@@ -107,8 +107,38 @@ def test_cpu_dispatch_never_counts_launches():
     FA.flash_sdpa(*args, heads=HEADS)
     rows = torch.ones(B, S)
     FA.tca_flash(*args, *args[1:], rows, rows, 0.5, heads=HEADS)
-    assert FA.LAUNCHES == {"flash_sdpa": 0, "tca_flash": 0}
+    out, lse = FA.flash_sdpa_fwd_lse(*args, heads=HEADS)
+    FA.flash_sdpa_bwd(*args, None, out, lse, args[0], heads=HEADS)
+    tq, tk, tv = (x.clone().requires_grad_() for x in args)
+    FA.flash_sdpa_diff(tq, tk, tv, heads=HEADS).sum().backward()
+    assert set(FA.LAUNCHES) == set(FA.KERNELS)
+    assert FA.LAUNCHES == {name: 0 for name in FA.KERNELS}
     assert not FA.LAUNCH_SHAPES
+
+
+@pytest.mark.parametrize("kernel", ["flash_sdpa", "tca_flash"])
+def test_raw_kernels_refuse_grad_mode(kernel):
+    """A raw kernel's output has no grad_fn: under grad mode an operand that
+    requires grad raises (on the CPU as on the card) instead of cutting the
+    gradient; the same call under no_grad is unchanged."""
+    _, q, k, v = _qkv(9)
+    tq, tk, tv = _t(q, k, v)
+    rows = torch.ones(B, S)
+    if kernel == "flash_sdpa":
+        def call(x):
+            return FA.flash_sdpa(x, tk, tv, heads=HEADS)
+    else:
+        def call(x):
+            return FA.tca_flash(x, tk, tv, tk, tv, rows, rows, 0.5, heads=HEADS)
+    want = call(tq)
+    leaf = tq.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(leaf)
+    if kernel == "tca_flash":
+        with pytest.raises(RuntimeError, match="B4"):
+            call(leaf)
+    with torch.no_grad():
+        assert torch.equal(call(leaf), want)
 
 
 def test_wrapper_rejects_bad_operands():

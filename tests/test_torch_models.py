@@ -124,3 +124,26 @@ def test_text_encoder_matches_jax(setup):
     with torch.no_grad():
         got = mods["text"](torch.from_numpy(ids).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_unet_features_match_jax(setup):
+    """`return_features=True`: (eps, [mid, up_0 .. up_3]), each up-block
+    feature after its upsampler, as the JAX UNet returns them (NHWC there,
+    NCHW here).  Features within 1e-4 of max(1, max|ref|)."""
+    cfg, jcfg, mods = setup
+    sample, ctx, _, _ = _edit_inputs(cfg)
+    sample, ctx = sample[:1], ctx[:1]
+    want_eps, want = JUNet(config=jcfg.unet).apply(
+        jax_params(mods["unet"], "unet", jcfg), jnp.asarray(sample), jnp.int32(301),
+        jnp.asarray(ctx), return_features=True)
+    with torch.no_grad():
+        eps, feats = mods["unet"](torch.from_numpy(sample).permute(0, 3, 1, 2), 301,
+                                  torch.from_numpy(ctx), return_features=True)
+    assert len(feats) == len(want) == len(cfg.unet.block_out_channels) + 1
+    np.testing.assert_allclose(eps.permute(0, 2, 3, 1).numpy(), np.asarray(want_eps), atol=ATOL,
+                               rtol=0)
+    for got, ref in zip(feats, want):
+        ref = np.asarray(ref)
+        assert got.permute(0, 2, 3, 1).shape == ref.shape
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                                   atol=1e-4 * max(1.0, np.abs(ref).max()), rtol=0)
