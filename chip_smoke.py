@@ -9,35 +9,47 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
      each instantiation's registers, stack and spills;
   2. hold each kernel against its plain PyTorch twin on the card at every
-     shape of the two SD-1.5 512^2 paths (bf16, and f32 at the VAE shape),
-     plus fully masked, ragged and f32 cases, within limits scaled to each
-     output tensor, with teeth (the twin with a key or query tile dropped
-     must fail); time the kernel, the twin and, as a yardstick only, the
-     PyTorch call that computes the same (`F.scaled_dot_product_attention`,
-     its forward or its autograd backward); check one gradient through
-     `flash_sdpa_diff` on the card against the twin's autograd gradient;
+     shape of the SD-1.5 512^2 paths (bf16, and f32 at the VAE shape), plus
+     fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
+     scaled to each output tensor, with teeth (the twin with a key or query
+     tile, or one statistics block, dropped must fail); `group_norm_silu`
+     also against the two-pass float32 GroupNorm; time the kernel, the twin
+     and, as a yardstick only, the PyTorch call that computes the same
+     (`F.scaled_dot_product_attention`, its forward or its autograd
+     backward; `F.group_norm` then `F.silu`); check one gradient through
+     `flash_sdpa_diff` and one through `GroupNormSiLU` on the card against
+     the twin's autograd gradient on the CPU;
   3. the tiny config end to end on CUDA and on the CPU with the same f32
-     weights and noise (TF32 off), `generation` and `guided_generation`,
-     final latents compared;
+     weights and noise (TF32 off), final latents compared: `generation`
+     (FREEFINE_FUSED_GN 0 and 1), `guided_generation`, and with
+     FREEFINE_FUSED_GN=1 `background_generation` and
+     `cross_image_composition` (2 sources);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
-     weights; one warm-up and two timed edits, launch counters checked
-     against the expected per-edit counts, and the launches by call shape
-     against the shapes of phase 2;
+     weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
+     0, 1, 1, 0); launch counters checked against the expected per-edit
+     counts, and the launches by call shape against the shapes of phase 2;
   5. the full-width SD-1.5 512^2 energy-guided edit: `guided_generation`
      with its defaults (50 steps, start 25, energy on the first 0.6 of the
      25 regeneration steps, energy scale 2.0, TCA); one warm-up and two
      timed edits, the same checks; one more edit measures the forward of the
      differentiated pass that no gradient reads (up blocks 2-3, conv_out);
-  6. the result lines: the `kernels` JSON line (launches and per-edit times
+  6. the full-width SD-1.5 512^2 object removal: `background_generation`
+     with its defaults (50 steps, start 1, guidance 3.5, TCA) and
+     FREEFINE_FUSED_GN=1; one warm-up and two timed edits, the same checks;
+  7. the full-width SD-1.5 512^2 composition: `cross_image_composition` of
+     2 source images, start 25, TCA, FREEFINE_FUSED_GN=1; the same checks,
+     and the masked per-source attention launches counted;
+  8. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 and 5), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+     4 to 7), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
 Exits with code 2 and prints no result when CUDA is not available.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -68,6 +80,13 @@ SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 ABS_OF_MAX = {"bfloat16": 2.0**-5, "float32": 1e-4}
 REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 DROP_KEYS = 32  # the smallest key tile of either kernel
+# GroupNorm's output is one rounding of a float32 value that the kernel and
+# its twin compute alike to about 1e-6, so its limits are tighter: tight
+# enough that the twin with one statistics block's partial left out fails
+# them at every path shape (`_gn_dropped`).
+GN_ABS_OF_MAX = {"bfloat16": 2.0**-6, "float32": 2e-6}
+GN_REL_TOL = {"bfloat16": 1.5e-4, "float32": 2e-6}
+LIMITS = {"group_norm_silu": (GN_ABS_OF_MAX, GN_REL_TOL)}
 
 def log(*a):
     print(*a, flush=True)
@@ -81,20 +100,51 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, repeats: int = 3) -> float:
+    """Time per call of `fn` between CUDA events around `iters` eager calls,
+    the least of `repeats` such timings: a stall of the host between two
+    launches leaves the device idle inside a timing, so one timing of a few
+    sub-millisecond calls can read several times the kernel's time."""
     import torch
 
     for _ in range(warmup):
         fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def graph_ms(fn, iters: int = 10, replays: int = 3) -> float:
+    """Device time per call of `fn`: `iters` calls captured in one CUDA
+    graph and replayed, so the host's launch rate does not set the time (it
+    does for eager calls of a few microseconds of work)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(nbytes: float, flops: float, exps: float, dtype: str) -> dict:
@@ -134,23 +184,28 @@ def ptxas_report(libs) -> list:
 # Phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
-# (batch, heads, seq, head_dim, dtype) of every call on the two SD-1.5 512^2
-# paths: inversion batch 2, regeneration batch 3 outside the TCA window, the
-# energy's no-grad reference-feature pass batch 1, VAE mid-block f32 one
-# head of 512.  Phases 4 and 5 count the launches at each shape and fail on
-# a shape not timed here, or a shape timed here that neither launches.
+# (batch, heads, seq, head_dim, dtype, masked) of every call on the SD-1.5
+# 512^2 paths: inversion batch 2 (generation), 3 (composition) and 1
+# (object removal); regeneration batch 3 outside the TCA window, and batch
+# 4 in composition, whose TCA layers also run the 2N = 4 per-source
+# attentions with per-key masks; the energy's no-grad reference-feature pass
+# batch 1; VAE mid-block f32 one head of 512 (batch 2, or 1 per image).
+# Phases 4-7 count the launches at each shape and fail on a shape not timed
+# here, or a shape timed here that no path launches.
 FLASH_SHAPES = [
-    (2, 8, 4096, 40, "bfloat16"), (2, 8, 1024, 80, "bfloat16"),
-    (2, 8, 256, 160, "bfloat16"), (2, 8, 64, 160, "bfloat16"),
-    (3, 8, 4096, 40, "bfloat16"), (3, 8, 1024, 80, "bfloat16"),
-    (3, 8, 256, 160, "bfloat16"), (3, 8, 64, 160, "bfloat16"),
-    (1, 8, 4096, 40, "bfloat16"), (1, 8, 1024, 80, "bfloat16"),
-    (1, 8, 256, 160, "bfloat16"), (1, 8, 64, 160, "bfloat16"),
-    (2, 1, 4096, 512, "float32"),
-]
-# check-only: masked keys with fully masked rows, ragged lengths
-FLASH_EXTRA = [(2, 8, 1000, 80, "bfloat16"), (2, 1, 300, 512, "float32"),
-               (3, 2, 77, 16, "float32"), (3, 2, 77, 16, "bfloat16"), (1, 2, 5, 24, "bfloat16")]
+    (b, 8, s, d, "bfloat16", False) for b in (1, 2, 3, 4)
+    for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
+] + [(4, 8, 4096, 40, "bfloat16", True), (4, 8, 1024, 80, "bfloat16", True),
+     (2, 1, 4096, 512, "float32", False), (1, 1, 4096, 512, "float32", False)]
+# check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
+# fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
+# (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
+# path runs
+FLASH_EXTRA = [(2, 8, 1000, 1000, 80, "bfloat16"), (2, 1, 300, 300, 512, "float32"),
+               (3, 2, 77, 77, 16, "float32"), (3, 2, 77, 77, 16, "bfloat16"),
+               (1, 2, 5, 5, 24, "bfloat16"), (6, 4, 4096, 8192, 40, "bfloat16"),
+               (6, 4, 1024, 2048, 80, "bfloat16"), (6, 4, 256, 512, 160, "bfloat16"),
+               (6, 1, 64, 128, 16, "float32")]
 # TCA after the head-parity split: batch 2*3 streams, 4 heads
 TCA_SHAPES = [(6, 4, 1024, 80, "bfloat16"), (6, 4, 4096, 40, "bfloat16")]
 TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
@@ -193,17 +248,19 @@ def compare(out, ref) -> dict:
                 finite=bool(out.float().isfinite().all()))
 
 
-def err_over_tol(c: dict, dtype: str) -> float:
-    """The larger of the two errors over its limit: <= 1 passes."""
-    return max(c["max_abs_err"] / (ABS_OF_MAX[dtype] * c["max_ref"]),
-               c["rel_err"] / REL_TOL[dtype])
+def err_over_tol(c: dict, dtype: str, name: str = "") -> float:
+    """The larger of the two errors over its limit (kernel `name`'s, see
+    LIMITS): <= 1 passes."""
+    abs_of_max, rel_tol = LIMITS.get(name, (ABS_OF_MAX, REL_TOL))
+    return max(c["max_abs_err"] / (abs_of_max[dtype] * c["max_ref"]),
+               c["rel_err"] / rel_tol[dtype])
 
 
 def _hold(name, out, ref, row, dtype=None, tensor=None):
     """Hold one output tensor to its twin; with several outputs per kernel
     (`tensor` names each) the row keeps each one's numbers and the worst."""
     c = compare(out, ref)
-    c["err_over_tol"] = err_over_tol(c, dtype or row["dtype"])
+    c["err_over_tol"] = err_over_tol(c, dtype or row["dtype"], name)
     if tensor is None:
         row.update(c)
     else:
@@ -220,7 +277,7 @@ def _teeth(name, ref, dropped, row, what="key", tensor=None):
     """The limits must reject the twin with its first DROP_KEYS keys (or
     queries) left out, as a kernel that skipped one tile would give.  The
     row keeps the weakest such margin (and each tensor's under `tensors`)."""
-    e = err_over_tol(compare(dropped, ref), row["dtype"])
+    e = err_over_tol(compare(dropped, ref), row["dtype"], name)
     row["dropped_tile_err_over_tol"] = min(row.get("dropped_tile_err_over_tol", e), e)
     if tensor is not None:
         row["tensors"][tensor][f"dropped_{what}_tile_err_over_tol"] = e
@@ -235,29 +292,39 @@ def check_flash(gen, shape, timed: bool):
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    b, h, s, d, dtype = shape
-    q, k, v = _inputs(gen, b, h, s, d, dtype, 3)
+    if timed:
+        b, h, sq, d, dtype, masked = shape
+        sk = sq
+    else:
+        b, h, sq, sk, d, dtype = shape
+        masked = True
+    q, = _inputs(gen, b, h, sq, d, dtype, 1)
+    k, v = _inputs(gen, b, h, sk, d, dtype, 2)
     mask = None
-    if not timed:
-        mask = (torch.rand(b, s, generator=gen, device=gen.device) > 0.5).float()
-        mask[b - 1] = 0.0  # a fully masked row block
+    if masked:
+        mask = (torch.rand(b, sk, generator=gen, device=gen.device) > 0.5).float()
+        if not timed:
+            mask[b - 1] = 0.0  # a fully masked row block
     out = FA.flash_sdpa(q, k, v, mask, heads=h)
     ref = FA.flash_sdpa_reference(q, k, v, mask, heads=h)
     torch.cuda.synchronize()
-    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype,
-               masked=mask is not None)
+    row = dict(batch=b, heads=h, seq_q=sq, seq_k=sk, head_dim=d, dtype=dtype, masked=masked,
+               key=(b, h, sq, sk, d, dtype, masked))
     _hold("flash_sdpa", out, ref, row)
     if timed:
-        n = min(DROP_KEYS, s // 2)
-        _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(q, k[:, n:], v[:, n:], heads=h), row)
+        n = min(DROP_KEYS, sk // 2)
+        _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(
+            q, k[:, n:], v[:, n:], None if mask is None else mask[:, n:], heads=h), row)
         itemsize = q.element_size()
-        nbytes = 4 * b * s * h * d * itemsize
-        row.update(bound(nbytes, 4.0 * b * h * s * s * d, float(b * h * s * s), dtype))
-        n = 3 if s >= 4096 else 10
-        row["kernel_ms"] = cuda_ms(lambda: FA.flash_sdpa(q, k, v, heads=h), n)
-        row["plain_ms"] = cuda_ms(lambda: FA.flash_sdpa_reference(q, k, v, heads=h), n)
-        qh, kh, vh = (x.reshape(b, s, h, d).transpose(1, 2).contiguous() for x in (q, k, v))
-        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), n)
+        nbytes = 4 * b * sq * h * d * itemsize + (0 if mask is None else 4 * b * sk)
+        row.update(bound(nbytes, 4.0 * b * h * sq * sk * d, float(b * h * sq * sk), dtype))
+        n = 3 if sq >= 4096 else 10
+        row["kernel_ms"] = cuda_ms(lambda: FA.flash_sdpa(q, k, v, mask, heads=h), n)
+        row["plain_ms"] = cuda_ms(lambda: FA.flash_sdpa_reference(q, k, v, mask, heads=h), n)
+        qh, kh, vh = (_sdpa_heads(x, h) for x in (q, k, v))
+        keep = None if mask is None else (mask > 0)[:, None, None, :]
+        row["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), n)
     return row
 
 
@@ -274,7 +341,8 @@ def check_tca(gen, shape, timed: bool):
     out = FA.tca_flash(q, ks, vs, km, vm, fg, tq, cg, heads=h)
     ref = FA.tca_flash_reference(q, ks, vs, km, vm, fg, tq, cg, heads=h)
     torch.cuda.synchronize()
-    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True)
+    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
+               key=(b, h, s, s, d, dtype, True))
     _hold("tca_flash", out, ref, row)
     if timed:
         n = min(DROP_KEYS, s // 2)
@@ -313,7 +381,7 @@ def check_grad(gen, shape, timed: bool):
         mask = (torch.rand(b, sk, generator=gen, device=gen.device) > 0.5).float()
         mask[b - 1] = 0.0  # a fully masked row block
     base = dict(batch=b, heads=h, seq_q=sq, seq_k=sk, head_dim=d, dtype=dtype,
-                masked=mask is not None)
+                masked=mask is not None, key=(b, h, sq, sk, d, dtype, mask is not None))
     rows = {n: dict(base) for n in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq",
                                     "flash_sdpa_bwd_dkv")}
     out, lse = FA.flash_sdpa_fwd_lse(q, k, v, mask, heads=h)
@@ -406,24 +474,257 @@ def check_autograd(record):
         f"{row['err_over_tol']:.3f} of tol")
 
 
-# name, timed shapes, check-only shapes, source, TPU kernel replaced
+def norm_calls(cfg, kind: str) -> list:
+    """The GroupNorm32 calls of one pass of `kind` ('unet', 'vae_encode' or
+    'vae_decode'), in call order, worked out from the config: (channels,
+    height, width, groups, eps, silu).  UNet resnets fuse the SiLU (eps
+    1e-5), transformer input norms do not (1e-6); every VAE norm is 1e-6
+    without SiLU (the VAE applies it after the cast)."""
+    calls = []
+    if kind == "unet":
+        u, res = cfg.unet, [cfg.latent_height, cfg.latent_width]
+        g, ch, nb = u.norm_num_groups, u.block_out_channels, len(u.block_out_channels)
+
+        def resnet(cin, cout):
+            calls.extend([(cin, *res, g, 1e-5, True), (cout, *res, g, 1e-5, True)])
+
+        def transformer(c):
+            calls.append((c, *res, g, 1e-6, False))
+
+        prev, skips = ch[0], [ch[0]]
+        for i, out in enumerate(ch):
+            for _ in range(u.layers_per_block):
+                resnet(prev, out)
+                prev = out
+                if u.down_block_has_attn[i]:
+                    transformer(out)
+                skips.append(out)
+            if i < nb - 1:
+                res = [(res[0] + 1) // 2, (res[1] + 1) // 2]
+                skips.append(out)
+        resnet(prev, prev)
+        transformer(prev)
+        resnet(prev, prev)
+        for i, out in enumerate(reversed(ch)):
+            for _ in range(u.layers_per_block + 1):
+                resnet(prev + skips.pop(), out)
+                prev = out
+                if u.up_block_has_attn[i]:
+                    transformer(out)
+            if i < nb - 1:
+                res = [2 * res[0], 2 * res[1]]
+        calls.append((ch[0], *res, g, 1e-5, True))
+        return calls
+
+    v = cfg.vae
+    g, ch, nb = v.norm_num_groups, v.block_out_channels, len(v.block_out_channels)
+
+    def norm(c):
+        calls.append((c, *res, g, 1e-6, False))
+
+    def mid(c):
+        for _ in range(5):  # resnet (2), attention (1), resnet (2)
+            norm(c)
+
+    if kind == "vae_encode":
+        res, prev = [cfg.height, cfg.width], ch[0]
+        for i, out in enumerate(ch):
+            for _ in range(v.layers_per_block):
+                norm(prev)
+                norm(out)
+                prev = out
+            if i < nb - 1:
+                res = [res[0] // 2, res[1] // 2]
+        mid(prev)
+        norm(prev)
+        return calls
+    rev = list(reversed(ch))
+    res, prev = [cfg.latent_height, cfg.latent_width], rev[0]
+    mid(prev)
+    for i, out in enumerate(rev):
+        for _ in range(v.layers_per_block + 1):
+            norm(prev)
+            norm(out)
+            prev = out
+        if i < nb - 1:
+            res = [2 * res[0], 2 * res[1]]
+    norm(rev[-1])
+    return calls
+
+
+# Batches of each pass of the paths that run the fused GroupNorm
+# (FREEFINE_FUSED_GN=1): generation (phase 4: inversion 2, regeneration 3,
+# one VAE encode and decode of 2 images), object removal (phase 6: 1 and 3;
+# one image) and composition (phase 7: 3 and 4; 3 encodes and 1 decode of
+# one image each).
+GN_PATH_BATCHES = {
+    "generation": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (2,)},
+    "bggen": {"unet": (1, 3), "vae_encode": (1,), "vae_decode": (1,)},
+    "compose": {"unet": (3, 4), "vae_encode": (1,), "vae_decode": (1,)},
+}
+
+
+def gn_shapes(cfg) -> list:
+    """(batch, channels, height, width, groups, eps, dtype, silu) of every
+    `group_norm_silu` call on the SD-1.5 paths (each channels-last, as the
+    convolutions pass it on)."""
+    out = set()
+    for passes in GN_PATH_BATCHES.values():
+        for kind, batches in passes.items():
+            dtype = str(cfg.unet.dtype if kind == "unet" else cfg.vae.dtype).split(".")[-1]
+            out |= {(b, c, h, w, g, eps, dtype, silu) for b in batches
+                    for c, h, w, g, eps, silu in norm_calls(cfg, kind)}
+    return sorted(out)
+
+
+# check-only: the eps / SiLU pairings no path runs at full width, float32
+# with 16-byte vectors (the tiny config) and the 1-element route (C not a
+# multiple of the vector width); each also from an NCHW input (the copy the
+# wrapper makes first)
+GN_EXTRA = [(2, 320, 64, 64, 32, 1e-6, "bfloat16", True),
+            (2, 320, 64, 64, 32, 1e-5, "bfloat16", False),
+            (2, 64, 16, 16, 8, 1e-5, "float32", True),
+            (2, 128, 1, 1, 8, 1e-5, "float32", True),
+            (2, 64, 7, 9, 8, 1e-6, "float32", False),
+            (3, 96, 20, 20, 32, 1e-5, "bfloat16", True),
+            (2, 18, 8, 8, 6, 1e-5, "float32", True),
+            (2, 60, 30, 25, 6, 1e-6, "bfloat16", False)]
+
+
+def _gn_inputs(gen, b, c, h, w, dtype):
+    """x with per-channel means in [-3, 3) and spreads in [0.3, 3), as
+    activations have; float32 scale and bias."""
+    import torch
+
+    dev = gen.device
+    m = torch.rand(c, generator=gen, device=dev) * 6 - 3
+    sd = torch.rand(c, generator=gen, device=dev) * 2.7 + 0.3
+    x = torch.randn(b, c, h, w, generator=gen, device=dev) * sd[:, None, None] + m[:, None, None]
+    scale = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
+    bias = torch.randn(c, generator=gen, device=dev) * 0.2
+    return x.to(getattr(torch, dtype)), scale, bias
+
+
+def _gn_dropped(x, scale, bias, plan, *, num_groups, eps, apply_silu):
+    """The twin with one statistics block's partial left out of every
+    group, as a kernel that lost it would give: the first of the plan's
+    position splits (a statistics block covers one split of its channels),
+    or with a single split the group's first channel (one of the per-channel
+    partials the finalize pass merges)."""
+    import torch
+
+    b, c, h, w = x.shape
+    xf = x.float().reshape(b, num_groups, c // num_groups, h * w)
+    kept = xf[..., plan["chunk"]:] if plan["nsplit"] > 1 else xf[:, :, 1:]
+    kept = kept.reshape(b, num_groups, -1)
+    mean = kept.mean(-1, keepdim=True)
+    var = (kept * kept).mean(-1, keepdim=True) - mean * mean
+    y = ((xf.reshape(b, num_groups, -1) - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * scale[None, :, None, None] + bias[None, :, None, None]
+    if apply_silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def check_gn(gen, shape, timed: bool):
+    import torch
+    import torch.nn.functional as F
+
+    from freefine_tpu_torch.ops import group_norm as G
+
+    b, c, h, w, g, eps, dtype, silu = shape
+    x, scale, bias = _gn_inputs(gen, b, c, h, w, dtype)
+    nchw = x
+    x = x.contiguous(memory_format=torch.channels_last)
+    kw = dict(num_groups=g, eps=eps, apply_silu=silu)
+    out = G.group_norm_silu(x, scale, bias, **kw)
+    ref = G.group_norm_silu_reference(x, scale, bias, **kw)
+    two_pass = G.group_norm_reference(x, scale, bias, **kw)
+    torch.cuda.synchronize()
+    row = dict(batch=b, channels=c, height=h, width=w, groups=g, eps=eps, dtype=dtype, silu=silu,
+               key=shape)
+    if not out.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"group_norm_silu {shape}: output is not channels-last")
+    _hold("group_norm_silu", out, ref, row, tensor="vs_twin")
+    _hold("group_norm_silu", out, two_pass, row, tensor="vs_two_pass")
+    if not timed:
+        if not torch.equal(G.group_norm_silu(nchw, scale, bias, **kw), out):
+            raise AssertionError(f"group_norm_silu {shape}: NCHW input differs from channels-last")
+        return row
+    plan = G.launch_plan(x)
+    row["plan"] = plan
+    _teeth("group_norm_silu", ref, _gn_dropped(x, scale, bias, plan, **kw), row,
+           what="stats_block", tensor="vs_twin")
+    n = x.numel()
+    row.update(bound(2 * n * x.element_size() + 8 * c, 8.0 * n, float(n if silu else 0),
+                     "float32"))
+    row["kernel_ms"] = graph_ms(lambda: G.group_norm_silu(x, scale, bias, **kw))
+    row["kernel_eager_ms"] = cuda_ms(lambda: G.group_norm_silu(x, scale, bias, **kw), 10)
+    row["plain_ms"] = graph_ms(lambda: G.group_norm_silu_reference(x, scale, bias, **kw))
+    row["f32_route_ms"] = graph_ms(lambda: G.group_norm_reference(x, scale, bias, **kw))
+    sc, bs = scale.to(x.dtype), bias.to(x.dtype)
+
+    def library():
+        y = F.group_norm(x, g, sc, bs, eps)
+        return F.silu(y) if silu else y
+
+    row["library_ms"] = graph_ms(library)
+    row["library_call"] = "F.group_norm then F.silu, in x's dtype"
+    return row
+
+
+def check_gn_autograd(record):
+    """One gradient through `GroupNormSiLU` on the card (kernel forward,
+    two-pass backward) against the same autograd call on the CPU twin."""
+    import torch
+
+    from freefine_tpu_torch.ops import group_norm as G
+
+    b, c, h, w, g, eps, dtype, silu = GN_AUTOGRAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, scale, bias = _gn_inputs(gen, b, c, h, w, dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, scale, bias)]
+        y = G.group_norm_silu_diff(*leaves, num_groups=g, eps=eps, apply_silu=silu)
+        if y.grad_fn is None:
+            raise AssertionError("group_norm_silu_diff under grad mode returned no grad_fn")
+        grads[dev] = torch.autograd.grad(y, leaves, dy.to(dev))
+    torch.cuda.synchronize()
+    row = dict(batch=b, channels=c, height=h, width=w, groups=g, eps=eps, dtype=dtype, silu=silu)
+    for name, got, want in zip(("dx", "dscale", "dbias"), grads["cuda"], grads["cpu"]):
+        _hold("GroupNormSiLU autograd", got.cpu(), want, row,
+              dtype=str(want.dtype).split(".")[-1], tensor=name)
+    record["gn_autograd_check"] = row
+    log(f"  GroupNormSiLU autograd on the card vs the CPU twin {GN_AUTOGRAD_SHAPE}: "
+        f"{row['err_over_tol']:.3f} of tol")
+
+
+GN_AUTOGRAD_SHAPE = (1, 320, 64, 64, 32, 1e-5, "bfloat16", True)
+
+
+# name, check function, timed shapes, check-only shapes, source, TPU kernel replaced
 KERNELS = (
-    ("flash_sdpa", FLASH_SHAPES, FLASH_EXTRA,
+    ("flash_sdpa", check_flash, FLASH_SHAPES, FLASH_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa.cu", "freefine_tpu/ops/flash_attention.py:80"),
-    ("tca_flash", TCA_SHAPES, TCA_EXTRA,
+    ("tca_flash", check_tca, TCA_SHAPES, TCA_EXTRA,
      "freefine_tpu_torch/csrc/tca_flash.cu", "freefine_tpu/ops/flash_attention.py:175"),
-    ("flash_sdpa_fwd_lse", GRAD_SHAPES, GRAD_EXTRA,
+    ("flash_sdpa_fwd_lse", check_grad, GRAD_SHAPES, GRAD_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa.cu", "freefine_tpu/ops/flash_attention.py:307"),
-    ("flash_sdpa_bwd_dq", GRAD_SHAPES, GRAD_EXTRA,
+    ("flash_sdpa_bwd_dq", check_grad, GRAD_SHAPES, GRAD_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:344"),
-    ("flash_sdpa_bwd_dkv", GRAD_SHAPES, GRAD_EXTRA,
+    ("flash_sdpa_bwd_dkv", check_grad, GRAD_SHAPES, GRAD_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:378"),
+    ("group_norm_silu", check_gn, None, GN_EXTRA,
+     "freefine_tpu_torch/csrc/group_norm.cu", "freefine_tpu/ops/group_norm.py:86"),
 )
 
 
 def _log_row(name, r, timed):
-    shape = (r["batch"], r["heads"], r["seq_q"], r["seq_k"], r["head_dim"], r["dtype"])
-    msg = (f"  {name} {shape}{'' if timed else ' masked/ragged'}: err {r['max_abs_err']:.3g} "
+    shape = r["key"] if "key" in r else ()
+    msg = (f"  {name} {shape}{'' if timed else ' (check only)'}: err {r['max_abs_err']:.3g} "
            f"(max|ref| {r['max_ref']:.3g}, rel {r['rel_err']:.3g}, "
            f"{r['err_over_tol']:.3f} of tol)")
     if timed:
@@ -435,41 +736,44 @@ def _log_row(name, r, timed):
     log(msg)
 
 
-def phase_kernels(record):
+def phase_kernels(record, sd15_cfg):
     """Every kernel at every path shape (timed) and every extra case:
     {name: (rows, checks)}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {name: ([], []) for name, *_ in KERNELS}
-    for name, fn, shapes, extra in (("flash_sdpa", check_flash, FLASH_SHAPES, FLASH_EXTRA),
-                                    ("tca_flash", check_tca, TCA_SHAPES, TCA_EXTRA)):
+    done = set()
+    for name, fn, shapes, extra, *_ in KERNELS:
+        if fn in done:
+            continue
+        done.add(fn)
+        if shapes is None:
+            shapes = gn_shapes(sd15_cfg)
         for timed, group in ((True, shapes), (False, extra)):
             for shape in group:
-                r = fn(gen, shape, timed=timed)
-                out[name][0 if timed else 1].append(r)
-                _log_row(name, r, timed)
-    for timed, group in ((True, GRAD_SHAPES), (False, GRAD_EXTRA)):
-        for shape in group:
-            for name, r in check_grad(gen, shape, timed).items():
-                out[name][0 if timed else 1].append(r)
-                _log_row(name, r, timed)
+                rows = fn(gen, shape, timed)
+                for kname, r in (rows.items() if fn is check_grad else ((name, rows),)):
+                    out[kname][0 if timed else 1].append(r)
+                    _log_row(kname, r, timed)
     check_autograd(record)
+    check_gn_autograd(record)
     return out
 
 
-TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
+TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms",
+         "f32_route_ms")
 
 
 def summarize(name, source, replaces, rows, checks, counts_by_path):
     """One kernel's entry of the `kernels` line.  For each path (phase 4
-    `generation`, phase 5 `guided`) the per-edit times weight each timed
-    shape by the launches counted at that shape in one edit of that path
-    (`counts_by_path`: {path: LAUNCH_SHAPES of one edit}); the top-level
+    `generation` with the fused GroupNorm, phase 5 `guided`, phase 6
+    `bggen`, phase 7 `compose`) the per-edit times weight each timed shape
+    by the launches counted at that shape in one edit of that path
+    (`counts_by_path`: {path: launch shapes of one edit}); the top-level
     launches and times are one edit of each path together.  Without the
     edits (--skip-sd15) they are null."""
-    timed = {(r["batch"], r["heads"], r["seq_q"], r["seq_k"], r["head_dim"], r["dtype"],
-              r["masked"]): r for r in rows}
+    timed = {r["key"]: r for r in rows}
     paths = None
     if counts_by_path is not None:
         paths, launched = {}, set()
@@ -480,7 +784,7 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
                                      f"{sorted(set(counted) - set(timed))} are not timed")
             launched |= set(counted)
             entry = dict(launches=sum(counted.values()))
-            for field in TIMES:
+            for field in (f for f in TIMES if f in rows[0]):
                 vals = [timed[key][field] for key in counted]
                 entry[field.replace("kernel_ms", "ms")] = (
                     None if any(x is None for x in vals)
@@ -504,7 +808,8 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
         max_abs_err=max(r["max_abs_err"] for r in both),
         max_rel_err=max(r["rel_err"] for r in both),
         err_over_tol=max(r["err_over_tol"] for r in both),
-        tol=dict(max_abs_err_of_max_ref=ABS_OF_MAX, rel_err=REL_TOL),
+        tol=dict(zip(("max_abs_err_of_max_ref", "rel_err"),
+                     LIMITS.get(name, (ABS_OF_MAX, REL_TOL)))),
         ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by=None if paths is None else (
             "operations" if total("ops_ms") >= total("bytes_ms") else "bytes"),
@@ -512,13 +817,14 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
         library_call=next((r["library_call"] for r in rows if "library_call" in r),
                           None if rows[0]["library_ms"] is None
                           else "F.scaled_dot_product_attention"),
+        f32_route_ms=total("f32_route_ms") if "f32_route_ms" in rows[0] else None,
         per="one edit of each path together; per path under `paths`",
         paths=paths, shapes=rows, checks=checks,
     )
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 to 5: the pipeline
+# Phases 3 to 7: the pipeline
 # ---------------------------------------------------------------------------
 
 TINY_TOL = 2e-3  # final latents, CUDA vs CPU, float32 with TF32 off
@@ -542,9 +848,25 @@ def _capture_latents(pipe, store):
     pipe.latent_to_image = cap
 
 
+@contextlib.contextmanager
+def fused_gn(mode: str):
+    """FREEFINE_FUSED_GN set to `mode` inside the block, restored after."""
+    prev = os.environ.get("FREEFINE_FUSED_GN")
+    os.environ["FREEFINE_FUSED_GN"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("FREEFINE_FUSED_GN")
+        else:
+            os.environ["FREEFINE_FUSED_GN"] = prev
+
+
 def phase_tiny(record):
-    """`generation` and `guided_generation` on the tiny config, CUDA against
-    the CPU with the same weights and noise."""
+    """The entry points on the tiny config, CUDA against the CPU with the
+    same weights and noise: `generation` (fused GroupNorm off and on),
+    `guided_generation`, and with the fused GroupNorm
+    `background_generation` and `cross_image_composition` of 2 sources."""
     import torch
 
     from freefine_tpu_torch.config import tiny_pipeline_config
@@ -563,38 +885,58 @@ def phase_tiny(record):
     coarse_g, tm_g, _ = re_edit_2d(img, mask, dx=10, rotation=15, device="cuda")
     assert np.abs(coarse_c.astype(int) - coarse_g.astype(int)).max() <= 1
     assert np.array_equal(tm_c, tm_g)
-    num_step, start_step = 8, 4
-    k = num_step - start_step
     rng = np.random.default_rng(2)
-    noise = [rng.standard_normal((2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)
-             for _ in range(k)]
+    src2, _ = _case(h, w, 4)
+    mask2 = np.zeros((h, w), np.uint8)
+    mask2[h // 2 :, w // 2 :] = 255
     cons = np.zeros((h, w), np.uint8)
+    edit_kw = dict(num_step=8, start_step=4, end_step=1)
+    # name: (GroupNorm mode, per-step noise rows, steps, call)
     runs = {
-        "generation": dict(num_step=num_step, start_step=start_step, end_step=1,
-                           use_auto_draw=True, cons_area=cons, reduce_inp_artifacts=True),
-        "guided_generation": dict(num_step=num_step, start_step=start_step, end_step=1,
-                                  energy_fraction=0.5, cons_area=cons),
+        "generation": ("0", 2, 4, lambda p, **kw: p.generation(
+            img, mask, coarse_c, tm_c, "a photo", use_auto_draw=True, cons_area=cons,
+            reduce_inp_artifacts=True, **edit_kw, **kw)),
+        "generation_fused_gn": ("1", 2, 4, lambda p, **kw: p.generation(
+            img, mask, coarse_c, tm_c, "a photo", use_auto_draw=True, cons_area=cons,
+            reduce_inp_artifacts=True, **edit_kw, **kw)),
+        "guided_generation": ("0", 2, 4, lambda p, **kw: p.guided_generation(
+            img, mask, coarse_c, tm_c, "a photo", energy_fraction=0.5, cons_area=cons,
+            **edit_kw, **kw)),
+        "background_generation": ("1", 2, 5, lambda p, **kw: p.background_generation(
+            img, mask, "a wall", num_step=6, start_step=1, end_step=3, **kw)),
+        "cross_image_composition": ("1", 1, 4, lambda p, **kw: p.cross_image_composition(
+            [img, src2], [mask, mask2], [tm_c, mask2], coarse_c, ["a cat", "a dog"],
+            dil_factor=5, **edit_kw, **kw)),
     }
     stores = {name: {} for name in ("cpu", "cuda")}
     for name, pipe in (("cpu", cpu), ("cuda", gpu)):
         _capture_latents(pipe, stores[name])
     record["tiny"] = {}
-    for entry, kw in runs.items():
+    for entry, (mode, rows, k, call) in runs.items():
+        noise = [rng.standard_normal((rows, cfg.latent_height, cfg.latent_width, 4))
+                 .astype(np.float32) for _ in range(k)]
         lats, outs = {}, {}
-        for name, pipe in (("cpu", cpu), ("cuda", gpu)):
-            outs[name] = getattr(pipe, entry)(
-                img, mask, coarse_c, tm_c, "a photo",
-                noise=[torch.from_numpy(z).to(name) for z in noise], **kw)
-            lats[name] = stores[name]["lat"]
+        with fused_gn(mode):
+            for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+                outs[name] = call(pipe, noise=[torch.from_numpy(z).to(name) for z in noise])
+                lats[name] = stores[name]["lat"]
         err = float((lats["cpu"] - lats["cuda"]).abs().max())
         img_err = int(np.abs(outs["cpu"].astype(int) - outs["cuda"].astype(int)).max())
         record["tiny"][entry] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
-                                     image_max_level_diff=img_err,
+                                     image_max_level_diff=img_err, fused_gn=mode,
                                      finite=bool(torch.isfinite(lats["cuda"]).all()))
         log(f"  tiny {entry} CUDA vs CPU: latents max |diff| {err:.3g} (tol {TINY_TOL}), "
             f"image {img_err} levels")
         if not err <= TINY_TOL or img_err > 1 or not record["tiny"][entry]["finite"]:
             raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {record['tiny'][entry]}")
+
+
+# Kernel names of a GroupNorm in a profile: the port's kernels (namespace
+# gn), and the kernels of PyTorch's F.group_norm (statistics, coefficients,
+# normalise); the f32 route's casts and SiLU run as generic elementwise
+# kernels and are not counted.
+GN_KERNEL_NAMES = ("gn::gn_", "RowwiseMoments", "ComputeFusedParams",
+                   "GroupNormKernelImplInternal")
 
 
 def profile_edit(run, out_name):
@@ -627,20 +969,66 @@ def profile_edit(run, out_name):
         for name, us, n in rows:
             f.write(f"{us / 1e3:12.3f} ms {n:8d}  {name}\n")
     top = [dict(name=n[:120], ms=us / 1e3, count=c) for n, us, c in rows[:25]]
+    gn_ms = sum(us for name, us, _ in rows if any(p in name for p in GN_KERNEL_NAMES)) / 1e3
+    transposes_ms = sum(us for name, us, _ in rows
+                        if "nchwToNhwc" in name or "nhwcToNchw" in name) / 1e3
     log(f"  profiled edit: wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"(idle share {1 - busy / wall:.3f})")
+        f"(idle share {1 - busy / wall:.3f}); named GroupNorm kernels {gn_ms:.2f} ms, "
+        f"cuDNN layout transposes {transposes_ms:.2f} ms")
     for r in top[:12]:
         log(f"    {r['ms']:10.2f} ms {r['count']:6d}  {r['name']}")
-    return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall, top=top)
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall, top=top,
+                group_norm_kernels_ms=gn_ms, group_norm_kernel_names=GN_KERNEL_NAMES,
+                layout_transposes_ms=transposes_ms)
 
 
-def timed_edits(record, key, run, expect, timed_runs, store, hw):
-    """One warm-up and `timed_runs` timed edits of one path; the launch
-    counters are set to 0 just before each edit and read just after, and
-    must equal `expect`.  Returns the launches of one edit by call shape."""
+def _launch_counts():
+    from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
+
+    return {**FA.LAUNCHES, **G.LAUNCHES}, {**FA.LAUNCH_SHAPES, **G.LAUNCH_SHAPES}
+
+
+def edit_once(key, run, expect, store, hw):
+    """One timed edit; the launch counters are set to 0 just before it and
+    read just after, and must equal `expect`.  -> (seconds, launches by
+    shape)."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
+
+    FA.reset_launch_counts()
+    G.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, shapes = _launch_counts()
+    if launches != expect:
+        raise AssertionError(f"{key}: launch counts {launches} != expected per edit {expect}")
+    if out.shape != (*hw, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"{key}: output {out.shape} {out.dtype}")
+    if not torch.isfinite(store["lat"]).all():
+        raise AssertionError(f"{key}: non-finite final latents")
+    return secs, shapes
+
+
+def _edit_record(record, key, secs, shapes, expect, peak, card):
+    record[key] = dict(
+        seconds_per_edit=secs, edits_per_min=60.0 / float(np.mean(secs)),
+        peak_memory_bytes=peak, launches=expect, expected_launches=expect,
+        launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
+    )
+    log(f"  {key}: {record[key]['edits_per_min']:.3f} edits/min, s/edit {secs}, "
+        f"peak {peak / 2**30:.2f} GiB, launches {expect} [{card}]")
+
+
+def timed_edits(record, key, run, expect, timed_runs, store, hw):
+    """One warm-up and `timed_runs` timed edits of one path (`edit_once`
+    each).  Returns the launches of one edit by call shape."""
+    import torch
 
     t0 = time.perf_counter()
     run()
@@ -649,32 +1037,14 @@ def timed_edits(record, key, run, expect, timed_runs, store, hw):
     torch.cuda.reset_peak_memory_stats()
     secs, first_shapes = [], None
     for _ in range(timed_runs):
-        FA.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        launches = dict(FA.LAUNCHES)
-        if launches != expect:
-            raise AssertionError(f"{key}: launch counts {launches} != expected per edit {expect}")
-        shapes = dict(FA.LAUNCH_SHAPES)
+        t, shapes = edit_once(key, run, expect, store, hw)
+        secs.append(t)
         if first_shapes is not None and shapes != first_shapes:
             raise AssertionError(f"{key}: launches by shape differ between edits: {shapes}")
         first_shapes = shapes
-        if out.shape != (*hw, 3) or out.dtype != np.uint8:
-            raise AssertionError(f"{key}: output {out.shape} {out.dtype}")
-        if not torch.isfinite(store["lat"]).all():
-            raise AssertionError(f"{key}: non-finite final latents")
-    peak = torch.cuda.max_memory_allocated()
-    record[key] = dict(
-        seconds_per_edit=secs, edits_per_min=60.0 / float(np.mean(secs)),
-        peak_memory_bytes=peak, launches=launches, expected_launches=expect,
-        launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
-    )
-    log(f"  {key}: {record[key]['edits_per_min']:.3f} edits/min, s/edit {secs}, "
-        f"peak {peak / 2**30:.2f} GiB, launches {launches} [{record['card']}]")
-    return shapes
+    _edit_record(record, key, secs, first_shapes, expect, torch.cuda.max_memory_allocated(),
+                 record["card"])
+    return first_shapes
 
 
 def sd15_setup(record):
@@ -698,34 +1068,50 @@ def sd15_setup(record):
     return pipe, (img, mask, coarse, tm), store
 
 
-def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2)):
+def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2), *,
+              mode="edit", encodes=1, decodes=1, fused=False):
     """Launches per edit worked out from the config: every self-attention
     of each inversion pass; the layers outside the TCA window of each
-    regeneration pass (`tca_flash` inside it); per energy step the no-grad
-    reference-feature pass (`flash_sdpa`), the differentiated pass (forward
-    with logsumexp) and two gradient pulls through the layers upstream of
-    the deepest feature tap used; 2 VAE calls."""
+    regeneration pass, and inside it `tca_flash` (edit, bggen) or, in
+    composition, the self-attention and the per-source masked attention;
+    per energy step the no-grad reference-feature pass (`flash_sdpa`), the
+    differentiated pass (forward with logsumexp) and two gradient pulls
+    through the layers upstream of the deepest feature tap used; one VAE
+    attention per encode and decode call.  With the fused GroupNorm, every
+    GroupNorm of every UNet pass and VAE call (`norm_calls`)."""
     u = cfg.unet
     nb = len(u.block_out_channels)
     n_layers, _ = u.attn_layer_layout
     lo, hi = pipe._layer_range
+    gated = hi - lo
     down = sum(u.transformer_depth[i] * u.layers_per_block for i in range(nb)
                if u.down_block_has_attn[i])
     up = sum(u.transformer_depth[nb - 1 - i] * (u.layers_per_block + 1)
              for i in range(max(feature_indices)) if u.up_block_has_attn[i])
     upstream = down + u.transformer_depth[nb - 1] + up
+    compose = mode == "compose"
+    unet_passes = k_inv + k_edit + 2 * energy_steps
     return {
-        "flash_sdpa": k_inv * n_layers + k_edit * (n_layers - (hi - lo))
-        + energy_steps * n_layers + 2,
-        "tca_flash": k_edit * (hi - lo),
+        "flash_sdpa": k_inv * n_layers + k_edit * (n_layers - gated)
+        + (2 * k_edit * gated if compose else 0) + energy_steps * n_layers + encodes + decodes,
+        "tca_flash": 0 if compose else k_edit * gated,
         "flash_sdpa_fwd_lse": energy_steps * n_layers,
         "flash_sdpa_bwd_dq": energy_steps * 2 * upstream,
         "flash_sdpa_bwd_dkv": energy_steps * 2 * upstream,
+        "group_norm_silu": 0 if not fused else (
+            unet_passes * len(norm_calls(cfg, "unet"))
+            + encodes * len(norm_calls(cfg, "vae_encode"))
+            + decodes * len(norm_calls(cfg, "vae_decode"))),
     }
 
 
 def phase_sd15(record, pipe, case, store, timed_runs, profile):
-    """The full-width `generation` edit (GeoBench-2D protocol)."""
+    """The full-width `generation` edit (GeoBench-2D protocol), with the
+    fused GroupNorm off ("0") and on ("1") in turns: one warm-up of each,
+    then 0, 1, 1, 0 (timed_runs edits of each).  Returns the launches by
+    shape of the fused edit."""
+    import torch
+
     img, mask, coarse, tm = case
     h, w = pipe.config.height, pipe.config.width
     num_step, start_step = 50, 35
@@ -737,13 +1123,37 @@ def phase_sd15(record, pipe, case, store, timed_runs, profile):
     def run():
         return pipe.generation(img, mask, coarse, tm, "a photo of a cat", **kw)
 
-    shapes = timed_edits(record, "sd15", run, _expected(pipe.config, pipe, k, k), timed_runs,
-                         store, (h, w))
+    modes = ("0", "1")
+    expect = {m: _expected(pipe.config, pipe, k, k, fused=m == "1") for m in modes}
+    for m in modes:
+        with fused_gn(m):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            record[f"sd15_gn{m}_warmup_s"] = time.perf_counter() - t0
+    order = [m for _ in range(-(-timed_runs // 2)) for m in ("0", "1", "1", "0")]
+    secs, shapes, peaks = {m: [] for m in modes}, {}, {}
+    for m in order[: 2 * timed_runs]:
+        with fused_gn(m):
+            torch.cuda.reset_peak_memory_stats()
+            t, sh = edit_once(f"sd15 FREEFINE_FUSED_GN={m}", run, expect[m], store, (h, w))
+        secs[m].append(t)
+        peaks[m] = max(peaks.get(m, 0), torch.cuda.max_memory_allocated())
+        if shapes.setdefault(m, sh) != sh:
+            raise AssertionError(f"sd15: launches by shape differ between edits: {sh}")
+    record["sd15"] = {}
+    for m in modes:
+        _edit_record(record["sd15"], f"fused_gn_{m}", secs[m], shapes[m], expect[m], peaks[m],
+                     record["card"])
+    record["sd15"]["order"] = order[: 2 * timed_runs]
     record["sd15"]["protocol"] = ("SD-1.5 512^2, 50-step DDIM, start 35, guidance 7.5, eta 1.0, "
-                                  "TCA, bf16 random weights, batch 1")
+                                  "TCA, bf16 random weights, batch 1; FREEFINE_FUSED_GN 0 and 1 "
+                                  "in turns")
     if profile:
-        record["sd15_profile"] = profile_edit(run, "profile_sd15.txt")
-    return shapes
+        for m in modes:
+            with fused_gn(m):
+                record[f"sd15_profile_gn{m}"] = profile_edit(run, f"profile_sd15_gn{m}.txt")
+    return shapes["1"]
 
 
 def unused_tail_ms(pipe, run):
@@ -812,6 +1222,63 @@ def phase_guided(record, pipe, case, store, timed_runs, profile):
     return shapes
 
 
+def phase_bggen(record, pipe, case, store, timed_runs, profile):
+    """The full-width object removal with `background_generation`'s
+    defaults and the fused GroupNorm."""
+    img, mask, _, _ = case
+    h, w = pipe.config.height, pipe.config.width
+    num_step, start_step = 50, 1
+    k = num_step - start_step
+
+    def run():
+        return pipe.background_generation(img, mask, "an empty wooden table", seed=42)
+
+    expect = _expected(pipe.config, pipe, k, k, fused=True)
+    with fused_gn("1"):
+        shapes = timed_edits(record, "sd15_bggen", run, expect, timed_runs, store, (h, w))
+        if profile:
+            record["sd15_bggen_profile"] = profile_edit(run, "profile_sd15_bggen.txt")
+    record["sd15_bggen"]["protocol"] = (
+        "SD-1.5 512^2, background_generation defaults: 50-step DDIM, start 1, guidance 3.5, "
+        "eta 1.0, TCA, FREEFINE_FUSED_GN=1, bf16 random weights, batch 1")
+    return shapes
+
+
+def phase_compose(record, pipe, case, store, timed_runs, profile):
+    """The full-width composition of 2 source images (start 25, TCA) with
+    the fused GroupNorm."""
+    img, mask, coarse, tm = case
+    h, w = pipe.config.height, pipe.config.width
+    src2, _ = _case(h, w, 5)
+    mask2 = np.zeros((h, w), np.uint8)
+    mask2[h // 2 : 7 * h // 8, w // 2 : 7 * w // 8] = 255
+    tgt2 = np.zeros((h, w), np.uint8)
+    tgt2[h // 2 : 7 * h // 8, w // 8 : w // 2] = 255
+    num_step, start_step = 50, 25
+    k = num_step - start_step
+
+    def run():
+        return pipe.cross_image_composition(
+            [img, src2], [mask, mask2], [tm, tgt2], coarse, ["a cat", "a dog"],
+            num_step=num_step, start_step=start_step, seed=42)
+
+    lo, hi = pipe._layer_range
+    expect = _expected(pipe.config, pipe, k, k, mode="compose", encodes=3, fused=True)
+    with fused_gn("1"):
+        shapes = timed_edits(record, "sd15_compose", run, expect, timed_runs, store, (h, w))
+        if profile:
+            record["sd15_compose_profile"] = profile_edit(run, "profile_sd15_compose.txt")
+    masked = sum(n for key, n in shapes.items() if key[0] == "flash_sdpa" and key[-1])
+    if masked != k * (hi - lo):
+        raise AssertionError(f"compose: {masked} masked flash_sdpa launches, expected "
+                             f"{k * (hi - lo)} (2 sources x {hi - lo} TCA layers batched)")
+    record["sd15_compose"].update(masked_flash_launches=masked, protocol=(
+        "SD-1.5 512^2, cross_image_composition of 2 sources: 50-step DDIM, start 25, guidance "
+        "7.5, eta 1.0, TCA, FREEFINE_FUSED_GN=1, bf16 random weights"))
+    log(f"  compose: {masked} masked per-source flash_sdpa launches per edit")
+    return shapes
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
@@ -841,8 +1308,10 @@ def main():
 
     record["ptxas"] = ptxas_report(libs)
 
+    from freefine_tpu_torch.config import sd15_pipeline_config
+
     log("phase 2: kernels against their twins")
-    checked = phase_kernels(record)
+    checked = phase_kernels(record, sd15_pipeline_config())
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
     counts = None
@@ -852,10 +1321,16 @@ def main():
         counts = {"generation": phase_sd15(record, pipe, case, store, args.timed_runs,
                                            args.profile)}
         log("phase 5: SD-1.5 512^2 energy-guided edit (guided_generation)")
-        counts["guided"] = phase_guided(record, pipe, case, store, args.timed_runs,
-                                        args.profile)
+        with fused_gn("0"):
+            counts["guided"] = phase_guided(record, pipe, case, store, args.timed_runs,
+                                            args.profile)
+        log("phase 6: SD-1.5 512^2 object removal (background_generation)")
+        counts["bggen"] = phase_bggen(record, pipe, case, store, args.timed_runs, args.profile)
+        log("phase 7: SD-1.5 512^2 composition of 2 sources (cross_image_composition)")
+        counts["compose"] = phase_compose(record, pipe, case, store, args.timed_runs,
+                                          args.profile)
     kernels = [summarize(name, source, replaces, *checked[name], counts)
-               for name, _, _, source, replaces in KERNELS]
+               for name, _, _, _, source, replaces in KERNELS]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t0
 

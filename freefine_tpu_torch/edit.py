@@ -1,9 +1,13 @@
 """Editing configuration and state for the PyTorch port.
 
-`EditConfig` is the static description of the editing mode (the fields the
-'none' and 'edit' modes read); `EditState` carries the per-call tensors
-(mask pyramids keyed by attention sequence length, per-step scalars).
-Mirrors `freefine_tpu.edit`.
+`EditConfig` is the static description of the editing mode; `EditState`
+carries the per-call tensors (mask pyramids keyed by attention sequence
+length, per-step scalars).  Mirrors `freefine_tpu.edit` for the modes
+'none', 'edit' (geometric edit), 'bggen' (background generation) and
+'compose' (multi-image composition).
+
+Stream layouts: edit / bggen the deduped [u_e, r, c_e] (or legacy
+[u_e, u_r, c_e, c_r]); compose [e, r_1 .. r_N, c_e].
 """
 
 from __future__ import annotations
@@ -16,27 +20,42 @@ import torch
 DEFAULT_LAYER_RANGE = (10, 16)
 # UNet stages whose self-attention TCA modulates (the decoder).
 TCA_SCOPE = ("up",)
+# UNet stages whose self-attention ssa / sdsa share (all of them).
+STYLE_ALIGN_SCOPE = ("down", "mid", "up")
+MODES = ("none", "edit", "bggen", "compose")
+METHODS = (None, "tca", "mmsa", "ssa", "sdsa")
 
 
 @dataclasses.dataclass(frozen=True)
 class EditConfig:
-    """mode 'none' (vanilla) or 'edit' (geometric-edit regeneration);
-    method 'tca' or 'mmsa' (the other methods are not ported yet)."""
+    """mode 'none' (vanilla), 'edit', 'bggen' or 'compose'; method 'tca',
+    'mmsa' (masked reference attention, blended or not with self-attention)
+    or 'ssa' / 'sdsa' (StyleAligned shared attention, sdsa with the
+    appended reference keys masked).  The JAX modes drag, design and
+    geodiff are not ported yet.
+
+    num_sources   : compose, the N reference images.
+    prompt_length : compose, region prompts including the trailing "".
+    """
 
     mode: str = "none"
     method: Optional[str] = None
     local_cfg: bool = True
     layer_range: Tuple[int, int] = DEFAULT_LAYER_RANGE
+    num_sources: int = 0
+    prompt_length: int = 0
 
     def __post_init__(self):
-        if self.mode not in ("none", "edit"):
+        if self.mode not in MODES:
             raise NotImplementedError(
-                f"edit mode {self.mode!r} is not ported yet (ROADMAP A8-A12)"
+                f"edit mode {self.mode!r} is not ported yet (ROADMAP A13-A14)"
             )
-        if self.method not in (None, "tca", "mmsa"):
-            raise NotImplementedError(
-                f"method {self.method!r} is not ported yet (ROADMAP A9)"
-            )
+        if self.method not in METHODS:
+            raise ValueError(f"unknown edit method {self.method!r}")
+
+    @property
+    def uses_share_attention(self) -> bool:
+        return self.method in ("ssa", "sdsa")
 
     def block_gated(self, block_index: int) -> bool:
         """Static layer gate (reference `cur_att_layer // 2 in layer_idx`)."""
@@ -52,9 +71,12 @@ def none_config() -> EditConfig:
 class EditState:
     """Per-call editing tensors threaded through the UNet.
 
-    fg_retain    : {S: [S]} target-region query mask.
+    fg_retain    : {S: [S]} target-region query mask (bggen: the object).
     fg_ref       : {S: [S]} source-object key mask.
     local_region : {S: [S]} local cross-attention CFG region.
+    src_masks    : compose, {S: [N, S]} per-source key masks.
+    tgt_masks    : compose, {S: [N+1, S]} per-region query masks (last =
+                   background).
     context_guidance, share_gate : per-step scalars (python floats or 0-d
                    tensors).
     """
@@ -62,6 +84,8 @@ class EditState:
     fg_retain: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
     fg_ref: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
     local_region: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+    src_masks: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+    tgt_masks: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
     context_guidance: float = 0.0
     share_gate: float = 1.0
 
@@ -103,5 +127,15 @@ def build_mask_pyramid(
     """Full-res [H, W] mask -> {seq_len: [seq_len] float32} pyramid."""
     return {
         h * w: downsample_mask(mask, h, w)
+        for h, w in attention_resolutions(latent_h, latent_w)
+    }
+
+
+def build_mask_stack_pyramid(
+    masks: torch.Tensor, latent_h: int, latent_w: int
+) -> Dict[int, torch.Tensor]:
+    """[N, H, W] mask stack -> {seq_len: [N, seq_len] float32} pyramid."""
+    return {
+        h * w: torch.stack([downsample_mask(m, h, w) for m in masks])
         for h, w in attention_resolutions(latent_h, latent_w)
     }

@@ -1,4 +1,5 @@
-"""Mask engine for the geometric edit (mirrors `freefine_tpu.masks`).
+"""Mask engine of the edit, background-generation and composition tasks
+(mirrors `freefine_tpu.masks`).
 
 float32 [H, W] tensors in {0, 1} (soft where the reference is soft).
 Dilation/erosion are max/min pools with cv2's even-kernel anchor.
@@ -6,7 +7,7 @@ Dilation/erosion are max/min pools with cv2's even-kernel anchor.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,3 +124,111 @@ def prepare_various_mask(
         completion_cfg=to_latent_res(complete, latent_h, latent_w),
         local_var=to_latent_res(local_var, latent_h, latent_w),
     )
+
+
+class ComposeMasks(NamedTuple):
+    """Mask family of the composition task (reference
+    prepare_composition_masks, model.py:1515-1609)."""
+
+    tgt_masks: torch.Tensor       # [N+1, H, W] per-region query masks (last = background)
+    src_masks: torch.Tensor       # [N, H, W] per-source key masks
+    local_var: torch.Tensor       # latent-res DDPM region
+    completion_cfg: torch.Tensor  # latent-res local CFG multiplier
+
+
+def prepare_composition_masks(
+    ori_masks: Sequence[torch.Tensor],
+    tgt_masks: Sequence[torch.Tensor],
+    h: int,
+    w: int,
+    latent_h: int,
+    latent_w: int,
+    dil_completion: bool = False,
+    dil_factor: int = 15,
+    draw_masks: Optional[Sequence[torch.Tensor]] = None,
+    appearance_transfer: bool = False,
+) -> ComposeMasks:
+    """Per-source key masks, per-region query masks and the perturbation /
+    local-CFG regions: appearance transfer (dilated targets), plain
+    composition, or composition with user draw masks."""
+    src = torch.stack([prepare_mask(m, h, w) for m in ori_masks])
+    dev = src.device
+
+    if appearance_transfer:
+        tgt_list = []
+        local_pert = torch.zeros((h, w), device=dev)
+        for m in tgt_masks:
+            d = prepare_mask(dilate(prepare_mask(m, h, w), dil_factor), h, w)
+            tgt_list.append(d)
+            local_pert = local_pert + d
+        local_pert = binarize(local_pert)
+        tgt_list.append(1.0 - local_pert)
+        lv = to_latent_res(local_pert, latent_h, latent_w)
+        return ComposeMasks(torch.stack(tgt_list), src, lv, lv)
+
+    tgt_list = []
+    local_pert = torch.zeros((h, w), device=dev)
+    fg = torch.zeros((h, w), device=dev)
+    if draw_masks is None:
+        for m in tgt_masks:
+            sm = prepare_mask(m, h, w)
+            dm = prepare_mask(dilate(sm, dil_factor), h, w)
+            tgt_list.append(dm if dil_completion else sm)
+            fg = fg + sm
+            local_pert = local_pert + dm
+        fg = binarize(fg)
+        local_pert = binarize(local_pert)
+        tgt_list.append(1.0 - (fg if dil_completion else local_pert))
+        lv = to_latent_res(local_pert * (1.0 - fg), latent_h, latent_w)
+        return ComposeMasks(torch.stack(tgt_list), src, lv,
+                            lv if dil_completion else torch.zeros_like(lv))
+
+    # user draw masks aligned with the target masks
+    for m, d in zip(tgt_masks, draw_masks):
+        sm = prepare_mask(m, h, w)
+        dm = binarize(prepare_mask(d, h, w) + sm)
+        tgt_list.append(dm)
+        fg = fg + sm
+        local_pert = local_pert + dm
+    fg = binarize(fg)
+    local_pert = binarize(local_pert)
+    tgt_list.append(1.0 - local_pert)
+    lv = to_latent_res(local_pert * (1.0 - fg), latent_h, latent_w)
+    return ComposeMasks(torch.stack(tgt_list), src, lv, lv)
+
+
+def prepare_mask_bggen(
+    mask: torch.Tensor, h: int, w: int, latent_h: int, latent_w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(full-res object mask, latent-res perturbation mask)
+    (reference model.py:1611-1620)."""
+    m = prepare_mask(mask, h, w)
+    return m, to_latent_res(m, latent_h, latent_w)
+
+
+def prepare_surrounding_mask(
+    shifted_mask: torch.Tensor, cons_area: torch.Tensor, rate: float = 0.5
+) -> torch.Tensor:
+    """The object's bounding box grown by `rate` of its size on each side,
+    minus the object and the constrained area (reference
+    model.py:1392-1426); an empty mask gives zeros."""
+    m = binarize(shifted_mask)
+    h, w = m.shape
+    if not bool(m.max() > 0):
+        return torch.zeros_like(m)
+    dev = m.device
+    ridx = torch.arange(h, dtype=torch.float32, device=dev)
+    cidx = torch.arange(w, dtype=torch.float32, device=dev)
+    rows, cols = ridx[m.amax(dim=1) > 0], cidx[m.amax(dim=0) > 0]
+    y_min, y_max, x_min, x_max = rows.min(), rows.max(), cols.min(), cols.max()
+    jx = torch.floor(rate * (x_max - x_min))
+    jy = torch.floor(rate * (y_max - y_min))
+    nx0 = torch.clamp(x_min - jx, min=0.0)
+    ny0 = torch.clamp(y_min - jy, min=0.0)
+    nx1 = torch.clamp(x_max + jx, max=w - 1.0)
+    ny1 = torch.clamp(y_max + jy, max=h - 1.0)
+    region = (
+        (ridx[:, None] >= ny0) & (ridx[:, None] <= ny1)
+        & (cidx[None, :] >= nx0) & (cidx[None, :] <= nx1)
+    ).float()
+    return region * (1.0 - binarize(cons_area)) * (1.0 - m)

@@ -18,6 +18,7 @@ from torch import nn
 
 from freefine_tpu_torch.edit import EditConfig, EditState
 from freefine_tpu_torch.ops import attention as attn_ops
+from freefine_tpu_torch.ops.group_norm import group_norm_reference, group_norm_silu_diff, use_fused
 
 
 def timestep_embedding(
@@ -44,8 +45,11 @@ def timestep_embedding(
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm in float32 (`group_norm_reference` math), optional fused
-    SiLU, output cast back to the input dtype.  NCHW input."""
+    """GroupNorm with float32 statistics, optional fused SiLU, output in the
+    input dtype.  NCHW input.  Where `use_fused` selects it
+    (FREEFINE_FUSED_GN) the norm is the `group_norm_silu` kernel
+    (differentiable through `GroupNormSiLU`), else the two-pass
+    `group_norm_reference` math, as JAX's GroupNorm32 routes."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -55,10 +59,10 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
-        if silu:
-            y = F.silu(y)
-        return y.to(x.dtype)
+        kw = dict(num_groups=self.num_groups, eps=self.eps, apply_silu=silu)
+        if use_fused(x.shape, self.num_groups):
+            return group_norm_silu_diff(x, self.weight, self.bias, **kw)
+        return group_norm_reference(x, self.weight, self.bias, **kw)
 
 
 class LayerNorm32(nn.Module):
@@ -194,11 +198,16 @@ class EditAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim, **kw)])
 
     def forward(self, x, context=None, *, edit_cfg: EditConfig,
-                edit_state: Optional[EditState], block_index: int, place: str):
+                edit_state: Optional[EditState], block_index: int, place: str,
+                context_extra: Optional[torch.Tensor] = None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if self.is_cross:
-            h = attn_ops.edit_cross_attention(q, k, v, self.heads, edit_cfg, edit_state)
+            k_extra = v_extra = None
+            if context_extra is not None:  # compose region prompts [P, 77, D]
+                k_extra, v_extra = self.to_k(context_extra), self.to_v(context_extra)
+            h = attn_ops.edit_cross_attention(q, k, v, self.heads, edit_cfg, edit_state,
+                                              k_extra=k_extra, v_extra=v_extra)
         else:
             h = attn_ops.edit_self_attention(
                 q, k, v, self.heads, edit_cfg, edit_state, block_index, place
@@ -218,11 +227,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm32(dim, device=device)
         self.ff = FeedForward(dim, dtype, device)
 
-    def forward(self, x, context, *, edit_cfg, edit_state, block_index, place):
+    def forward(self, x, context, *, edit_cfg, edit_state, block_index, place,
+                context_extra=None):
         kw = dict(edit_cfg=edit_cfg, edit_state=edit_state, block_index=block_index,
                   place=place)
         x = x + self.attn1(self.norm1(x), **kw)
-        x = x + self.attn2(self.norm2(x), context, **kw)
+        x = x + self.attn2(self.norm2(x), context, context_extra=context_extra, **kw)
         return x + self.ff(self.norm3(x))
 
 
@@ -240,12 +250,13 @@ class SpatialTransformer(nn.Module):
         ])
         self.proj_out = nn.Conv2d(ch, ch, 1, dtype=dtype, device=device)
 
-    def forward(self, x, context, *, edit_cfg, edit_state, block_index, place):
+    def forward(self, x, context, *, edit_cfg, edit_state, block_index, place,
+                context_extra=None):
         b, c, hh, ww = x.shape
         h = self.proj_in(self.norm(x))
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         for d, blk in enumerate(self.transformer_blocks):
             h = blk(h, context, edit_cfg=edit_cfg, edit_state=edit_state,
-                    block_index=block_index + d, place=place)
+                    block_index=block_index + d, place=place, context_extra=context_extra)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.proj_out(h) + x

@@ -101,8 +101,11 @@ class UNet2DCondition(nn.Module):
         edit_cfg: EditConfig = none_config(),
         edit_state: Optional[EditState] = None,
         return_features: bool = False,
+        context_extra: Optional[torch.Tensor] = None,
     ):
-        """sample [B, C, H, W]; timestep int, 0-d or [B]; context [B, 77, D].
+        """sample [B, C, H, W]; timestep int, 0-d or [B]; context [B, 77, D];
+        context_extra optional [P, 77, D] compose region prompts (their K/V
+        feed the conditional edit stream's cross-attention).
         Returns the noise prediction [B, C_out, H, W] in the model dtype;
         with return_features, (eps, [mid, up_0, .., up_{n-1}]): the mid-block
         output and each up block's output after its upsampler (NCHW), the
@@ -111,13 +114,15 @@ class UNet2DCondition(nn.Module):
         dt = cfg.dtype
         sample = sample.to(dt)
         context = encoder_hidden_states.to(dt)
+        if context_extra is not None:
+            context_extra = context_extra.to(dt)
         t = torch.as_tensor(timestep, device=sample.device)
         if t.ndim == 0:
             t = t.expand(sample.shape[0])
         temb = self.time_embedding(t)
         nb = len(cfg.block_out_channels)
         attn_index = 0
-        ekw = dict(edit_cfg=edit_cfg, edit_state=edit_state)
+        ekw = dict(edit_cfg=edit_cfg, edit_state=edit_state, context_extra=context_extra)
 
         h = self.conv_in(sample)
         skips = [h]

@@ -1,5 +1,6 @@
 """Edit-aware attention for the PyTorch port (mirrors
-`freefine_tpu.ops.attention` for the 'none' and 'edit' modes).
+`freefine_tpu.ops.attention` for the 'none', 'edit', 'bggen' and 'compose'
+modes and the tca, mmsa, ssa and sdsa methods).
 
 All functions take q, k, v of shape [B, S, E] with E = heads * head_dim
 and return [B, Sq, E].  Masks are per-key [B, Sk] rows (rank-1 additive
@@ -7,7 +8,8 @@ biases) and per-query rows (output blends); no S x S mask is built.
 
 Routing: every self-attention goes through a kernel wrapper of
 `ops.flash_attention` (`masked_sdpa` -> `flash_sdpa_diff`, the TCA layers
--> `tca_flash`), which runs the CUDA kernel on a CUDA tensor and the plain
+-> `tca_flash`; composition and style alignment are `masked_sdpa` calls
+with per-key rows), which runs the CUDA kernel on a CUDA tensor and the plain
 twin on a CPU tensor.  `flash_sdpa_diff` is the plain `flash_sdpa` kernel
 outside differentiation and the forward-with-logsumexp and backward kernels
 under it (energy guidance differentiates the plain UNet).  Text
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from freefine_tpu_torch.edit import TCA_SCOPE, EditConfig, EditState
+from freefine_tpu_torch.edit import STYLE_ALIGN_SCOPE, TCA_SCOPE, EditConfig, EditState
 from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa_diff, tca_flash
 
 
@@ -145,16 +147,29 @@ def _effective_cg(cfg: EditConfig, state: EditState) -> float:
     return float(state.share_gate) * cg
 
 
+def _blend_with_self(modulated: torch.Tensor, self_h: torch.Tensor, cfg: EditConfig,
+                     state: EditState) -> torch.Tensor:
+    """ecg * modulated + (1 - ecg) * self in float32, in self's dtype."""
+    ecg = _effective_cg(cfg, state)
+    return (ecg * modulated.float() + (1.0 - ecg) * self_h.float()).to(self_h.dtype)
+
+
 def edit_self_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[EditState],
                         block_index: int, place: str) -> torch.Tensor:
-    """Self-attention dispatch by editing mode (modes none / edit)."""
+    """Self-attention dispatch by editing mode and method."""
     if cfg.mode == "none" or cfg.method is None or state is None:
         return masked_sdpa(q, k, v, heads)
+    if cfg.uses_share_attention:
+        if place not in STYLE_ALIGN_SCOPE or cfg.mode == "compose":
+            return masked_sdpa(q, k, v, heads)
+        return _style_align_attention(q, k, v, heads, cfg, state)
     if place not in TCA_SCOPE or not cfg.block_gated(block_index):
         return masked_sdpa(q, k, v, heads)
     if cfg.mode == "edit":
         return _tca_edit(q, k, v, heads, cfg, state)
-    raise NotImplementedError(f"edit mode {cfg.mode!r} is not ported yet")
+    if cfg.mode == "bggen":
+        return _tca_bggen(q, k, v, heads, cfg, state)
+    return _tca_compose(q, k, v, heads, cfg, state)
 
 
 def _tca_edit(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.Tensor:
@@ -180,18 +195,104 @@ def _tca_edit(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.T
     return _merge_parity(fused, heads)
 
 
-def edit_cross_attention(q, k, v, heads: int, cfg: EditConfig,
-                         state: Optional[EditState]) -> torch.Tensor:
-    """Text cross-attention with local CFG (edit mode, reference
-    modulate_local_cross_attn): the conditional edit stream is localised to
-    the edit region, out = [u_e, u_r, local*c_e + (1-local)*u_e (, u_r)]."""
+def _tca_bggen(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.Tensor:
+    """Background-generation TCA (reference attention.py:1284-1324): even
+    heads attend to the reference keys outside the removed object, odd
+    heads to all reference keys; blended with self-attention.  The fused
+    kernel with FG keys = 1 - obj and tq = 1 is exactly that."""
+    _check_parity_heads(heads)
+    b, seq, _ = q.shape
+    obj = state.fg_retain[seq].to(q.device)
+    kc, vc = _ref_stream_gather(k), _ref_stream_gather(v)
+    qp, kp, vp = (_split_parity(x, heads) for x in (q, k, v))
+    kcp, vcp = _split_parity(kc, heads), _split_parity(vc, heads)
+    rows_bg = _parity_rows(1.0 - obj, b)
+    ones_tq = torch.ones(2 * b, seq, device=q.device)
+    fused = _tca_fused(qp, kp, vp, kcp, vcp, rows_bg, ones_tq,
+                       _effective_cg(cfg, state), heads // 2)
+    return _merge_parity(fused, heads)
+
+
+def _tca_compose(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.Tensor:
+    """Composition TCA (reference attention.py:1092-1140).  Streams
+    [e, r_1..r_N, c_e]: for each source i the two edit streams attend to
+    source i's keys inside src_mask_i, weighted per query by tgt_mask_i and
+    summed over sources, then blended with self-attention; the reference
+    streams stay vanilla.  The N per-source attentions run as one
+    `masked_sdpa` over [2N, S]."""
+    n = cfg.num_sources
+    b, seq, _ = q.shape
+    if b != n + 2:
+        raise ValueError(f"compose attention expects [e, r_1..r_{n}, c_e], got batch {b}")
+    src = state.src_masks[seq].to(q.device)          # [N, S] key masks
+    tgt = state.tgt_masks[seq][:n].to(q.device)      # [N, S] query weights
+
+    self_h = masked_sdpa(q, k, v, heads)
+    qn = torch.stack([q[0], q[b - 1]]).repeat_interleave(n, dim=0)  # [2N, S, E]
+    kn = k[1 : n + 1].repeat(2, 1, 1)
+    vn = v[1 : n + 1].repeat(2, 1, 1)
+    per_src = masked_sdpa(qn, kn, vn, heads, src.repeat(2, 1))
+    w = tgt.repeat(2, 1)[:, :, None]
+    summed = (per_src.float() * w).reshape(2, n, seq, -1).sum(1)
+    hu_e = _blend_with_self(summed[0], self_h[0], cfg, state)
+    hc_e = _blend_with_self(summed[1], self_h[b - 1], cfg, state)
+    return torch.cat([hu_e[None], self_h[1 : b - 1], hc_e[None]], dim=0)
+
+
+def _style_align_attention(q, k, v, heads: int, cfg: EditConfig,
+                           state: EditState) -> torch.Tensor:
+    """StyleAligned shared attention, ssa/sdsa (reference attention.py:
+    1142-1238): keys and values become [own; ref] (Sk = 2 Sq), ref the
+    reference stream of each CFG half.  sdsa restricts the appended keys on
+    the even heads (head-parity rows, as the TCA masks): in edit mode to the
+    source object, in bggen mode to the reference background, own keys
+    blocked."""
+    seq = q.shape[1]
+    k_cat = torch.cat([k, _ref_stream_gather(k)], dim=1)
+    v_cat = torch.cat([v, _ref_stream_gather(v)], dim=1)
+    if cfg.method != "sdsa":
+        return masked_sdpa(q, k_cat, v_cat, heads)
+    _check_parity_heads(heads)
+    ones = torch.ones(seq, device=q.device)
+    if cfg.mode == "bggen":
+        allowed = 1.0 - torch.cat([ones, state.fg_retain[seq].to(q.device)])
+    else:
+        allowed = torch.cat([ones, state.fg_ref[seq].to(q.device)])
+    out = masked_sdpa(_split_parity(q, heads), _split_parity(k_cat, heads),
+                      _split_parity(v_cat, heads), heads // 2,
+                      _parity_rows(allowed, q.shape[0]))
+    return _merge_parity(out, heads)
+
+
+def edit_cross_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[EditState],
+                         k_extra: Optional[torch.Tensor] = None,
+                         v_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Text cross-attention with local CFG.
+
+    edit / bggen (reference modulate_local_cross_attn{,_bg}): the
+    conditional edit stream is localised to the edit region,
+    out = [u_e, u_r, local*c_e + (1-local)*u_e (, u_r)].
+    compose (modulate_local_cross_attn_compose): the unconditional streams
+    attend to their own text; the conditional edit stream is the sum over
+    regions of tgt_mask_i * attn(q_ce, prompt_i), the region prompts' K/V
+    passed as k_extra / v_extra [P, 77, E]."""
     if cfg.mode == "none" or not cfg.local_cfg or state is None:
         return sdpa(q, k, v, heads)
-    seq = q.shape[1]
+    b, seq, _ = q.shape
+    if cfg.mode == "compose":
+        p = cfg.prompt_length
+        if b != cfg.num_sources + 2 or k_extra is None or p < 1:
+            raise ValueError("compose cross-attention needs the [e, r_1..r_N, c_e] batch and "
+                             "the region prompts' k_extra / v_extra")
+        hu = sdpa(q[: b - 1], k[: b - 1], v[: b - 1], heads)
+        tgt = state.tgt_masks[seq][:p].to(q.device)               # [P, S]
+        per_prompt = sdpa(q[b - 1 : b].expand(p, -1, -1), k_extra, v_extra, heads)
+        hc = (per_prompt.float() * tgt[:, :, None]).sum(0)
+        return torch.cat([hu, hc[None].to(q.dtype)], dim=0)
     local = state.local_region[seq].to(q.device)[:, None]
     h = sdpa(q, k, v, heads)
     u_e, u_r, c_e = h[0], h[1], h[2]
     mod_c_e = (local * c_e.float() + (1.0 - local) * u_e.float()).to(h.dtype)
-    if q.shape[0] == 3:
+    if b == 3:
         return torch.stack([u_e, u_r, mod_c_e])
     return torch.stack([u_e, u_r, mod_c_e, u_r])

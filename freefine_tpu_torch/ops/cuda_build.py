@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_sdpa", "tca_flash", "flash_sdpa_bwd")
+KERNEL_SOURCES = ("flash_sdpa", "tca_flash", "flash_sdpa_bwd", "group_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,9 @@ _SIGNATURES = {
         "flash_sdpa_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "flash_sdpa_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                _P],
+    },
+    "group_norm": {
+        "group_norm_silu_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -1,16 +1,16 @@
-"""FreeFine geometric-edit pipeline in PyTorch (mirrors
-`freefine_tpu.pipeline` for `FreeFine.generation` and the energy-guided
-`FreeFine.guided_generation`).
+"""FreeFine editing pipeline in PyTorch (mirrors `freefine_tpu.pipeline`
+for `FreeFine.generation`, the energy-guided `FreeFine.guided_generation`,
+object removal `FreeFine.background_generation` and multi-image
+`FreeFine.cross_image_composition`).
 
 The JAX package compiles each loop into one `lax.scan`; here the loops are
 plain Python over eager PyTorch modules.  Public functions keep the JAX
 layouts: `generation` takes and returns NHWC uint8 images, the latent
 functions take and return NHWC float32 latents.
 
-Noise: `sample_edit_loop` and `sample_guided_loop` draw one standard-normal
-tensor per step from a `torch.Generator` seeded by `seed`, or take an
-explicit per-step noise sequence (the tests replay JAX's `split` ->
-`normal` chain through it).
+Noise: every sampling loop draws one standard-normal tensor per step from
+a `torch.Generator` seeded by `seed`, or takes an explicit per-step noise
+sequence (the tests replay JAX's `split` -> `normal` chain through it).
 
 The pipeline is inference only: its parameters never require grad.  The
 one gradient it takes, energy guidance, is with respect to the latent.
@@ -33,6 +33,7 @@ from freefine_tpu_torch.edit import (
     EditConfig,
     EditState,
     build_mask_pyramid,
+    build_mask_stack_pyramid,
     nearest_resize,
 )
 from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
@@ -140,6 +141,96 @@ def sample_edit_loop(
             pred = nu + guidance_scale * (nc - nu)
         lat, _ = ctrl_step(schedule, pred, t, lat, var_mask, eta, _draw(noise, i, lat),
                            ddim_streams_from=1)
+    return lat
+
+
+@torch.no_grad()
+def sample_bggen_loop(
+    unet_apply: Callable,
+    schedule: DDIMSchedule,
+    ecfg: EditConfig,
+    traj: torch.Tensor,            # [K+1, 1, h, w, c] inversion trajectory
+    text_emb: torch.Tensor,        # [3, 77, D] [u, u_ref, cond] (or legacy [4])
+    state: EditState,
+    cg: np.ndarray,
+    gates: np.ndarray,
+    local_cfg: torch.Tensor,       # [lh, lw] local CFG multiplier
+    local_var: torch.Tensor,       # [lh, lw] DDPM region
+    noise: NoiseSource,
+    *,
+    start_step: int,
+    guidance_scale: float,
+    eta: float,
+    local_text_edit: bool,
+    local_perturbation: bool,
+) -> torch.Tensor:
+    """Background generation / object removal (reference
+    forward_sampling_background_gen): the reference stream at step i is the
+    inverted latent at the matching noise level (traj flipped), the UNet
+    runs on [u_g, r, c_g], local CFG combines and `ctrl_step` steps the
+    2-stream [g, r] stack.  Returns the generated latent [1, h, w, c]."""
+    k = traj.shape[0] - 1
+    nstr = text_emb.shape[0]
+    ts = schedule.timesteps[start_step : start_step + k]
+    refs = torch.flip(traj[1:], dims=[0])
+    lat = traj[-1]
+    cfg_mask = local_cfg[None, :, :, None]
+    var_mask = local_var if local_perturbation else torch.ones_like(local_var)
+    for i in range(k):
+        t = int(ts[i])
+        lat2 = torch.cat([lat, refs[i]], dim=0)
+        state.context_guidance = float(cg[i])
+        state.share_gate = float(gates[i])
+        eps = unet_apply(_cfg_model_in(lat2, nstr), t, text_emb, ecfg, state)
+        nu, nc = _cfg_split(eps, nstr)
+        scale = (nc - nu) * cfg_mask if local_text_edit else nc - nu
+        lat2, _ = ctrl_step(schedule, nu + guidance_scale * scale, t, lat2, var_mask, eta,
+                            _draw(noise, i, lat2), ddim_streams_from=1)
+        lat = lat2[:1]
+    return lat
+
+
+@torch.no_grad()
+def sample_compose_loop(
+    unet_apply: Callable,
+    schedule: DDIMSchedule,
+    ecfg: EditConfig,
+    traj: torch.Tensor,            # [K+1, N+1, h, w, c] inversion trajectory
+    text_emb: torch.Tensor,        # [N+2, 77, D] per-stream context
+    text_extra: torch.Tensor,      # [P, 77, D] region prompts of the cond stream
+    state: EditState,
+    cg: np.ndarray,
+    gates: np.ndarray,
+    completion_cfg: torch.Tensor,
+    local_var: torch.Tensor,
+    noise: NoiseSource,
+    *,
+    start_step: int,
+    guidance_scale: float,
+    eta: float,
+    local_text_edit: bool,
+    local_perturbation: bool,
+) -> torch.Tensor:
+    """N-image composition (reference forward_sampling_compose): per step
+    the streams are [e, r_1..r_N, c_e], the sources pinned to their
+    inversion latents; CFG combines the first and last stream and
+    `ctrl_step` steps the edit latent.  Returns it, [1, h, w, c]."""
+    k = traj.shape[0] - 1
+    ts = schedule.timesteps[start_step : start_step + k]
+    refs = torch.flip(traj[:k], dims=[0])[:, 1:]
+    lat = traj[-1][:1]
+    cfg_mask = completion_cfg[None, :, :, None]
+    var_mask = local_var if local_perturbation else torch.ones_like(local_var)
+    for i in range(k):
+        t = int(ts[i])
+        state.context_guidance = float(cg[i])
+        state.share_gate = float(gates[i])
+        eps = unet_apply(torch.cat([lat, refs[i], lat], dim=0), t, text_emb, ecfg, state,
+                         ctx_extra=text_extra).float()
+        nu, nc = eps[:1], eps[-1:]
+        scale = (nc - nu) * cfg_mask if local_text_edit else nc - nu
+        lat, _ = ctrl_step(schedule, nu + guidance_scale * scale, t, lat, var_mask, eta,
+                           _draw(noise, i, lat))
     return lat
 
 
@@ -279,12 +370,15 @@ class FreeFine:
         return self._schedules[num_step]
 
     def unet_apply(self, lat, t, ctx, ecfg: Optional[EditConfig] = None,
-                   state: Optional[EditState] = None, return_features: bool = False):
+                   state: Optional[EditState] = None, return_features: bool = False,
+                   ctx_extra: Optional[torch.Tensor] = None):
         """NHWC latents -> NHWC noise prediction (model dtype); with
         return_features, (eps, features) with NHWC features (the plain
-        UNet's taps that energy guidance reads)."""
+        UNet's taps that energy guidance reads).  ctx_extra: the compose
+        region prompts [P, 77, D]."""
         kw = {} if ecfg is None else dict(edit_cfg=ecfg, edit_state=state)
-        out = self.unet(lat.permute(0, 3, 1, 2), t, ctx, return_features=return_features, **kw)
+        out = self.unet(lat.permute(0, 3, 1, 2), t, ctx, return_features=return_features,
+                        context_extra=ctx_extra, **kw)
         if return_features:
             eps, feats = out
             return eps.permute(0, 2, 3, 1), [f.permute(0, 2, 3, 1) for f in feats]
@@ -320,6 +414,15 @@ class FreeFine:
     def _inversion_text_embeddings(self, batch: int) -> torch.Tensor:
         """Per-stream unconditional context for DDIM inversion."""
         return self.encode_text([""]).expand(batch, -1, -1)
+
+    def _stream_text_embeddings(self, texts: Sequence[str]) -> torch.Tensor:
+        """Per-stream context of the compose loop (the hook the SDXL
+        dual-encoder pipeline overrides in JAX)."""
+        return self.encode_text(texts)
+
+    def _extra_text_embeddings(self, texts: Sequence[str]) -> torch.Tensor:
+        """Region prompts whose K/V feed compose's local cross-attention."""
+        return self.encode_text(texts)
 
     def _edit_text_embeddings(self, guidance_text: str) -> torch.Tensor:
         """[uncond, uncond_ref, cond_edit]: the deduped 3-stream CFG layout."""
@@ -370,8 +473,6 @@ class FreeFine:
         seeded per-step draws with K tensors [2, lh, lw, 4]."""
         if method_type not in METHOD_TYPES:
             raise ValueError(method_type)
-        if method_type in ("ssa", "sdsa"):
-            raise NotImplementedError(f"method {method_type!r} is not ported yet (ROADMAP A9)")
         if return_intermediates:
             raise NotImplementedError("return_intermediates is not ported yet (ROADMAP A7)")
         cfg = self.config
@@ -441,8 +542,6 @@ class FreeFine:
         [2, lh, lw, 4]."""
         if method_type not in METHOD_TYPES:
             raise ValueError(method_type)
-        if method_type in ("ssa", "sdsa"):
-            raise NotImplementedError(f"method {method_type!r} is not ported yet (ROADMAP A9)")
         cfg = self.config
         lh, lw = cfg.latent_height, cfg.latent_width
         dev = self.device
@@ -479,3 +578,125 @@ class FreeFine:
             energy_scale=energy_scale, energy_until=energy_until,
         )
         return self.latent_to_image(lat)[0]
+
+    def background_generation(
+        self,
+        ori_img: np.ndarray,
+        ori_mask: np.ndarray,
+        guidance_text: str,
+        guidance_scale: float = 3.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 1,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        end_scale: float = 0.5,
+        seed: int = 42,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> np.ndarray:
+        """Object removal / background inpainting (reference
+        FreeFine_background_generation): the masked object is regenerated
+        from the background.  Returns the uint8 image [H, W, 3].  `noise`
+        optionally replaces the seeded per-step draws with K tensors
+        [2, lh, lw, 4]."""
+        if method_type not in METHOD_TYPES:
+            raise ValueError(method_type)
+        cfg = self.config
+        lh, lw = cfg.latent_height, cfg.latent_width
+        dev = self.device
+
+        lat = self.image_to_latent(self._prep_image(ori_img))
+        traj = self.invert(lat, num_step, start_step)
+        mask_full, local_var = mask_ops.prepare_mask_bggen(
+            torch.as_tensor(np.asarray(ori_mask), device=dev), cfg.height, cfg.width, lh, lw)
+        pyr = build_mask_pyramid(mask_full, lh, lw)
+        state = EditState(fg_retain=pyr, fg_ref=pyr, local_region=pyr)
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = EditConfig(mode="bggen", method=method, local_cfg=local_text_edit,
+                          layer_range=self._layer_range)
+        text_emb = self._edit_text_embeddings(guidance_text)
+        if noise is None:
+            noise = torch.Generator(device=dev).manual_seed(seed)
+        out = sample_bggen_loop(
+            self.unet_apply, self._schedule(num_step), ecfg, traj, text_emb, state, cg, gates,
+            local_var, local_var, noise, start_step=start_step, guidance_scale=guidance_scale,
+            eta=eta, local_text_edit=local_text_edit, local_perturbation=local_perturbation,
+        )
+        return self.latent_to_image(out)[0]
+
+    def cross_image_composition(
+        self,
+        img_lists: Sequence[np.ndarray],
+        ori_mask_lists: Sequence[np.ndarray],
+        tgt_mask_lists: Sequence[np.ndarray],
+        coarse_input: np.ndarray,
+        guidance_text_list: Sequence[str],
+        guidance_scale: float = 7.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 25,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        draw_mask: Optional[Sequence[np.ndarray]] = None,
+        end_scale: float = 0.5,
+        dil_completion: bool = False,
+        dil_factor: int = 15,
+        appearance_transfer: bool = False,
+        seed: int = 42,
+        noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> np.ndarray:
+        """N-image composition / appearance transfer (reference
+        FreeFine_cross_image_composition): the objects of N source images,
+        pasted into `coarse_input` at the target masks, are regenerated from
+        their sources under per-region prompts.  Returns the uint8 image
+        [H, W, 3].  `noise` optionally replaces the seeded per-step draws
+        with K tensors [1, lh, lw, 4]."""
+        if method_type not in METHOD_TYPES:
+            raise ValueError(method_type)
+        cfg = self.config
+        lh, lw = cfg.latent_height, cfg.latent_width
+        dev = self.device
+        n = len(img_lists)
+
+        lats = [self.image_to_latent(self._prep_image(coarse_input))]
+        lats += [self.image_to_latent(self._prep_image(im)) for im in img_lists]
+        traj = self.invert(torch.cat(lats, dim=0), num_step, start_step)
+
+        def t(xs):
+            return None if xs is None else [torch.as_tensor(np.asarray(m), device=dev)
+                                            for m in xs]
+
+        cm = mask_ops.prepare_composition_masks(
+            t(ori_mask_lists), t(tgt_mask_lists), cfg.height, cfg.width, lh, lw,
+            dil_completion=dil_completion, dil_factor=dil_factor, draw_masks=t(draw_mask),
+            appearance_transfer=appearance_transfer,
+        )
+        state = EditState(src_masks=build_mask_stack_pyramid(cm.src_masks, lh, lw),
+                          tgt_masks=build_mask_stack_pyramid(cm.tgt_masks, lh, lw))
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        prompts = list(guidance_text_list) + [""]
+        if cm.tgt_masks.shape[0] < len(prompts):
+            raise ValueError(f"{len(prompts)} region prompts vs {cm.tgt_masks.shape[0]} "
+                             "target regions")
+        ecfg = EditConfig(mode="compose", method=method, local_cfg=local_text_edit,
+                          layer_range=self._layer_range, num_sources=n,
+                          prompt_length=len(prompts))
+        # per-stream context [uncond, prompt_1..prompt_N (padded with ""), uncond]
+        stream_texts = [""] + (list(guidance_text_list) + [""] * n)[:n] + [""]
+        if noise is None:
+            noise = torch.Generator(device=dev).manual_seed(seed)
+        out = sample_compose_loop(
+            self.unet_apply, self._schedule(num_step), ecfg, traj,
+            self._stream_text_embeddings(stream_texts), self._extra_text_embeddings(prompts),
+            state, cg, gates,
+            cm.completion_cfg, cm.local_var, noise, start_step=start_step,
+            guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
+            local_perturbation=local_perturbation,
+        )
+        return self.latent_to_image(out)[0]

@@ -145,7 +145,12 @@ def test_sdpa_and_key_bias_match_jax():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        EditConfig(mode="bggen", method="tca")
-    with pytest.raises(NotImplementedError):
-        EditConfig(mode="edit", method="sdsa")
+    """drag, design and geodiff (the baselines' modes) are not ported; an
+    unknown method is an error.  bggen, compose, ssa and sdsa are ported
+    (tests/test_torch_bggen.py, tests/test_torch_compose.py)."""
+    for mode in ("drag", "design", "geodiff"):
+        with pytest.raises(NotImplementedError):
+            EditConfig(mode=mode, method="tca")
+    with pytest.raises(ValueError):
+        EditConfig(mode="edit", method="xyz")
+    assert EditConfig(mode="bggen", method="sdsa").uses_share_attention

@@ -1,0 +1,238 @@
+"""The port's fused GroupNorm(+SiLU) against `freefine_tpu.ops.group_norm`.
+
+The JAX side runs `group_norm_silu` under FREEFINE_FUSED_GN=1, which on the
+CPU is its Pallas kernel in interpret mode (as tests/test_group_norm.py runs
+it); the port runs its wrapper, which on CPU tensors is the plain twin.
+Layouts: NHWC in JAX, NCHW in the port, transposed at the boundary.
+
+Tolerances: 1e-5 absolute in float32 (the same function, summation order
+only), 2e-2 in bfloat16 (one rounding of the output), 1e-4 on the
+gradients; the UNet forward within the model parity tolerance 2e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from freefine_tpu.config import tiny_pipeline_config as jax_tiny_config
+from freefine_tpu.models.layers import GroupNorm32 as JGroupNorm32
+from freefine_tpu.models.unet import UNet2DCondition as JUNet
+from freefine_tpu.ops import group_norm as JG
+from freefine_tpu_torch.models.layers import GroupNorm32
+from freefine_tpu_torch.ops import group_norm as G
+from test_torch_weights import jax_params, tiny_modules
+
+import chip_smoke
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _fused(monkeypatch):
+    monkeypatch.setenv("FREEFINE_FUSED_GN", "1")
+
+
+def _case(b=2, h=8, w=8, c=64, seed=0):
+    """NHWC x, scale, bias as numpy float32."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(b, h, w, c)) * 2 + 0.5).astype(np.float32)
+    scale = (rng.normal(size=(c,)) * 0.5 + 1.0).astype(np.float32)
+    bias = (rng.normal(size=(c,)) * 0.2).astype(np.float32)
+    return x, scale, bias
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+def _nhwc(t):
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("apply_silu", [False, True])
+@pytest.mark.parametrize("groups", [8, 32])
+def test_twin_matches_pallas(groups, apply_silu):
+    x, scale, bias = _case()
+    want = JG.group_norm_silu(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                              num_groups=groups, apply_silu=apply_silu)
+    args = (_nchw(x), torch.from_numpy(scale), torch.from_numpy(bias))
+    kw = dict(num_groups=groups, eps=1e-5, apply_silu=apply_silu)
+    got = G.group_norm_silu_reference(*args, **kw)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=1e-5, rtol=0)
+    G.reset_launch_counts()
+    assert torch.equal(G.group_norm_silu(*args, **kw), got)  # the CPU wrapper is the twin
+    assert G.LAUNCHES == {"group_norm_silu": 0} and not G.LAUNCH_SHAPES
+    # and both agree with the two-pass math
+    np.testing.assert_allclose(got.numpy(), G.group_norm_reference(*args, **kw).numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_twin_bf16_matches_pallas():
+    x, scale, bias = _case(seed=1)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    want = JG.group_norm_silu(jx, jnp.asarray(scale), jnp.asarray(bias), num_groups=8,
+                              eps=1e-6)
+    tx = _nchw(np.asarray(jx.astype(jnp.float32))).bfloat16()
+    got = G.group_norm_silu(tx, torch.from_numpy(scale), torch.from_numpy(bias), num_groups=8,
+                            eps=1e-6)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want, np.float32), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("apply_silu", [False, True])
+def test_gradient_matches_jax(apply_silu):
+    x, scale, bias = _case(c=32, seed=2)
+    rng = np.random.default_rng(3)
+    ct = rng.normal(size=x.shape).astype(np.float32)
+
+    def loss(xx, sc, bb):
+        y = JG.group_norm_silu(xx, sc, bb, num_groups=8, apply_silu=apply_silu)
+        return jnp.sum(y * jnp.asarray(ct))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x, scale, bias)))
+    leaves = [_nchw(x).requires_grad_(), torch.from_numpy(scale).requires_grad_(),
+              torch.from_numpy(bias).requires_grad_()]
+    y = G.group_norm_silu_diff(*leaves, num_groups=8, apply_silu=apply_silu)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * _nchw(ct)).sum(), leaves)
+    np.testing.assert_allclose(_nhwc(got[0]), np.asarray(want[0]), atol=1e-4, rtol=0)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=0)
+    # only the inputs that require grad get one
+    xs = _nchw(x).requires_grad_()
+    (gx,) = torch.autograd.grad(
+        G.GroupNormSiLU.apply(xs, torch.from_numpy(scale), torch.from_numpy(bias), 8, 1e-5,
+                              apply_silu).sum(), [xs])
+    assert gx.shape == xs.shape
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_module_matches_jax(silu):
+    x, scale, bias = _case(c=32, seed=4)
+    want = JGroupNorm32(8, epsilon=1e-6).apply(
+        {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}}, jnp.asarray(x),
+        silu=silu)
+    mod = GroupNorm32(8, 32, eps=1e-6)
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(scale))
+        mod.bias.copy_(torch.from_numpy(bias))
+        got = mod(_nchw(x), silu=silu)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_unet_forward_fused_matches_jax():
+    """The tiny UNet with FREEFINE_FUSED_GN=1 in both packages.  JAX fuses
+    where its tile rule allows (H % 8 == 0) and runs the plain math
+    elsewhere; the port fuses every norm."""
+    cfg, mods = tiny_modules(13)
+    jcfg = jax_tiny_config()
+    rng = np.random.default_rng(5)
+    sample = rng.normal(size=(2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)
+    ctx = rng.normal(size=(2, 77, cfg.unet.cross_attention_dim)).astype(np.float32)
+    want = JUNet(config=jcfg.unet).apply(jax_params(mods["unet"], "unet", jcfg),
+                                         jnp.asarray(sample), jnp.int32(401), jnp.asarray(ctx))
+    with torch.no_grad():
+        got = mods["unet"](torch.from_numpy(sample).permute(0, 3, 1, 2), 401,
+                           torch.from_numpy(ctx)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)
+
+
+def test_gating(monkeypatch):
+    """'1' is on wherever the channels split into the groups, including the
+    512^2 x 128 VAE slab that JAX keeps on the plain math (its VMEM tile
+    rule; the port's documented route deviation); '0', the default and any
+    other value (JAX's 'auto' among them) are off."""
+    vae_slab = (1, 128, 512, 512)
+    assert G.use_fused(vae_slab, 32)
+    assert not JG.use_fused((1, 512, 512, 128), 32)  # JAX: the slab does not fit its tile
+    assert G.use_fused((2, 320, 64, 64), 32) and G.use_fused((1, 64, 1, 1), 8)
+    assert not G.use_fused((2, 30, 8, 8), 32) and not G.use_fused((2, 64, 8), 8)
+    for mode in ("0", "auto"):
+        monkeypatch.setenv("FREEFINE_FUSED_GN", mode)
+        assert not G.use_fused(vae_slab, 32) and not G.use_fused((2, 320, 64, 64), 32)
+    monkeypatch.delenv("FREEFINE_FUSED_GN")
+    assert not G.use_fused((2, 320, 64, 64), 32)  # default '0'
+
+
+def test_raw_kernel_refuses_grad_mode():
+    x, scale, bias = _case(c=32, seed=6)
+    args = [_nchw(x), torch.from_numpy(scale), torch.from_numpy(bias)]
+    want = G.group_norm_silu(*args, num_groups=8)
+    for i in range(3):
+        leaf = [a.clone().requires_grad_() if j == i else a for j, a in enumerate(args)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            G.group_norm_silu(*leaf, num_groups=8)
+        with torch.no_grad():
+            assert torch.equal(G.group_norm_silu(*leaf, num_groups=8), want)
+
+
+def test_wrapper_rejects_bad_operands():
+    x, scale, bias = _case(c=32, seed=7)
+    tx, ts, tb = _nchw(x), torch.from_numpy(scale), torch.from_numpy(bias)
+    with pytest.raises(ValueError):
+        G.group_norm_silu(tx, ts, tb, num_groups=5)
+    with pytest.raises(ValueError):
+        G.group_norm_silu(tx.double(), ts, tb, num_groups=8)
+    with pytest.raises(ValueError):
+        G.group_norm_silu(tx, ts.bfloat16(), tb, num_groups=8)
+    with pytest.raises(ValueError):
+        G.group_norm_silu(tx[:, :, 0], ts, tb, num_groups=8)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 320, 64, 64), "bfloat16"), ((1, 128, 512, 512), "bfloat16"),
+    ((2, 256, 512, 512), "bfloat16"), ((1, 512, 64, 64), "bfloat16"),
+    ((3, 640, 32, 32), "bfloat16"), ((3, 960, 16, 16), "bfloat16"),
+    ((4, 1280, 8, 8), "bfloat16"), ((4, 2560, 8, 8), "bfloat16"),
+    ((2, 36, 3, 5), "bfloat16"), ((2, 64, 16, 16), "float32"),
+    ((2, 18, 8, 8), "float32"), ((2, 128, 1, 1), "float32")])
+def test_launch_plan_covers_the_tensor(shape, dtype):
+    """The kernel's plan splits each batch's positions so that every block
+    has work and the splits cover them, with 16-byte loads only where they
+    stay inside a position; it takes channels-last tensors only (the wrapper
+    copies any other layout first)."""
+    b, c, h, w = shape
+    x = torch.zeros(shape, dtype=getattr(torch, dtype)).contiguous(
+        memory_format=torch.channels_last)
+    plan = G.launch_plan(x)
+    assert (plan["nsplit"] - 1) * plan["chunk"] < h * w <= plan["nsplit"] * plan["chunk"]
+    vec = 8 if dtype == "bfloat16" else 4
+    assert plan["vec"] == (vec if c % vec == 0 else 1)
+    assert plan["scratch"] == b * plan["nsplit"] * c * 3 + b * c * 2
+    if h * w > 1 and c > 1:
+        with pytest.raises(ValueError):
+            G.launch_plan(x.contiguous())  # NCHW
+    with pytest.raises(ValueError):
+        G.launch_plan(x[:, ::2])  # strided channels
+
+
+@pytest.mark.parametrize("kind", ["unet", "vae_encode", "vae_decode"])
+def test_chip_smoke_norm_shapes_are_the_modules(kind, monkeypatch):
+    """`chip_smoke.norm_calls` (the GroupNorm calls of one pass, worked out
+    from the config) lists exactly the calls the modules make."""
+    monkeypatch.setenv("FREEFINE_FUSED_GN", "0")
+    cfg, mods = tiny_modules(17)
+    seen = []
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        seen.append((tuple(x.shape[1:]), mod.num_groups, mod.eps,
+                     bool(kwargs.get("silu", args[1] if len(args) > 1 else False))))
+
+    model = mods["unet"] if kind == "unet" else mods["vae"]
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, GroupNorm32)]
+    b, lh, lw = 2, cfg.latent_height, cfg.latent_width
+    with torch.no_grad():
+        if kind == "unet":
+            model(torch.zeros(b, 4, lh, lw), 11, torch.zeros(b, 77, cfg.unet.cross_attention_dim))
+        elif kind == "vae_encode":
+            model.encode(torch.zeros(b, cfg.height, cfg.width, 3))
+        else:
+            model.decode(torch.zeros(b, lh, lw, 4))
+    for hd in handles:
+        hd.remove()
+    want = [((c, h, w), g, eps, silu) for c, h, w, g, eps, silu in chip_smoke.norm_calls(cfg, kind)]
+    assert seen == want

@@ -52,7 +52,7 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "import freefine_tpu_torch.pipeline, freefine_tpu_torch.weights\n"
-        "import freefine_tpu_torch.ops.geometry\n"
+        "import freefine_tpu_torch.ops.geometry, freefine_tpu_torch.ops.group_norm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'freefine_tpu')]\n"
         "print(','.join(bad))\n"
     )

@@ -130,8 +130,6 @@ def test_unported_options_raise(pipes):
     cfg, _, tpipe = pipes
     img, mask, coarse, tm = _case(cfg)
     with pytest.raises(NotImplementedError):
-        tpipe.generation(img, mask, coarse, tm, "a cat", method_type="sdsa")
-    with pytest.raises(NotImplementedError):
         tpipe.generation(img, mask, coarse, tm, "a cat", return_intermediates=True)
     with pytest.raises(NotImplementedError):
         tpipe.generation(img[:32], mask[:32], coarse[:32], tm[:32], "a cat")
