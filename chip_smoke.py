@@ -13,17 +13,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one statistics block, dropped must fail); `group_norm_silu`
-     also against the two-pass float32 GroupNorm; time the kernel, the twin
-     and, as a yardstick only, the PyTorch call that computes the same
-     (`F.scaled_dot_product_attention`, its forward or its autograd
-     backward; `F.group_norm` then `F.silu`); check one gradient through
-     `flash_sdpa_diff` and one through `GroupNormSiLU` on the card against
-     the twin's autograd gradient on the CPU;
+     also against the two-pass float32 GroupNorm; the TCA VJP kernels on
+     every output (composite, partials, logsumexps, dq, dk/dv of both key
+     sets) at the TCA path shapes, with bggen, fully masked FG and f32
+     cases; time the kernel, the twin and, as a yardstick only, the PyTorch
+     call that computes the same (`F.scaled_dot_product_attention`, its
+     forward or its autograd backward; `F.group_norm` then `F.silu`; none
+     for TCA); check one gradient each through `flash_sdpa_diff`,
+     `tca_flash_diff` and `GroupNormSiLU` on the card against the twin's
+     autograd gradient on the CPU;
   3. the tiny config end to end on CUDA and on the CPU with the same f32
      weights and noise (TF32 off), final latents compared: `generation`
      (FREEFINE_FUSED_GN 0 and 1), `guided_generation`, and with
      FREEFINE_FUSED_GN=1 `background_generation` and
-     `cross_image_composition` (2 sources);
+     `cross_image_composition` (2 sources); and the latent gradient of one
+     differentiated TCA UNet pass in modes edit and bggen;
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -40,9 +44,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   7. the full-width SD-1.5 512^2 composition: `cross_image_composition` of
      2 source images, start 25, TCA, FREEFINE_FUSED_GN=1; the same checks,
      and the masked per-source attention launches counted;
-  8. the result lines: the `kernels` JSON line (launches and per-edit times
+  8. the differentiated SD-1.5 512^2 TCA edit pass: one regeneration UNet
+     pass in mode "edit" over [u_e, r, c_e] at start step 35, built as
+     `generation` builds it, the gradient of a fixed-cotangent loss on the
+     edit streams' eps taken back to the edit latent; one warm-up and three
+     timed passes, launches checked against the counts worked out from the
+     config;
+  9. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 7), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+     4 to 8; path D is one differentiated pass), the nvidia-smi line, and
+     last `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
 Exits with code 2 and prints no result when CUDA is not available.
@@ -212,9 +223,11 @@ TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
              (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
 # The differentiated pass of energy guidance: batch 1, every self-attention
 # of the plain UNet (forward with logsumexp; the backward reaches the 10
-# layers upstream of the feature taps: down 6, mid 1, up block 1 3).
-GRAD_SHAPES = [(1, 8, 4096, 4096, 40, "bfloat16"), (1, 8, 1024, 1024, 80, "bfloat16"),
-               (1, 8, 256, 256, 160, "bfloat16"), (1, 8, 64, 64, 160, "bfloat16")]
+# layers upstream of the feature taps: down 6, mid 1, up block 1 3); and of
+# the differentiated TCA edit pass (phase 8): batch 3, the 10 layers outside
+# the TCA window (down 6, mid 1, up block 1 3), forward and backward.
+GRAD_SHAPES = [(b, 8, s, s, d, "bfloat16") for b in (1, 3)
+               for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
 # check-only, all masked with one fully masked batch row: ragged Sq != Sk,
 # and f32 at the tiny configuration's head dims (16, 32, 64)
 GRAD_EXTRA = [(2, 2, 1024, 1024, 80, "bfloat16"), (2, 2, 300, 77, 40, "bfloat16"),
@@ -222,6 +235,20 @@ GRAD_EXTRA = [(2, 2, 1024, 1024, 80, "bfloat16"), (2, 2, 300, 77, 40, "bfloat16"
               (2, 2, 64, 64, 16, "float32"), (2, 2, 16, 16, 32, "float32"),
               (2, 2, 50, 33, 64, "float32"), (2, 2, 4, 4, 64, "float32")]
 AUTOGRAD_SHAPE = (1, 8, 1024, 80, "bfloat16")
+# The TCA VJP kernels are timed at TCA_SHAPES (the edit layout's masks);
+# check-only (batch, heads, seq, head_dim, dtype, masks), masks as
+# `_tca_masks` makes them: "bggen" (tq = 1, fg = 1 - obj on the even block),
+# "empty_fg" (no fg key on the even block: every FG row fully masked, with
+# weight cg * tq != 0), "parity" (ragged lengths, f32 at the tiny
+# configuration's head dims)
+TCA_GRAD_EXTRA = [(6, 4, 1024, 80, "bfloat16", "bggen"), (6, 4, 4096, 40, "bfloat16", "bggen"),
+                  (6, 4, 1024, 80, "bfloat16", "empty_fg"),
+                  (6, 4, 1000, 40, "bfloat16", "parity"), (4, 2, 33, 24, "bfloat16", "parity"),
+                  (6, 1, 64, 16, "float32", "parity"), (4, 2, 50, 32, "float32", "empty_fg"),
+                  (6, 1, 16, 32, "float32", "bggen")]
+TCA_AUTOGRAD_SHAPE = (6, 4, 512, 80, "bfloat16")
+TCA_PASSES = ("self", "fg", "bg")
+TCA_GRAD_KERNELS = ("tca_flash_fwd_lse", "tca_flash_bwd_dq", "tca_flash_bwd_dkv")
 
 
 def _inputs(gen, b, h, s, d, dtype, n):
@@ -474,6 +501,149 @@ def check_autograd(record):
         f"{row['err_over_tol']:.3f} of tol")
 
 
+def _tca_masks(gen, b, s, kind):
+    """fg and tq rows [b, s] in the head-parity layout (odd block all ones):
+    "parity" random on the even block; "bggen" tq = 1 everywhere (fg, that
+    is 1 - obj, random on the even block); "empty_fg" no fg key on the even
+    block."""
+    fg = _parity_rows(gen, b, s, 0.5)
+    tq = _parity_rows(gen, b, s, 0.4)
+    if kind == "bggen":
+        tq.fill_(1.0)
+    elif kind == "empty_fg":
+        fg[: b // 2] = 0.0
+    return fg, tq
+
+
+def _hold_lse(name, lse, ref, row, tensor):
+    """A logsumexp against its twin's: a row whose every key is masked reads
+    exactly -1e9 in both (the backward's P = 1 there rests on it); the other
+    rows within the float32 limits."""
+    import torch
+
+    from freefine_tpu_torch.ops.flash_attention import NEG_INF
+
+    full = ref == NEG_INF
+    if not torch.equal(full, lse == NEG_INF):
+        raise AssertionError(f"{name} ({tensor}): fully masked rows differ from the twin's")
+    _hold(name, lse[~full], ref[~full], row, dtype="float32", tensor=tensor)
+    row["tensors"][tensor]["fully_masked_rows"] = int(full.sum())
+
+
+def check_tca_grad(gen, shape, timed: bool):
+    """The three kernels of the differentiable TCA at one shape: {kernel
+    name: row}.  The backward kernels and their twins get the same
+    residuals (the twin's partials, logsumexps and row sums) and dO."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    b, h, s, d, dtype, *kind = shape
+    kind = kind[0] if kind else "parity"
+    q, ks, vs, km, vm, do = _inputs(gen, b, h, s, d, dtype, 6)
+    fg, tq = _tca_masks(gen, b, s, kind)
+    cg = 0.7
+    ops = (q, ks, vs, km, vm, fg, tq, cg)
+    base = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
+                masks=kind, key=(b, h, s, s, d, dtype, True))
+    rows = {n: dict(base) for n in TCA_GRAD_KERNELS}
+    out, parts, lse = FA.tca_flash_fwd_lse(*ops, heads=h)
+    ref_out, ref_parts, ref_lse = FA.tca_flash_fwd_lse_reference(*ops, heads=h)
+    delta = FA.tca_row_deltas(ref_parts, do, tq, cg, heads=h)
+    res = (*ops, do, ref_lse, delta)
+    dq = FA.tca_flash_bwd_dq(*res, heads=h)
+    dkv = FA.tca_flash_bwd_dkv(*res, heads=h)
+    ref_dq = FA.tca_flash_bwd_dq_reference(*res, heads=h)
+    ref_dkv = FA.tca_flash_bwd_dkv_reference(*res, heads=h)
+    torch.cuda.synchronize()
+    r = rows["tca_flash_fwd_lse"]
+    _hold("tca_flash_fwd_lse", out, ref_out, r, tensor="out")
+    for i, p in enumerate(TCA_PASSES):
+        _hold("tca_flash_fwd_lse", parts[i], ref_parts[i], r, tensor=f"o_{p}")
+        _hold_lse("tca_flash_fwd_lse", lse[i], ref_lse[i], r, tensor=f"lse_{p}")
+    _hold("tca_flash_bwd_dq", dq, ref_dq, rows["tca_flash_bwd_dq"], tensor="dq")
+    dkv_names = ("dk_self", "dv_self", "dk_mod", "dv_mod")
+    for name, got, want in zip(dkv_names, dkv, ref_dkv):
+        _hold("tca_flash_bwd_dkv", got, want, rows["tca_flash_bwd_dkv"], tensor=name)
+    if not timed:
+        return rows
+
+    n = min(DROP_KEYS, s // 2)
+    kept = (q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg)
+    drop_out, drop_parts, _ = FA.tca_flash_fwd_lse_reference(*kept, heads=h)
+    _teeth("tca_flash_fwd_lse", ref_out, drop_out, r, tensor="out")
+    for i, p in enumerate(TCA_PASSES):
+        _teeth("tca_flash_fwd_lse", ref_parts[i], drop_parts[i], r, tensor=f"o_{p}")
+    _teeth("tca_flash_bwd_dq", ref_dq, FA.tca_flash_bwd_dq_reference(
+        *kept, do, ref_lse, delta, heads=h), rows["tca_flash_bwd_dq"], tensor="dq")
+    dropped = FA.tca_flash_bwd_dkv_reference(
+        q[:, n:], ks, vs, km, vm, fg, tq[:, n:], cg, do[:, n:], ref_lse[..., n:].contiguous(),
+        delta[..., n:].contiguous(), heads=h)
+    for name, want, drop in zip(dkv_names, ref_dkv, dropped):
+        _teeth("tca_flash_bwd_dkv", want, drop, rows["tca_flash_bwd_dkv"], what="query",
+               tensor=name)
+
+    # bytes: operands read once and outputs written once; operations: the
+    # products these kernels do (csrc/tca_flash.cu, csrc/tca_flash_bwd.cu)
+    # and three exponentials per (query, key)
+    it, el, bh = q.element_size(), b * s * h * d, b * h
+    work = float(bh * s * s)
+    masks, stats = 2 * b * s * 4, 3 * bh * s * 4
+    rows["tca_flash_fwd_lse"].update(bound(6 * el * it + 3 * el * 4 + masks + stats,
+                                           10.0 * work * d, 3.0 * work, dtype))
+    rows["tca_flash_bwd_dq"].update(bound(7 * el * it + masks + 2 * stats, 12.0 * work * d,
+                                          3.0 * work, dtype))
+    rows["tca_flash_bwd_dkv"].update(bound(10 * el * it + masks + 2 * stats, 16.0 * work * d,
+                                           3.0 * work, dtype))
+    iters = 3 if s >= 4096 else 10
+    timings = {
+        "tca_flash_fwd_lse": (lambda: FA.tca_flash_fwd_lse(*ops, heads=h),
+                              lambda: FA.tca_flash_fwd_lse_reference(*ops, heads=h)),
+        "tca_flash_bwd_dq": (lambda: FA.tca_flash_bwd_dq(*res, heads=h),
+                             lambda: FA.tca_flash_bwd_dq_reference(*res, heads=h)),
+        "tca_flash_bwd_dkv": (lambda: FA.tca_flash_bwd_dkv(*res, heads=h),
+                              lambda: FA.tca_flash_bwd_dkv_reference(*res, heads=h)),
+    }
+    for name, (kern, plain) in timings.items():
+        rows[name]["kernel_ms"] = cuda_ms(kern, iters)
+        rows[name]["plain_ms"] = cuda_ms(plain, iters)
+        rows[name]["library_ms"] = None  # no single PyTorch call computes TCA
+    return rows
+
+
+def check_tca_autograd(record):
+    """One gradient through `tca_flash_diff` on the card (`TCAFlash`: the
+    forward with partials and logsumexps, the dQ and dK/dV kernels) against
+    the same autograd call on the CPU, where it runs the plain twins."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    b, h, s, d, dtype = TCA_AUTOGRAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, ks, vs, km, vm, do = _inputs(gen, b, h, s, d, dtype, 6)
+    fg, tq = _tca_masks(gen, b, s, "parity")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, ks, vs, km, vm)]
+        FA.reset_launch_counts()
+        out = FA.tca_flash_diff(*leaves, fg.to(dev), tq.to(dev), 0.7, heads=h)
+        if out.grad_fn is None:
+            raise AssertionError("tca_flash_diff under grad mode returned no grad_fn")
+        grads[dev] = torch.autograd.grad(out, leaves, do.to(dev))
+        if dev == "cuda" and {k: FA.LAUNCHES[k] for k in ("tca_flash", *TCA_GRAD_KERNELS)} != {
+                "tca_flash": 0, **{k: 1 for k in TCA_GRAD_KERNELS}}:
+            raise AssertionError(f"tca_flash_diff on the card launched {FA.LAUNCHES}")
+    torch.cuda.synchronize()
+    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True)
+    names = ("dq", "dk_self", "dv_self", "dk_mod", "dv_mod")
+    for name, got, want in zip(names, grads["cuda"], grads["cpu"]):
+        _hold("tca_flash_diff autograd", got.cpu(), want, row, tensor=name)
+    record["tca_autograd_check"] = row
+    log(f"  tca_flash_diff autograd on the card vs the CPU twin {TCA_AUTOGRAD_SHAPE}: "
+        f"{row['err_over_tol']:.3f} of tol")
+
+
 def norm_calls(cfg, kind: str) -> list:
     """The GroupNorm32 calls of one pass of `kind` ('unet', 'vae_encode' or
     'vae_decode'), in call order, worked out from the config: (channels,
@@ -717,9 +887,19 @@ KERNELS = (
      "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:344"),
     ("flash_sdpa_bwd_dkv", check_grad, GRAD_SHAPES, GRAD_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:378"),
+    ("tca_flash_fwd_lse", check_tca_grad, TCA_SHAPES, TCA_GRAD_EXTRA,
+     "freefine_tpu_torch/csrc/tca_flash.cu", "freefine_tpu/ops/flash_attention.py:569"),
+    ("tca_flash_bwd_dq", check_tca_grad, TCA_SHAPES, TCA_GRAD_EXTRA,
+     "freefine_tpu_torch/csrc/tca_flash_bwd.cu", "freefine_tpu/ops/flash_attention.py:636"),
+    ("tca_flash_bwd_dkv", check_tca_grad, TCA_SHAPES, TCA_GRAD_EXTRA,
+     "freefine_tpu_torch/csrc/tca_flash_bwd.cu", "freefine_tpu/ops/flash_attention.py:696"),
     ("group_norm_silu", check_gn, None, GN_EXTRA,
      "freefine_tpu_torch/csrc/group_norm.cu", "freefine_tpu/ops/group_norm.py:86"),
 )
+
+
+# check functions that hold several kernels at once ({kernel name: row})
+MULTI_KERNEL_CHECKS = (check_grad, check_tca_grad)
 
 
 def _log_row(name, r, timed):
@@ -753,10 +933,11 @@ def phase_kernels(record, sd15_cfg):
         for timed, group in ((True, shapes), (False, extra)):
             for shape in group:
                 rows = fn(gen, shape, timed)
-                for kname, r in (rows.items() if fn is check_grad else ((name, rows),)):
+                for kname, r in (rows.items() if fn in MULTI_KERNEL_CHECKS else ((name, rows),)):
                     out[kname][0 if timed else 1].append(r)
                     _log_row(kname, r, timed)
     check_autograd(record)
+    check_tca_autograd(record)
     check_gn_autograd(record)
     return out
 
@@ -768,11 +949,11 @@ TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms"
 def summarize(name, source, replaces, rows, checks, counts_by_path):
     """One kernel's entry of the `kernels` line.  For each path (phase 4
     `generation` with the fused GroupNorm, phase 5 `guided`, phase 6
-    `bggen`, phase 7 `compose`) the per-edit times weight each timed shape
-    by the launches counted at that shape in one edit of that path
-    (`counts_by_path`: {path: launch shapes of one edit}); the top-level
-    launches and times are one edit of each path together.  Without the
-    edits (--skip-sd15) they are null."""
+    `bggen`, phase 7 `compose`, phase 8 `D`, one differentiated TCA pass)
+    the per-edit times weight each timed shape by the launches counted at
+    that shape in one edit of that path (`counts_by_path`: {path: launch
+    shapes of one edit}); the top-level launches and times are one edit of
+    each path together.  Without the edits (--skip-sd15) they are null."""
     timed = {r["key"]: r for r in rows}
     paths = None
     if counts_by_path is not None:
@@ -818,7 +999,7 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
                           None if rows[0]["library_ms"] is None
                           else "F.scaled_dot_product_attention"),
         f32_route_ms=total("f32_route_ms") if "f32_route_ms" in rows[0] else None,
-        per="one edit of each path together; per path under `paths`",
+        per="one edit of each path (D: one differentiated pass) together; per path under `paths`",
         paths=paths, shapes=rows, checks=checks,
     )
 
@@ -827,7 +1008,9 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
 # Phases 3 to 7: the pipeline
 # ---------------------------------------------------------------------------
 
-TINY_TOL = 2e-3  # final latents, CUDA vs CPU, float32 with TF32 off
+# final latents, and the TCA pass's latent gradient (times max |ref|), CUDA
+# vs CPU, float32 with TF32 off: summation order only
+TINY_TOL = 2e-3
 
 
 def _case(h, w, seed):
@@ -929,6 +1112,92 @@ def phase_tiny(record):
             f"image {img_err} levels")
         if not err <= TINY_TOL or img_err > 1 or not record["tiny"][entry]["finite"]:
             raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {record['tiny'][entry]}")
+    tiny_tca_grad(record, cpu, gpu, img, mask, coarse_c, tm_c)
+
+
+def tca_pass_inputs(pipe, case, mode, start_step, num_step=50, end_step=10):
+    """The inputs of one regeneration UNet pass over [u_e, r, c_e], built as
+    `generation` (mode "edit") or `background_generation` ("bggen") builds
+    them: the edit and reference latents (the coarse edit and the source;
+    bggen the source for both), the masks and their pyramids, the TCA
+    schedule's first step (context guidance, share gate, with `end_step`
+    as the entry points take it), the timestep at
+    `start_step` and the [u, u, cond] text embeddings.
+    -> (latents [2, lh, lw, 4] f32, t, text_emb, ecfg, state)."""
+    import torch
+
+    from freefine_tpu_torch import masks as mask_ops
+    from freefine_tpu_torch.edit import EditConfig, EditState, build_mask_pyramid
+    from freefine_tpu_torch.schedulers.ddim import method_and_gates
+
+    img, mask, coarse, tm = case
+    cfg, dev = pipe.config, pipe.device
+    lh, lw = cfg.latent_height, cfg.latent_width
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=dev)
+
+    if mode == "edit":
+        lat = pipe.image_to_latent(np.stack([pipe._prep_image(coarse), pipe._prep_image(img)]))
+        em = mask_ops.prepare_various_mask(
+            t(tm), t(mask), None, cfg.height, cfg.width, lh, lw, use_auto_draw=True,
+            cons_area=t(np.zeros(mask.shape, np.uint8)), reduce_inp_artifacts=True)
+        state = EditState(fg_retain=build_mask_pyramid(em.fg_retain, lh, lw),
+                          fg_ref=build_mask_pyramid(em.fg_ref, lh, lw),
+                          local_region=build_mask_pyramid(em.fg_retain, lh, lw))
+    else:
+        lat = pipe.image_to_latent(pipe._prep_image(img)).repeat(2, 1, 1, 1)
+        full, _ = mask_ops.prepare_mask_bggen(t(mask), cfg.height, cfg.width, lh, lw)
+        pyr = build_mask_pyramid(full, lh, lw)
+        state = EditState(fg_retain=pyr, fg_ref=pyr, local_region=pyr)
+    method, cg, gates = method_and_gates("tca", start_step, end_step, num_step, 0.5)
+    state.context_guidance, state.share_gate = float(cg[0]), float(gates[0])
+    ecfg = EditConfig(mode=mode, method=method, local_cfg=True, layer_range=pipe._layer_range)
+    ts = int(pipe._schedule(num_step).timesteps[start_step])
+    return lat, ts, pipe._edit_text_embeddings("a photo of a cat"), ecfg, state
+
+
+def tca_grad_pass(pipe, inputs, w):
+    """One differentiated TCA UNet pass: eps over [u_e, r, c_e] with the
+    edit latent requiring grad, loss = <eps of the edit streams u_e and
+    c_e, w>, backward to the edit latent.  -> (loss, gradient [1, lh, lw, 4])."""
+    import torch
+
+    lat, t, emb, ecfg, state = inputs
+    x = lat[:1].detach().clone().requires_grad_()
+    eps = pipe.unet_apply(torch.cat([x, lat[1:], x]), t, emb, ecfg, state)
+    loss = (eps[[0, 2]].float() * w).sum()
+    return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+
+def tiny_tca_grad(record, cpu, gpu, img, mask, coarse, tm):
+    """Phase 3's gradient check: the latent gradient of one differentiated
+    TCA UNet pass (modes edit and bggen) on CUDA against the CPU, the same
+    inputs (built on the CPU) and cotangent."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    cfg = cpu.config
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32))
+    for mode in ("edit", "bggen"):
+        # phase 3's schedule (8 steps, start 4, end 1): context guidance 0.29,
+        # so all three passes carry weight
+        lat, t, emb, ecfg, state = tca_pass_inputs(cpu, (img, mask, coarse, tm), mode, 4, 8, 1)
+        _, want = tca_grad_pass(cpu, (lat, t, emb, ecfg, state), w)
+        FA.reset_launch_counts()
+        _, got = tca_grad_pass(gpu, (lat.cuda(), t, emb.cuda(), ecfg, state), w.cuda())
+        launched = {k: FA.LAUNCHES[k] for k in TCA_GRAD_KERNELS}
+        err = float((got.cpu() - want).abs().max())
+        ref = float(want.abs().max())
+        rec = dict(grad_max_abs_err=err, grad_max_ref=ref, tol=TINY_TOL * ref,
+                   finite=bool(torch.isfinite(got).all()), tca_vjp_launches=launched)
+        record["tiny"][f"tca_grad_{mode}"] = rec
+        log(f"  tiny TCA gradient ({mode}) CUDA vs CPU: max |diff| {err:.3g} "
+            f"(tol {TINY_TOL} x max|ref| {ref:.3g}), TCA VJP launches {launched}")
+        if not (err <= TINY_TOL * ref and ref > 0 and rec["finite"]) or 0 in launched.values():
+            raise AssertionError(f"tiny TCA gradient ({mode}): {rec}")
 
 
 # Kernel names of a GroupNorm in a profile: the port's kernels (namespace
@@ -1091,7 +1360,7 @@ def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2), 
     upstream = down + u.transformer_depth[nb - 1] + up
     compose = mode == "compose"
     unet_passes = k_inv + k_edit + 2 * energy_steps
-    return {
+    return {**{name: 0 for name in TCA_GRAD_KERNELS},
         "flash_sdpa": k_inv * n_layers + k_edit * (n_layers - gated)
         + (2 * k_edit * gated if compose else 0) + energy_steps * n_layers + encodes + decodes,
         "tca_flash": 0 if compose else k_edit * gated,
@@ -1103,6 +1372,75 @@ def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2), 
             + encodes * len(norm_calls(cfg, "vae_encode"))
             + decodes * len(norm_calls(cfg, "vae_decode"))),
     }
+
+
+def _expected_tca_grad(cfg, pipe):
+    """Launches per differentiated TCA edit pass, worked out from the
+    config: the TCA VJP kernels once per gated layer; forward with
+    logsumexp, dQ and dK/dV once per layer outside the TCA window (the
+    gradient reaches every layer); nothing else."""
+    n_layers, _ = cfg.unet.attn_layer_layout
+    lo, hi = pipe._layer_range
+    expect = _expected(cfg, pipe, 0, 0, encodes=0, decodes=0)
+    expect.update({name: hi - lo for name in TCA_GRAD_KERNELS})
+    expect.update({name: n_layers - (hi - lo) for name in
+                   ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv")})
+    return expect
+
+
+def phase_tca_grad(record, pipe, case, timed_runs=3):
+    """Phase 8: the differentiated SD-1.5 TCA edit pass, built from phase
+    4's case as `generation` builds its state (start step 35 of 50), the
+    fused GroupNorm off.  One warm-up, then `timed_runs` passes, each with
+    the launch counters set to 0 just before and read just after.
+    Returns the launches of one pass by call shape."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
+
+    cfg = pipe.config
+    inputs = tca_pass_inputs(pipe, case, "edit", 35)
+    w = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)).cuda()
+    expect = _expected_tca_grad(cfg, pipe)
+    t0 = time.perf_counter()
+    tca_grad_pass(pipe, inputs, w)
+    torch.cuda.synchronize()
+    record["sd15_tca_grad_warmup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    secs, shapes, grads = [], None, []
+    for _ in range(timed_runs):
+        FA.reset_launch_counts()
+        G.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grad = tca_grad_pass(pipe, inputs, w)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches, sh = _launch_counts()
+        if launches != expect:
+            raise AssertionError(f"TCA grad pass: launch counts {launches} != expected {expect}")
+        if shapes is not None and sh != shapes:
+            raise AssertionError(f"TCA grad pass: launches by shape differ between passes: {sh}")
+        shapes = sh
+        if not (torch.isfinite(grad).all() and grad.abs().max() > 0 and torch.isfinite(loss)):
+            raise AssertionError("TCA grad pass: the latent gradient is not finite and non-zero")
+        grads.append(grad)
+    peak = torch.cuda.max_memory_allocated()
+    record["sd15_tca_grad"] = dict(
+        seconds_per_pass=secs, peak_memory_bytes=peak, launches=expect,
+        launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
+        grad_max_abs=float(grads[-1].abs().max()), grad_norm=float(grads[-1].float().norm()),
+        grad_spread_between_passes=float(max((g - grads[0]).abs().max() for g in grads)),
+        loss=float(loss),
+        protocol=("SD-1.5 512^2, one regeneration UNet pass in mode edit (TCA, layer range "
+                  f"{pipe._layer_range}) over [u_e, r, c_e] at start step 35 of 50, bf16 random "
+                  "weights, FREEFINE_FUSED_GN off; loss <eps of u_e and c_e, W>, W seeded; "
+                  "gradient to the edit latent; host clock around forward + backward"))
+    log(f"  TCA grad pass: s/pass {secs}, peak {peak / 2**30:.2f} GiB, |grad| max "
+        f"{record['sd15_tca_grad']['grad_max_abs']:.3g}, launches {expect} [{record['card']}]")
+    return shapes
 
 
 def phase_sd15(record, pipe, case, store, timed_runs, profile):
@@ -1282,7 +1620,7 @@ def phase_compose(record, pipe, case, store, timed_runs, profile):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="stop after phase 3 (kernel and tiny checks only)")
+                    help="skip phases 4 to 8 (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one SD-1.5 edit of each path (torch.profiler)")
@@ -1329,6 +1667,9 @@ def main():
         log("phase 7: SD-1.5 512^2 composition of 2 sources (cross_image_composition)")
         counts["compose"] = phase_compose(record, pipe, case, store, args.timed_runs,
                                           args.profile)
+        log("phase 8: SD-1.5 512^2 differentiated TCA edit pass (tca_flash_diff)")
+        with fused_gn("0"):
+            counts["D"] = phase_tca_grad(record, pipe, case)
     kernels = [summarize(name, source, replaces, *checked[name], counts)
                for name, _, _, _, source, replaces in KERNELS]
     record["kernels"] = kernels

@@ -45,26 +45,6 @@
 
 namespace ff {
 
-// c[16 x 8*NT] = A . B^T with A the 16 rows at `as` and B the 8*NT rows at
-// `bs`, both bf16 in shared memory with row stride LD and depth 16*KT.
-template <int KT, int NT, int LD>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* as, const bf16* bs, int g,
-                                        int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const bf16* r0 = as + g * LD + kt * 16 + 2 * t;
-    const bf16* r1 = r0 + 8 * LD;
-    const uint32_t a[4] = {ld_u32(r0), ld_u32(r1), ld_u32(r0 + 8), ld_u32(r1 + 8)};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* br = bs + (nt * 8 + g) * LD + kt * 16 + 2 * t;
-      mma_bf16(c[nt], a, ld_u32(br), ld_u32(br + 8));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16, tensor cores
 // ---------------------------------------------------------------------------
@@ -255,73 +235,6 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 // float32, FMA pipes
 // ---------------------------------------------------------------------------
 
-// dot product of two rows of DP floats in shared memory, in the forward's
-// order (fmaf over the columns from 0), so the logits match it bit for bit.
-template <int DP>
-__device__ __forceinline__ float row_dot(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c);
-    const float4 y = *reinterpret_cast<const float4*>(b + c);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  }
-  return s;
-}
-
-// acc[r][i] += sum_j w[r][j] * x[j][lane + 32 i] over a 32-row tile x.
-template <int DP, int ROWS>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[ROWS][(DP + 31) / 32], const float* w,
-                                                const float* x, int lane) {
-  constexpr int kLd = DP + 4;
-  constexpr int kNC = (DP + 31) / 32;
-#pragma unroll
-  for (int jj = 0; jj < kBK; jj += 4) {
-    float xx[4][kNC];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) {
-        const int c = lane + 32 * i;
-        xx[u][i] = (c < DP) ? x[(jj + u) * kLd + c] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 ww = *reinterpret_cast<const float4*>(w + r * kBK + jj);
-#pragma unroll
-      for (int i = 0; i < kNC; ++i) {
-        float a = acc[r][i];
-        a = fmaf(ww.x, xx[0][i], a);
-        a = fmaf(ww.y, xx[1][i], a);
-        a = fmaf(ww.z, xx[2][i], a);
-        a = fmaf(ww.w, xx[3][i], a);
-        acc[r][i] = a;
-      }
-    }
-  }
-}
-
-template <int DP, int ROWS>
-__device__ __forceinline__ void store_rows(float* base, const float (&acc)[ROWS][(DP + 31) / 32],
-                                           int row0, int nrows, int stride, int d, float mul,
-                                           int lane) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (row0 + r < nrows) {
-      float* o = base + (size_t)(row0 + r) * stride;
-#pragma unroll
-      for (int i = 0; i < (DP + 31) / 32; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) o[c] = acc[r][i] * mul;
-      }
-    }
-  }
-}
-
 // dQ: WARPS * ROWS query rows per block, key tiles of 32 (one key per lane).
 template <int DP, int WARPS, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -472,15 +385,6 @@ struct BwdArgs {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename Kern>
-cudaError_t set_smem(Kern kern, size_t smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  done = err == cudaSuccess;
-  return err;
-}
 
 template <int DK, int DV, int BK>
 cudaError_t launch_dq_mma(const BwdArgs& a) {

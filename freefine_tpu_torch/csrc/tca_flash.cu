@@ -11,12 +11,22 @@
 // with a per-query tq [B, S] and a scalar cg.  q/k/v [B, S, H*D] bf16 or
 // float32; fg, tq float32 [B, S]; output in q's dtype.
 //
+// With `parts` and `lse` pointers (the kLse instantiations, exported as
+// `tca_flash_fwd_lse`) the same kernels also write the residuals of the
+// differentiable TCA: the three normalised partial outputs o_self, o_fg,
+// o_bg as float32 [3, B, S, H*D] and their logsumexps m + log(max(l, 1e-30))
+// as float32 [3, B, H, S].  That replaces `_tca_fwd_lse_kernel` (:569, via
+// `_tca_fwd_lse` :800); the backward is csrc/tca_flash_bwd.cu.  A masked
+// logit is rounded as `masked_logit` / `masked_logit_bg` round it, so the
+// backward recomputes the same P from these logsumexps.
+//
 // Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s, about 4e12 exp/s):
 // 10*S^2*D*B*H FLOPs (two QK^T, three P.V) and 3*S^2*B*H exponentials.
 // On the SD-1.5 main path (after the head-parity split: B*H = 6*4 = 24,
 // d=40 at S=4096, d=80 at S=1024) the exponentials bound it: 1.2 G exps
 // at S=4096 is 300 us against 161 GFLOP = 163 us on the tensor cores.
-// The bytes (six [B, S, H*D] tensors) are microseconds.
+// The bytes (six [B, S, H*D] tensors, and with the residuals three float32
+// partials) are microseconds.
 //
 // Masking: the odd-head block of the parity split has fg = 1 for every key,
 // so its bg pass masks every key.  The finite bias keeps that row uniform
@@ -44,8 +54,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 tca_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k_self,
                const float* __restrict__ v_self, const float* __restrict__ k_mod,
                const float* __restrict__ v_mod, const float* __restrict__ fg,
-               const float* __restrict__ tq, float cg, float* __restrict__ out, int heads, int seq,
-               int d, float scale) {
+               const float* __restrict__ tq, float cg, float* __restrict__ out,
+               float* __restrict__ parts, float* __restrict__ lse, int heads, int seq, int d,
+               float scale) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
   constexpr int kNC = (DP + 31) / 32;
@@ -115,15 +126,13 @@ tca_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k_self,
     }
     const int j = k0 + lane;
     const bool valid = j < seq;
-    const float fgj = valid ? fgb[j] : 0.f;
 
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const float sm = s_mod[r] * scale;
       float sv[3];
-      sv[0] = valid ? s_self[r] * scale : -INFINITY;
-      sv[1] = valid ? sm + (fgj - 1.0f) * kMaskBias : -INFINITY;
-      sv[2] = valid ? sm + fgj * -kMaskBias : -INFINITY;
+      sv[0] = valid ? masked_logit(s_self[r], scale, nullptr, j) : -INFINITY;
+      sv[1] = valid ? masked_logit(s_mod[r], scale, fgb, j) : -INFINITY;
+      sv[2] = valid ? masked_logit_bg(s_mod[r], scale, fgb, j) : -INFINITY;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float mn = fmaxf(m[a][r], warp_max(sv[a]));
@@ -187,7 +196,14 @@ tca_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k_self,
     const int qi = q0 + warp * ROWS + r;
     if (qi < seq) {
       const float t = tq[(size_t)b * seq + qi];
-      float* o = out + ((size_t)b * seq + qi) * e + h * d;
+      const size_t row = ((size_t)b * seq + qi) * e + h * d;
+      const size_t plane = (size_t)gridDim.y * seq * d;  // one [B, S, H*D] partial
+      if (lse && lane == 0) {
+        const size_t lrow = (size_t)bh * seq + qi, lplane = (size_t)gridDim.y * seq;
+        lse[lrow] = m[0][r] + logf(ls);
+        lse[lplane + lrow] = m[1][r] + logf(lf);
+        lse[2 * lplane + lrow] = m[2][r] + logf(lb);
+      }
 #pragma unroll
       for (int i = 0; i < kNC; ++i) {
         const int c = lane + 32 * i;
@@ -196,7 +212,12 @@ tca_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k_self,
           const float o_fg = acc[1][r][i] / lf;
           const float o_bg = acc[2][r][i] / lb;
           const float modulated = t * o_fg + (1.0f - t) * o_bg;
-          o[c] = (cg * modulated + (1.0f - cg) * o_self);
+          out[row + c] = (cg * modulated + (1.0f - cg) * o_self);
+          if (parts) {
+            parts[row + c] = o_self;
+            parts[plane + row + c] = o_fg;
+            parts[2 * plane + row + c] = o_bg;
+          }
         }
       }
     }
@@ -206,13 +227,16 @@ tca_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k_self,
 // Tensor-core version for bf16 operands (head dim <= 80): 4 warps of 16
 // query rows; per 32-key tile two S = Q K^T products (self, mod) and three
 // P.V products on mma.sync m16n8k16, three online softmaxes in registers.
-template <int DK, int DV, int BK>
+// kLse: also write the partial outputs and logsumexps (a template flag, so
+// the plain forward keeps its registers).
+template <int DK, int DV, int BK, bool kLse>
 __global__ void __launch_bounds__(128)
 tca_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_self,
                    const bf16* __restrict__ v_self, const bf16* __restrict__ k_mod,
                    const bf16* __restrict__ v_mod, const float* __restrict__ fg,
-                   const float* __restrict__ tq, float cg, bf16* __restrict__ out, int heads,
-                   int seq, int d, float scale) {
+                   const float* __restrict__ tq, float cg, bf16* __restrict__ out,
+                   float* __restrict__ parts, float* __restrict__ lse, int heads, int seq, int d,
+                   float scale) {
   constexpr int kBQ = 64;
   constexpr int kLdK = DK + 8, kLdV = BK + 8;
   constexpr int kKT = DK / 16, kNT = BK / 8, kOT = DV / 8;
@@ -267,11 +291,9 @@ tca_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_self,
       for (int c = 0; c < 4; ++c) {
         const int col = k0 + nt * 8 + 2 * t + (c & 1);
         if (col < seq) {
-          const float fgc = fgb[col];
-          const float x = sb[nt][c] * scale;
-          ss[nt][c] *= scale;
-          sf[nt][c] = x + (fgc - 1.0f) * kMaskBias;
-          sb[nt][c] = x + fgc * -kMaskBias;
+          ss[nt][c] = masked_logit(ss[nt][c], scale, nullptr, col);
+          sf[nt][c] = masked_logit(sb[nt][c], scale, fgb, col);
+          sb[nt][c] = masked_logit_bg(sb[nt][c], scale, fgb, col);
         } else {
           ss[nt][c] = sf[nt][c] = sb[nt][c] = -INFINITY;
         }
@@ -292,34 +314,57 @@ tca_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_self,
     const int row = q0 + warp * 16 + g + 8 * hh;
     if (row < seq) {
       const float w = tq[(size_t)b * seq + row];
-      bf16* orow = out + ((size_t)b * seq + row) * e + h * d;
+      const size_t orow = ((size_t)b * seq + row) * e + h * d;
+      const size_t plane = (size_t)gridDim.y * seq * d;  // one [B, S, H*D] partial
+      if (kLse && t == 0) {
+        const size_t lrow = (size_t)bh * seq + row, lplane = (size_t)gridDim.y * seq;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) lse[a * lplane + lrow] = m[a][hh] + logf(l[a][hh]);
+      }
 #pragma unroll
       for (int ot = 0; ot < kOT; ++ot) {
         const int col = ot * 8 + 2 * t;
         if (col < d) {
-          float r[2];
+          float r[2], p[3][2];
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int i = 2 * hh + c;
-            const float o_self = os[ot][i] / l[0][hh];
-            const float o_fg = of[ot][i] / l[1][hh];
-            const float o_bg = ob[ot][i] / l[2][hh];
-            r[c] = cg * (w * o_fg + (1.0f - w) * o_bg) + (1.0f - cg) * o_self;
+            p[0][c] = os[ot][i] / l[0][hh];
+            p[1][c] = of[ot][i] / l[1][hh];
+            p[2][c] = ob[ot][i] / l[2][hh];
+            r[c] = cg * (w * p[1][c] + (1.0f - w) * p[2][c]) + (1.0f - cg) * p[0][c];
           }
-          *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(r[0], r[1]);
+          *reinterpret_cast<uint32_t*>(out + orow + col) = pack_bf16(r[0], r[1]);
+          if (kLse) {
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+              *reinterpret_cast<float2*>(parts + a * plane + orow + col) =
+                  make_float2(p[a][0], p[a][1]);
+            }
+          }
         }
       }
     }
   }
 }
 
-template <int DK, int DV, int BK>
-cudaError_t launch_mma(const void* q, const void* ks, const void* vs, const void* km,
-                       const void* vm, const void* fg, const void* tq, float cg, void* out,
-                       int batch, int heads, int seq, int d, float scale, cudaStream_t stream) {
+// The launch arguments of both entry points; parts and lse are null for
+// the plain forward.
+struct FwdArgs {
+  const void *q, *ks, *vs, *km, *vm, *fg, *tq;
+  float cg;
+  void* out;
+  float *parts, *lse;
+  int batch, heads, seq, d;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DK, int DV, int BK, bool kLse>
+cudaError_t launch_mma(const FwdArgs& a) {
   constexpr int kBQ = 64;
   const size_t smem = sizeof(bf16) * (size_t)((kBQ + 2 * BK) * (DK + 8) + 2 * DV * (BK + 8));
-  auto kern = tca_fwd_mma_kernel<DK, DV, BK>;
+  auto kern = tca_fwd_mma_kernel<DK, DV, BK, kLse>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err =
@@ -327,22 +372,20 @@ cudaError_t launch_mma(const void* q, const void* ks, const void* vs, const void
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
-  kern<<<grid, 128, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(ks), static_cast<const bf16*>(vs),
-      static_cast<const bf16*>(km), static_cast<const bf16*>(vm), static_cast<const float*>(fg),
-      static_cast<const float*>(tq), cg, static_cast<bf16*>(out), heads, seq, d, scale);
+  const dim3 grid((a.seq + kBQ - 1) / kBQ, a.batch * a.heads);
+  kern<<<grid, 128, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.ks),
+      static_cast<const bf16*>(a.vs), static_cast<const bf16*>(a.km),
+      static_cast<const bf16*>(a.vm), static_cast<const float*>(a.fg),
+      static_cast<const float*>(a.tq), a.cg, static_cast<bf16*>(a.out), a.parts, a.lse, a.heads,
+      a.seq, a.d, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_mma(const void* q, const void* ks, const void* vs, const void* km,
-                         const void* vm, const void* fg, const void* tq, float cg, void* out,
-                         int batch, int heads, int seq, int d, float scale,
-                         cudaStream_t stream) {
-#define FF_TCA_MMA_CASE(DK, DV)                                                         \
-  if (d <= DV)                                                                          \
-    return launch_mma<DK, DV, 32>(q, ks, vs, km, vm, fg, tq, cg, out, batch, heads, seq, \
-                                  d, scale, stream);
+cudaError_t dispatch_mma(const FwdArgs& a) {
+#define FF_TCA_MMA_CASE(DK, DV)                                                      \
+  if (a.d <= DV)                                                                     \
+    return a.lse ? launch_mma<DK, DV, 32, true>(a) : launch_mma<DK, DV, 32, false>(a);
   FF_TCA_MMA_CASE(16, 16)
   FF_TCA_MMA_CASE(32, 32)
   FF_TCA_MMA_CASE(48, 40)
@@ -353,9 +396,7 @@ cudaError_t dispatch_mma(const void* q, const void* ks, const void* vs, const vo
 }
 
 template <int DP, int WARPS, int ROWS>
-cudaError_t launch(const void* q, const void* ks, const void* vs, const void* km,
-                   const void* vm, const void* fg, const void* tq, float cg, void* out,
-                   int batch, int heads, int seq, int d, float scale, cudaStream_t stream) {
+cudaError_t launch(const FwdArgs& a) {
   constexpr int kLd = DP + 4;
   constexpr int kBQ = WARPS * ROWS;
   const size_t smem = sizeof(float) * (size_t)(kBQ * kLd + 4 * kBK * kLd + 3 * kBQ * kBK);
@@ -367,22 +408,19 @@ cudaError_t launch(const void* q, const void* ks, const void* vs, const void* km
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
-  kern<<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const float*>(km), static_cast<const float*>(vm), static_cast<const float*>(fg),
-      static_cast<const float*>(tq), cg, static_cast<float*>(out), heads, seq, d, scale);
+  const dim3 grid((a.seq + kBQ - 1) / kBQ, a.batch * a.heads);
+  kern<<<grid, WARPS * 32, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const float*>(a.km),
+      static_cast<const float*>(a.vm), static_cast<const float*>(a.fg),
+      static_cast<const float*>(a.tq), a.cg, static_cast<float*>(a.out), a.parts, a.lse,
+      a.heads, a.seq, a.d, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_fma(const void* q, const void* ks, const void* vs, const void* km,
-                         const void* vm, const void* fg, const void* tq, float cg, void* out,
-                         int batch, int heads, int seq, int d, float scale,
-                         cudaStream_t stream) {
-#define FF_TCA_CASE(DP, W, R)                                                                \
-  if (d <= DP)                                                                               \
-    return launch<DP, W, R>(q, ks, vs, km, vm, fg, tq, cg, out, batch, heads, seq, d, scale, \
-                            stream);
+cudaError_t dispatch_fma(const FwdArgs& a) {
+#define FF_TCA_CASE(DP, W, R) \
+  if (a.d <= DP) return launch<DP, W, R>(a);
   FF_TCA_CASE(16, 8, 4)
   FF_TCA_CASE(32, 8, 4)
   FF_TCA_CASE(64, 8, 4)
@@ -393,16 +431,38 @@ cudaError_t dispatch_fma(const void* q, const void* ks, const void* vs, const vo
 
 }  // namespace ff
 
+namespace {
+
+int fwd(const ff::FwdArgs& a, int dtype) {
+  if (a.d <= 0 || a.d % 8 != 0 || a.d > (dtype == 1 ? 80 : 160)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)(dtype == 1 ? ff::dispatch_mma(a) : ff::dispatch_fma(a));
+}
+
+}  // namespace
+
 // dtype: 0 = float32 (FMA kernel, d <= 160), 1 = bfloat16 (tensor cores,
 // d <= 80); d a multiple of 8.  Returns the CUDA error of the launch.
 extern "C" int tca_flash_fwd(const void* q, const void* k_self, const void* v_self,
                              const void* k_mod, const void* v_mod, const void* fg,
                              const void* tq, float cg, void* out, int batch, int heads, int seq,
                              int d, float scale, int dtype, void* stream) {
-  if (d <= 0 || d % 8 != 0 || d > (dtype == 1 ? 80 : 160)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? ff::dispatch_mma(q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out,
-                                             batch, heads, seq, d, scale, s)
-                          : ff::dispatch_fma(q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out,
-                                             batch, heads, seq, d, scale, s));
+  return fwd({q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out, nullptr, nullptr, batch, heads,
+              seq, d, scale, static_cast<cudaStream_t>(stream)},
+             dtype);
+}
+
+// The same, also writing the partial outputs parts [3, batch, seq, heads*d]
+// and their logsumexps lse [3, batch, heads, seq], both float32 (passes
+// self, fg, bg).
+extern "C" int tca_flash_fwd_lse(const void* q, const void* k_self, const void* v_self,
+                                 const void* k_mod, const void* v_mod, const void* fg,
+                                 const void* tq, float cg, void* out, void* parts, void* lse,
+                                 int batch, int heads, int seq, int d, float scale, int dtype,
+                                 void* stream) {
+  return fwd({q, k_self, v_self, k_mod, v_mod, fg, tq, cg, out, static_cast<float*>(parts),
+              static_cast<float*>(lse), batch, heads, seq, d, scale,
+              static_cast<cudaStream_t>(stream)},
+             dtype);
 }

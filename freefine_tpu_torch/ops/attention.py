@@ -8,11 +8,13 @@ biases) and per-query rows (output blends); no S x S mask is built.
 
 Routing: every self-attention goes through a kernel wrapper of
 `ops.flash_attention` (`masked_sdpa` -> `flash_sdpa_diff`, the TCA layers
--> `tca_flash`; composition and style alignment are `masked_sdpa` calls
-with per-key rows), which runs the CUDA kernel on a CUDA tensor and the plain
-twin on a CPU tensor.  `flash_sdpa_diff` is the plain `flash_sdpa` kernel
-outside differentiation and the forward-with-logsumexp and backward kernels
-under it (energy guidance differentiates the plain UNet).  Text
+-> `tca_flash_diff`; composition and style alignment are `masked_sdpa`
+calls with per-key rows), which runs the CUDA kernel on a CUDA tensor and
+the plain twin on a CPU tensor.  Each `_diff` function is its plain kernel
+(`flash_sdpa`, `tca_flash`) outside differentiation and the
+forward-with-logsumexp and backward kernels under it (energy guidance
+differentiates the plain UNet; a gradient through the edit UNet reaches
+the TCA ones).  Text
 cross-attention (`sdpa`) is plain math, as in the JAX package, where it is
 left to XLA.
 """
@@ -24,7 +26,7 @@ from typing import Optional
 import torch
 
 from freefine_tpu_torch.edit import STYLE_ALIGN_SCOPE, TCA_SCOPE, EditConfig, EditState
-from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa_diff, tca_flash
+from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa_diff, tca_flash_diff
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -68,8 +70,10 @@ def masked_sdpa(q, k, v, heads: int, key_rows: Optional[torch.Tensor] = None) ->
 
 
 def _tca_fused(q, k_self, v_self, k_mod, v_mod, fg_rows, tq_rows, ecg: float, heads: int):
-    """Fused TCA: ecg*(tq*attn_fg + (1-tq)*attn_bg) + (1-ecg)*self."""
-    return tca_flash(
+    """Fused TCA: ecg*(tq*attn_fg + (1-tq)*attn_bg) + (1-ecg)*self, through
+    the differentiable `tca_flash_diff` (the plain kernel outside
+    differentiation), as JAX routes it."""
+    return tca_flash_diff(
         q.contiguous(), k_self.contiguous(), v_self.contiguous(), k_mod.contiguous(),
         v_mod.contiguous(), fg_rows.float().contiguous(), tq_rows.float().contiguous(),
         float(ecg), heads=heads,

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_sdpa", "tca_flash", "flash_sdpa_bwd", "group_norm")
+KERNEL_SOURCES = ("flash_sdpa", "tca_flash", "flash_sdpa_bwd", "tca_flash_bwd", "group_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +37,14 @@ _SIGNATURES = {
     },
     "tca_flash": {
         "tca_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _F, _I, _P],
+        "tca_flash_fwd_lse": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _P],
+    },
+    "tca_flash_bwd": {
+        "tca_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                             _I, _P],
+        "tca_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _F, _I, _P],
     },
     "flash_sdpa_bwd": {
         "flash_sdpa_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],

@@ -15,18 +15,28 @@
     `flash_sdpa_bwd` runs both.
   * `flash_sdpa_diff` — differentiable attention (`FlashSDPA`, the port of
     the JAX custom VJP `flash_sdpa_diff`, :426).
+  * `tca_flash_fwd_lse` — `tca_flash` that also returns the three partial
+    outputs (float32) and their logsumexps (`csrc/tca_flash.cu`; replaces
+    `_tca_fwd_lse_kernel`, :569).
+  * `tca_flash_bwd_dq` / `tca_flash_bwd_dkv` — the TCA backward from the
+    saved logsumexps and the weighted row sums of `tca_row_deltas`
+    (`csrc/tca_flash_bwd.cu`; replace `_tca_bwd_dq_kernel` :636 and
+    `_tca_bwd_dkv_kernel` :696).  `tca_flash_bwd` runs both.
+  * `tca_flash_diff` — differentiable TCA (`TCAFlash`, the port of the JAX
+    custom VJP `tca_flash_diff`, :833).
 
-`flash_sdpa` and `tca_flash` are raw kernels with no backward: they raise
-when grad mode is on and an operand requires grad, on every device, so no
-attention output is ever silently cut from autograd.  Gradients go through
-`flash_sdpa_diff`; `tca_flash` has none until its backward is ported.
+The raw kernels (every name above but the two `_diff` functions) have no
+backward: they raise when grad mode is on and an operand requires grad, on
+every device, so no attention output is ever silently cut from autograd.
+Gradients go through `flash_sdpa_diff` and `tca_flash_diff`.
 
 Layout: q/k/v [B, S, H*D]; masks per batch row [B, S] float32; logsumexp
-and the backward's row sums delta [B, H, Sq] float32.  Logits, softmax and
-accumulation are float32; with bf16 operands the probabilities are cast to
-bf16 before the P.V product (f32 accumulation).  A masked key gets a finite
--1e9 bias added to the scaled logit, so a fully masked row degrades to
-uniform attention instead of NaN.
+and the backward's row sums delta [B, H, Sq] float32 (TCA: [3, B, H, S],
+passes self, fg, bg in that order, as the partial outputs [3, B, S, H*D]).
+Logits, softmax and accumulation are float32; with bf16 operands the
+probabilities are cast to bf16 before the P.V product (f32 accumulation).
+A masked key gets a finite -1e9 bias added to the scaled logit, so a fully
+masked row degrades to uniform attention instead of NaN.
 
 Dispatch: a tensor on the CPU goes to the plain twin; a CUDA tensor
 launches the kernel or raises.  `LAUNCHES` counts kernel launches and
@@ -45,7 +55,7 @@ from freefine_tpu_torch.ops import cuda_build
 NEG_INF = -1e9
 
 KERNELS = ("flash_sdpa", "tca_flash", "flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq",
-           "flash_sdpa_bwd_dkv")
+           "flash_sdpa_bwd_dkv", "tca_flash_fwd_lse", "tca_flash_bwd_dq", "tca_flash_bwd_dkv")
 LAUNCHES = {name: 0 for name in KERNELS}
 # (kernel, batch, heads, seq_q, seq_k, head_dim, dtype name, masked) -> launches
 LAUNCH_SHAPES: Counter = Counter()
@@ -160,19 +170,122 @@ def flash_sdpa_bwd_reference(q, k, v, key_mask, out, lse, do, *, heads: int):
     return dq, dk, dv
 
 
+def _tca_logits(q, k_self, k_mod, fg_key_mask, heads: int):
+    """The logits of the three TCA passes, [B, H, S, S] float32 each: self
+    over k_self; FG over k_mod with the fg = 0 keys biased by -1e9; BG over
+    k_mod with the fg = 1 keys biased (JAX's `(fg - 1) * -NEG_INF` and
+    `fg * NEG_INF`, added after the scale as the kernels add them)."""
+    fg = fg_key_mask.float()
+    return (_logits(q, k_self, None, heads), _logits(q, k_mod, (fg - 1.0) * -NEG_INF, heads),
+            _logits(q, k_mod, fg * NEG_INF, heads))
+
+
+def _tca_weights(tq_mask, context_guidance) -> torch.Tensor:
+    """Each pass's share of the output per query, [3, B, 1, S] float32:
+    (1 - cg), cg * tq, cg * (1 - tq)."""
+    tq = tq_mask.float()
+    cg = float(context_guidance)
+    return torch.stack([torch.full_like(tq, 1.0 - cg), cg * tq, cg * (1.0 - tq)])[:, :, None]
+
+
+def _tca_composite(parts, tq_mask, context_guidance) -> torch.Tensor:
+    """cg * (tq * o_fg + (1 - tq) * o_bg) + (1 - cg) * o_self, float32."""
+    o_self, o_fg, o_bg = parts
+    tq = tq_mask.float()[:, :, None]
+    cg = float(context_guidance)
+    return cg * (tq * o_fg + (1.0 - tq) * o_bg) + (1.0 - cg) * o_self
+
+
 def tca_flash_reference(
     q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, *, heads: int
 ) -> torch.Tensor:
     """Plain twin of `tca_flash`:
     cg * (tq * attn_fg + (1 - tq) * attn_bg) + (1 - cg) * attn_self."""
-    fg = fg_key_mask.float()
-    o_self = _attend_f32(q, k_self, v_self, None, heads)
-    o_fg = _attend_f32(q, k_mod, v_mod, (fg - 1.0) * -NEG_INF, heads)
-    o_bg = _attend_f32(q, k_mod, v_mod, fg * NEG_INF, heads)
-    tq = tq_mask.float()[:, :, None]
-    cg = float(context_guidance)
-    out = cg * (tq * o_fg + (1.0 - tq) * o_bg) + (1.0 - cg) * o_self
-    return out.to(q.dtype)
+    logits = _tca_logits(q, k_self, k_mod, fg_key_mask, heads)
+    parts = [_attend(x, v, heads) for x, v in zip(logits, (v_self, v_mod, v_mod))]
+    return _tca_composite(parts, tq_mask, context_guidance).to(q.dtype)
+
+
+def tca_flash_fwd_lse_reference(
+    q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, *, heads: int
+):
+    """Plain twin of `tca_flash_fwd_lse`: (out [B, S, E] in q's dtype, the
+    values of `tca_flash_reference`; partial outputs [3, B, S, E] float32;
+    logsumexps [3, B, H, S] float32), passes in the order self, fg, bg."""
+    logits = _tca_logits(q, k_self, k_mod, fg_key_mask, heads)
+    parts = torch.stack([_attend(x, v, heads) for x, v in zip(logits, (v_self, v_mod, v_mod))])
+    lse = torch.stack([torch.logsumexp(x, dim=-1) for x in logits])
+    return _tca_composite(parts, tq_mask, context_guidance).to(q.dtype), parts, lse
+
+
+def tca_row_deltas(parts, do, tq_mask, context_guidance, *, heads: int) -> torch.Tensor:
+    """The TCA backward's row sums, [3, B, H, S] float32: rowsum(o_x * dO)
+    times each pass's share of the output, (1 - cg), cg * tq and
+    cg * (1 - tq), tq per query and shared by the heads of its batch row
+    (JAX `_tca_diff_bwd`, :872-879).  Plain math on every device."""
+    deltas = torch.stack([row_delta(p, do, heads) for p in parts])
+    return (deltas * _tca_weights(tq_mask, context_guidance)).contiguous()
+
+
+def _tca_probs_and_ds(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
+                      do, lse, delta, heads: int):
+    """P of the three passes recomputed from the saved logsumexps, and
+    -> (P_self * w_self, w_fg * P_fg + w_bg * P_bg, dS_self, dS_mod), each
+    [B, H, S, S] float32, with dS_x = P_x * (w_x * dO V^T - delta_x) and
+    dS_mod the sum of the FG and BG terms (both read V_mod).  A fully
+    masked row recomputes P = 1 per key, as JAX does; where its weight is 0
+    (the BG pass of an fg = 1 row) its terms are exactly 0."""
+    w = _tca_weights(tq_mask, context_guidance)[..., None]
+    p_self, p_fg, p_bg = (torch.exp(x - lse[i][..., None]) for i, x in
+                          enumerate(_tca_logits(q, k_self, k_mod, fg_key_mask, heads)))
+    dof = _heads(do, heads).float()
+    dp_self = torch.matmul(dof, _heads(v_self, heads).float().transpose(-1, -2))
+    dp_mod = torch.matmul(dof, _heads(v_mod, heads).float().transpose(-1, -2))
+    ds_self = p_self * (w[0] * dp_self - delta[0][..., None])
+    ds_mod = (p_fg * (w[1] * dp_mod - delta[1][..., None])
+              + p_bg * (w[2] * dp_mod - delta[2][..., None]))
+    return p_self * w[0], w[1] * p_fg + w[2] * p_bg, ds_self, ds_mod
+
+
+def tca_flash_bwd_dq_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
+                               context_guidance, do, lse, delta, *, heads: int):
+    """Plain twin of `tca_flash_bwd_dq`:
+    dQ = (dS_self K_self + dS_mod K_mod) / sqrt(d), in q's dtype."""
+    d = q.shape[2] // heads
+    _, _, ds_self, ds_mod = _tca_probs_and_ds(q, k_self, v_self, k_mod, v_mod, fg_key_mask,
+                                              tq_mask, context_guidance, do, lse, delta, heads)
+    dq = (torch.matmul(ds_self, _heads(k_self, heads).float())
+          + torch.matmul(ds_mod, _heads(k_mod, heads).float())) * (1.0 / d**0.5)
+    return _unheads(dq).to(q.dtype)
+
+
+def tca_flash_bwd_dkv_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
+                                context_guidance, do, lse, delta, *, heads: int):
+    """Plain twin of `tca_flash_bwd_dkv`: (dK_self, dV_self, dK_mod, dV_mod)
+    with dK_x = dS_x^T Q / sqrt(d) and dV_x = (weighted P_x)^T dO, in the
+    operands' dtypes."""
+    d = q.shape[2] // heads
+    pw_self, pw_mod, ds_self, ds_mod = _tca_probs_and_ds(
+        q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, do, lse, delta,
+        heads)
+    qf, dof = _heads(q, heads).float(), _heads(do, heads).float()
+    out = []
+    for ds, pw, k, v in ((ds_self, pw_self, k_self, v_self), (ds_mod, pw_mod, k_mod, v_mod)):
+        dk = torch.matmul(ds.transpose(-1, -2), qf) * (1.0 / d**0.5)
+        dv = torch.matmul(pw.transpose(-1, -2), dof)
+        out += [_unheads(dk).to(k.dtype), _unheads(dv).to(v.dtype)]
+    return tuple(out)
+
+
+def tca_flash_bwd_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
+                            context_guidance, parts, lse, do, *, heads: int):
+    """Plain twin of `tca_flash_bwd` -> (dq, dk_self, dv_self, dk_mod, dv_mod)."""
+    do = do.to(q.dtype)
+    delta = tca_row_deltas(parts, do, tq_mask, context_guidance, heads=heads)
+    args = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, do, lse,
+            delta)
+    return (tca_flash_bwd_dq_reference(*args, heads=heads),
+            *tca_flash_bwd_dkv_reference(*args, heads=heads))
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +301,9 @@ _MAX_HEAD_DIM = {
     "flash_sdpa_bwd_dq": {torch.bfloat16: 160, torch.float32: 128},
     "flash_sdpa_bwd_dkv": {torch.bfloat16: 160, torch.float32: 128},
     "tca_flash": {torch.bfloat16: 80, torch.float32: 160},
+    "tca_flash_fwd_lse": {torch.bfloat16: 80, torch.float32: 160},
+    "tca_flash_bwd_dq": {torch.bfloat16: 80, torch.float32: 128},
+    "tca_flash_bwd_dkv": {torch.bfloat16: 80, torch.float32: 128},
 }
 
 
@@ -407,6 +523,22 @@ def flash_sdpa_diff(q, k, v, key_mask=None, *, heads: int) -> torch.Tensor:
     return flash_sdpa(q, k, v, key_mask, heads=heads)
 
 
+_NO_TCA_BACKWARD = "Use tca_flash_diff for gradients, or call it under torch.no_grad()."
+
+
+def _check_tca(name: str, q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
+               heads: int) -> int:
+    """Operands of the TCA family; returns the head dim."""
+    d = _check_qkv(name, heads, q, k_self, v_self, k_mod, v_mod)
+    b, s, _ = q.shape
+    for t in (k_self, v_self, k_mod, v_mod):
+        if t.shape[1] != s:
+            raise ValueError(f"{name}: q and k/v sequence lengths differ")
+    _check_rows(name, fg_key_mask, (b, s), q.device)
+    _check_rows(name, tq_mask, (b, s), q.device)
+    return d
+
+
 def tca_flash(
     q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, *, heads: int
 ) -> torch.Tensor:
@@ -415,34 +547,155 @@ def tca_flash(
     attn_self over (k_self, v_self); attn_fg / attn_bg over (k_mod, v_mod)
     restricted to fg / 1-fg keys.  q/k/v [B, S, H*D]; fg_key_mask, tq_mask
     [B, S] float32; context_guidance a python float.  -> [B, S, H*D].
-    Not differentiable: its backward kernels are not ported yet."""
-    _refuse_grad(
-        "tca_flash",
-        "tca_flash has no backward until the TCA backward kernels are ported "
-        "(ROADMAP B4); call it under torch.no_grad().",
-        q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
-    )
-    d = _check_qkv("tca_flash", heads, q, k_self, v_self, k_mod, v_mod)
-    b, s, _ = q.shape
-    for t in (k_self, v_self, k_mod, v_mod):
-        if t.shape[1] != s:
-            raise ValueError("tca_flash: q and k/v sequence lengths differ")
-    _check_rows("tca_flash", fg_key_mask, (b, s), q.device)
-    _check_rows("tca_flash", tq_mask, (b, s), q.device)
+    Not differentiable (see `tca_flash_diff`)."""
+    tensors = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask)
+    _refuse_grad("tca_flash", _NO_TCA_BACKWARD, *tensors)
+    d = _check_tca("tca_flash", *tensors, heads)
     if q.device.type == "cpu":
-        return tca_flash_reference(
-            q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
-            heads=heads,
-        )
-    lib = _cuda_library("tca_flash", "tca_flash", d, q, k_self, v_self, k_mod, v_mod,
-                        fg_key_mask, tq_mask)
+        return tca_flash_reference(*tensors, context_guidance, heads=heads)
+    lib = _cuda_library("tca_flash", "tca_flash", d, *tensors)
     out = torch.empty_like(q)
+    b, s, _ = q.shape
     code = lib.tca_flash_fwd(
-        q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(), k_mod.data_ptr(),
-        v_mod.data_ptr(), fg_key_mask.data_ptr(), tq_mask.data_ptr(),
-        float(context_guidance), out.data_ptr(), b, heads, s, d, 1.0 / d**0.5,
-        _DTYPE_CODE[q.dtype], _stream(q),
+        *(t.data_ptr() for t in tensors), float(context_guidance), out.data_ptr(), b, heads, s,
+        d, 1.0 / d**0.5, _DTYPE_CODE[q.dtype], _stream(q),
     )
     cuda_build.check(lib, "tca_flash", code)
     _count_launch("tca_flash", b, heads, s, s, d, q.dtype, True)
     return out
+
+
+def tca_flash_fwd_lse(
+    q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, *, heads: int
+):
+    """`tca_flash` that also returns the residuals of its backward:
+    (out [B, S, H*D] in q's dtype; partial outputs [3, B, S, H*D] float32
+    and their logsumexps [3, B, H, S] float32, passes self, fg, bg)."""
+    tensors = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask)
+    _refuse_grad("tca_flash_fwd_lse", _NO_TCA_BACKWARD, *tensors)
+    d = _check_tca("tca_flash_fwd_lse", *tensors, heads)
+    if q.device.type == "cpu":
+        return tca_flash_fwd_lse_reference(*tensors, context_guidance, heads=heads)
+    lib = _cuda_library("tca_flash_fwd_lse", "tca_flash", d, *tensors)
+    b, s, e = q.shape
+    out = torch.empty_like(q)
+    parts = torch.empty(3, b, s, e, dtype=torch.float32, device=q.device)
+    lse = torch.empty(3, b, heads, s, dtype=torch.float32, device=q.device)
+    code = lib.tca_flash_fwd_lse(
+        *(t.data_ptr() for t in tensors), float(context_guidance), out.data_ptr(),
+        parts.data_ptr(), lse.data_ptr(), b, heads, s, d, 1.0 / d**0.5, _DTYPE_CODE[q.dtype],
+        _stream(q),
+    )
+    cuda_build.check(lib, "tca_flash_fwd_lse", code)
+    _count_launch("tca_flash_fwd_lse", b, heads, s, s, d, q.dtype, True)
+    return out, parts, lse
+
+
+def _check_tca_bwd(name: str, q, do, lse, delta, heads: int) -> None:
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"{name}: dO must match q ({tuple(q.shape)} {q.dtype}), got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    rows = (3, q.shape[0], heads, q.shape[1])
+    _check_rows(name, lse, rows, q.device)
+    _check_rows(name, delta, rows, q.device)
+
+
+def tca_flash_bwd_dq(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
+                     do, lse, delta, *, heads: int) -> torch.Tensor:
+    """dQ of `tca_flash` from the saved logsumexps and the weighted row
+    sums of `tca_row_deltas` ([3, B, H, S] float32 each); dO in q's
+    dtype.  -> dq like q."""
+    tensors = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask)
+    _refuse_grad("tca_flash_bwd_dq", _NO_TCA_BACKWARD, *tensors, do)
+    d = _check_tca("tca_flash_bwd_dq", *tensors, heads)
+    _check_tca_bwd("tca_flash_bwd_dq", q, do, lse, delta, heads)
+    if q.device.type == "cpu":
+        return tca_flash_bwd_dq_reference(*tensors, context_guidance, do, lse, delta,
+                                          heads=heads)
+    lib = _cuda_library("tca_flash_bwd_dq", "tca_flash_bwd", d, *tensors, do, lse, delta)
+    b, s, _ = q.shape
+    dq = torch.empty_like(q)
+    code = lib.tca_flash_bwd_dq(
+        *(t.data_ptr() for t in tensors), float(context_guidance), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, heads, s, d, 1.0 / d**0.5,
+        _DTYPE_CODE[q.dtype], _stream(q),
+    )
+    cuda_build.check(lib, "tca_flash_bwd_dq", code)
+    _count_launch("tca_flash_bwd_dq", b, heads, s, s, d, q.dtype, True)
+    return dq
+
+
+def tca_flash_bwd_dkv(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
+                      do, lse, delta, *, heads: int):
+    """dK and dV of both key sets of `tca_flash` from the saved logsumexps
+    and weighted row sums.  Masks get no gradient; a masked key gets the
+    gradient of its -1e9 logit (zero unless its row is fully masked).
+    -> (dk_self, dv_self, dk_mod, dv_mod)."""
+    tensors = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask)
+    _refuse_grad("tca_flash_bwd_dkv", _NO_TCA_BACKWARD, *tensors, do)
+    d = _check_tca("tca_flash_bwd_dkv", *tensors, heads)
+    _check_tca_bwd("tca_flash_bwd_dkv", q, do, lse, delta, heads)
+    if q.device.type == "cpu":
+        return tca_flash_bwd_dkv_reference(*tensors, context_guidance, do, lse, delta,
+                                           heads=heads)
+    lib = _cuda_library("tca_flash_bwd_dkv", "tca_flash_bwd", d, *tensors, do, lse, delta)
+    b, s, _ = q.shape
+    grads = (torch.empty_like(k_self), torch.empty_like(v_self), torch.empty_like(k_mod),
+             torch.empty_like(v_mod))
+    code = lib.tca_flash_bwd_dkv(
+        *(t.data_ptr() for t in tensors), float(context_guidance), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads), b, heads, s, d,
+        1.0 / d**0.5, _DTYPE_CODE[q.dtype], _stream(q),
+    )
+    cuda_build.check(lib, "tca_flash_bwd_dkv", code)
+    _count_launch("tca_flash_bwd_dkv", b, heads, s, s, d, q.dtype, True)
+    return grads
+
+
+def tca_flash_bwd(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
+                  parts, lse, do, *, heads: int):
+    """The TCA backward (JAX `_tca_diff_bwd`): dO cast to q's dtype, the
+    weighted row sums in plain math (`tca_row_deltas`), then the dQ and
+    the dK/dV kernels, each recomputing P from the saved logsumexps.
+    -> (dq, dk_self, dv_self, dk_mod, dv_mod)."""
+    do = do.to(q.dtype).contiguous()
+    delta = tca_row_deltas(parts, do, tq_mask, context_guidance, heads=heads)
+    args = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, do, lse,
+            delta)
+    return (tca_flash_bwd_dq(*args, heads=heads), *tca_flash_bwd_dkv(*args, heads=heads))
+
+
+class TCAFlash(torch.autograd.Function):
+    """Differentiable `tca_flash` (JAX `tca_flash_diff`'s custom VJP): the
+    forward keeps the three partial outputs and logsumexps, the backward
+    recomputes each pass's P from them.  The masks, cg and `heads` get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
+                heads):
+        out, parts, lse = tca_flash_fwd_lse(q, k_self, v_self, k_mod, v_mod, fg_key_mask,
+                                            tq_mask, context_guidance, heads=heads)
+        ctx.save_for_backward(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, parts, lse)
+        ctx.context_guidance, ctx.heads = float(context_guidance), heads
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        *operands, parts, lse = ctx.saved_tensors
+        grads = tca_flash_bwd(*operands, ctx.context_guidance, parts, lse, do, heads=ctx.heads)
+        return (*grads, None, None, None, None)
+
+
+def tca_flash_diff(
+    q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, *, heads: int
+) -> torch.Tensor:
+    """Differentiable fused TCA, same arguments and values as `tca_flash`.
+    Outside differentiation (no grad mode, or no operand that requires
+    grad) it is the plain `tca_flash` kernel, as JAX calls the primal body;
+    under differentiation the forward with the partial outputs and
+    logsumexps and the backward kernels (`TCAFlash`)."""
+    tensors = (q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return TCAFlash.apply(*tensors, context_guidance, heads)
+    return tca_flash(*tensors, context_guidance, heads=heads)

@@ -27,6 +27,7 @@ from freefine_tpu.ops.flash_attention import _flash_fwd_lse as j_fwd_lse
 from freefine_tpu.ops.flash_attention import _flash_sdpa_bwd as j_bwd
 from freefine_tpu.ops.flash_attention import flash_sdpa_diff as j_flash_sdpa_diff
 from freefine_tpu_torch.ops import flash_attention as FA
+from torch_spy import spy
 
 torch.set_num_threads(2)
 
@@ -57,6 +58,10 @@ def _j(*xs):
     return [jnp.asarray(x) for x in xs]
 
 
+def _same(a, b):
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
 def _close(got, want, rel=1e-4):
     want = np.asarray(want, np.float32)
     got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
@@ -65,7 +70,7 @@ def _close(got, want, rel=1e-4):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_fwd_lse_twin_matches_pallas(case):
+def test_fwd_lse_twin_matches_pallas(case, monkeypatch):
     q, k, v, _, mask = _inputs(case)
     out, lse = j_fwd_lse(*_j(q, k, v, mask), HEADS, 64, 64)
     got_out, got_lse = FA.flash_sdpa_fwd_lse_reference(*_t(q, k, v, mask), heads=HEADS)
@@ -73,14 +78,25 @@ def test_fwd_lse_twin_matches_pallas(case):
     np.testing.assert_allclose(got_out.numpy(), np.asarray(out), atol=3e-5, rtol=0)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[..., 0].reshape(B, HEADS, S),
                                atol=1e-4, rtol=0)
-    # the same values as the plain forward, and the wrapper on CPU is the twin
-    assert torch.equal(got_out, FA.flash_sdpa_reference(*_t(q, k, v, mask), heads=HEADS))
-    w_out, w_lse = FA.flash_sdpa_fwd_lse(*_t(q, k, v, mask), heads=HEADS)
-    assert torch.equal(w_out, got_out) and torch.equal(w_lse, got_lse)
+    # the plain forward is the same function of the same inputs: both twins
+    # take their output as _attend(_logits(q, k, bias), v) ...
+    logits = spy(monkeypatch, FA, "_logits")
+    attends = spy(monkeypatch, FA, "_attend")
+    twin = spy(monkeypatch, FA, "flash_sdpa_fwd_lse_reference")
+    plain = FA.flash_sdpa_reference(*_t(q, k, v, mask), heads=HEADS)
+    wrapped = FA.flash_sdpa_fwd_lse(*_t(q, k, v, mask), heads=HEADS)
+    assert len(logits) == len(attends) == 2
+    assert all(_same(a, b) for a, b in zip(logits[0][0], logits[1][0]))
+    for (args, _, result), (_, _, lg) in zip(attends, logits):
+        assert args[0] is lg and torch.equal(args[1], torch.from_numpy(v))
+    assert torch.equal(plain, attends[0][2].to(plain.dtype))
+    assert torch.equal(wrapped[0], attends[1][2].to(plain.dtype))
+    # ... and the wrapper on CPU returns the twin's own result
+    assert len(twin) == 1 and wrapped is twin[0][2]
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_bwd_twin_matches_pallas(case):
+def test_bwd_twin_matches_pallas(case, monkeypatch):
     """Fed the same residuals (JAX's own out and lse)."""
     q, k, v, do, mask = _inputs(case, seed=2)
     jq, jk, jv, jm = _j(q, k, v, mask)
@@ -92,8 +108,13 @@ def test_bwd_twin_matches_pallas(case):
     for g, w in zip(got, want[:3]):
         _close(g, w)
     assert not np.asarray(want[3]).any()  # the mask's cotangent in JAX is zero
-    assert all(torch.equal(a, b)
-               for a, b in zip(FA.flash_sdpa_bwd(*args, torch.from_numpy(do), heads=HEADS), got))
+    # the wrapper on CPU returns the twins' own results, which match JAX too
+    dq = spy(monkeypatch, FA, "flash_sdpa_bwd_dq_reference")
+    dkv = spy(monkeypatch, FA, "flash_sdpa_bwd_dkv_reference")
+    wrapped = FA.flash_sdpa_bwd(*args, torch.from_numpy(do), heads=HEADS)
+    assert wrapped[0] is dq[0][2] and all(a is b for a, b in zip(wrapped[1:], dkv[0][2]))
+    for g, w in zip(wrapped, want[:3]):
+        _close(g, w)
 
 
 def test_bwd_twin_bf16_matches_pallas():
@@ -162,19 +183,20 @@ def test_fully_masked_rows_give_finite_grads_scaled_by_key_count():
     _close(gq[0], tq.grad[0].numpy())
 
 
-def test_flash_sdpa_diff_without_grad_is_the_plain_kernel():
+def test_flash_sdpa_diff_without_grad_is_the_plain_kernel(monkeypatch):
     q, k, v, _, _ = _inputs("unmasked", seed=7)
     tq, tk, tv = _t(q, k, v)
     FA.reset_launch_counts()
+    plain = spy(monkeypatch, FA, "flash_sdpa")
     out = FA.flash_sdpa_diff(tq, tk, tv, heads=HEADS)
     assert out.grad_fn is None
-    assert torch.equal(out, FA.flash_sdpa_reference(tq, tk, tv, heads=HEADS))
+    assert len(plain) == 1 and out is plain[0][2]
     with torch.no_grad():
-        assert torch.equal(FA.flash_sdpa_diff(tq.requires_grad_(), tk, tv, heads=HEADS), out)
-    assert not any(FA.LAUNCHES.values())
+        assert FA.flash_sdpa_diff(tq.requires_grad_(), tk, tv, heads=HEADS) is plain[1][2]
+    assert len(plain) == 2 and not any(FA.LAUNCHES.values())
 
 
-def test_backward_accepts_non_contiguous_f32_cotangent():
+def test_backward_accepts_non_contiguous_f32_cotangent(monkeypatch):
     """JAX casts the cotangent to q's dtype; the port also makes it
     contiguous (a transposed view reaches the kernel as a copy)."""
     q, k, v, do, _ = _inputs("unmasked", seed=8)
@@ -182,8 +204,14 @@ def test_backward_accepts_non_contiguous_f32_cotangent():
     out = FA.flash_sdpa_diff(tq, tk, tv, heads=HEADS)
     g = torch.from_numpy(np.ascontiguousarray(do.transpose(1, 0, 2))).transpose(0, 1)
     assert not g.is_contiguous() and g.dtype == torch.float32
+    dq = spy(monkeypatch, FA, "flash_sdpa_bwd_dq")
+    dkv = spy(monkeypatch, FA, "flash_sdpa_bwd_dkv")
     gq, gk, gv = torch.autograd.grad(out, (tq, tk, tv), g)
-    want = torch.autograd.grad(FA.flash_sdpa_diff(tq, tk, tv, heads=HEADS), (tq, tk, tv),
-                               g.contiguous().bfloat16())
-    for a, b in zip((gq, gk, gv), want):
-        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    # both backward kernels got the cotangent as q's dtype, contiguous, same values
+    for calls in (dq, dkv):
+        do_in = calls[0][0][4]
+        assert do_in.dtype == torch.bfloat16 and do_in.is_contiguous()
+        assert torch.equal(do_in, g.contiguous().bfloat16())
+    assert gq is dq[0][2] or torch.equal(gq, dq[0][2])
+    for a in (gq, gk, gv):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
