@@ -166,6 +166,30 @@ def bound(nbytes: float, flops: float, exps: float, dtype: str) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_smem_report() -> list:
+    """Dynamic shared memory of the `flash_sdpa` instantiation each route
+    takes, one line per instantiation (head dims walked in steps of 8; a
+    new line where the bytes change)."""
+    from freefine_tpu_torch.ops import cuda_build
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    lib = cuda_build.library("flash_sdpa")
+    rows = []
+    for dtype, limit in FA._MAX_HEAD_DIM["flash_sdpa"].items():
+        last = None
+        for d in range(8, limit + 1, 8):
+            route = FA.flash_route(dtype, d)
+            smem = lib.flash_sdpa_smem_bytes(route, d)
+            if smem < 0:
+                raise AssertionError(f"flash_sdpa: no instantiation for {dtype} head dim {d}")
+            if smem != last:
+                rows.append(dict(route=FA.FLASH_ROUTES[route], from_head_dim=d, smem_bytes=smem))
+                log(f"  flash_sdpa {FA.FLASH_ROUTES[route]} from head dim {d}: {smem} bytes of "
+                    "dynamic shared memory")
+                last = smem
+    return rows
+
+
 def ptxas_report(libs) -> list:
     """Registers, stack and spills of every kernel instantiation, from the
     ptxas report that `cuda_build` keeps beside each library."""
@@ -336,7 +360,8 @@ def check_flash(gen, shape, timed: bool):
     ref = FA.flash_sdpa_reference(q, k, v, mask, heads=h)
     torch.cuda.synchronize()
     row = dict(batch=b, heads=h, seq_q=sq, seq_k=sk, head_dim=d, dtype=dtype, masked=masked,
-               key=(b, h, sq, sk, d, dtype, masked))
+               key=(b, h, sq, sk, d, dtype, masked),
+               route=FA.FLASH_ROUTES[FA.flash_route(q.dtype, d)])
     _hold("flash_sdpa", out, ref, row)
     if timed:
         n = min(DROP_KEYS, sk // 2)
@@ -352,6 +377,11 @@ def check_flash(gen, shape, timed: bool):
         keep = None if mask is None else (mask > 0)[:, None, None, :]
         row["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), n)
+        # device time without the host's launch rate (eager calls of a few
+        # microseconds of work time the host)
+        row["kernel_graph_ms"] = graph_ms(lambda: FA.flash_sdpa(q, k, v, mask, heads=h))
+        row["library_graph_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
     return row
 
 
@@ -411,6 +441,7 @@ def check_grad(gen, shape, timed: bool):
                 masked=mask is not None, key=(b, h, sq, sk, d, dtype, mask is not None))
     rows = {n: dict(base) for n in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq",
                                     "flash_sdpa_bwd_dkv")}
+    rows["flash_sdpa_fwd_lse"]["route"] = FA.FLASH_ROUTES[FA.flash_route(q.dtype, d)]
     out, lse = FA.flash_sdpa_fwd_lse(q, k, v, mask, heads=h)
     ref_out, ref_lse = FA.flash_sdpa_fwd_lse_reference(q, k, v, mask, heads=h)
     delta = FA.row_delta(ref_out, do, h)
@@ -464,6 +495,10 @@ def check_grad(gen, shape, timed: bool):
     qh, kh, vh = (_sdpa_heads(x, h).requires_grad_() for x in (q, k, v))
     rows["flash_sdpa_fwd_lse"]["library_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(qh.detach(), kh.detach(), vh.detach()), iters)
+    rows["flash_sdpa_fwd_lse"]["kernel_graph_ms"] = graph_ms(
+        lambda: FA.flash_sdpa_fwd_lse(q, k, v, heads=h))
+    rows["flash_sdpa_fwd_lse"]["library_graph_ms"] = graph_ms(
+        lambda: F.scaled_dot_product_attention(qh.detach(), kh.detach(), vh.detach()))
     o = F.scaled_dot_product_attention(qh, kh, vh)
     doh = _sdpa_heads(do, h)
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (qh, kh, vh), doh, retain_graph=True), iters)
@@ -912,7 +947,12 @@ def _log_row(name, r, timed):
         msg += (f"; dropped tile {r['dropped_tile_err_over_tol']:.3g} of tol; kernel "
                 f"{r['kernel_ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
                 f"{'-' if lib is None else f'{lib:.4f}'} ms bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}, {r['bound_ms'] / r['kernel_ms']:.3f} of the kernel's time)")
+        if "kernel_graph_ms" in r:
+            msg += (f"; in CUDA graphs kernel {r['kernel_graph_ms']:.4f} ms library "
+                    f"{r['library_graph_ms']:.4f} ms")
+    if "route" in r:
+        msg += f"; route {r['route']}"
     log(msg)
 
 
@@ -943,7 +983,7 @@ def phase_kernels(record, sd15_cfg):
 
 
 TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms",
-         "f32_route_ms")
+         "f32_route_ms", "kernel_graph_ms", "library_graph_ms")
 
 
 def summarize(name, source, replaces, rows, checks, counts_by_path):
@@ -1645,6 +1685,7 @@ def main():
     log(f"  built {sorted(p.name for p in libs.values())} in {record['build_s']:.1f} s")
 
     record["ptxas"] = ptxas_report(libs)
+    record["flash_smem"] = flash_smem_report()
 
     from freefine_tpu_torch.config import sd15_pipeline_config
 

@@ -34,6 +34,7 @@ _SIGNATURES = {
     "flash_sdpa": {
         "flash_sdpa_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "flash_sdpa_fwd_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_sdpa_smem_bytes": [_I, _I],
     },
     "tca_flash": {
         "tca_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _F, _I, _P],

@@ -293,8 +293,25 @@ def tca_flash_bwd_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mas
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Kernel routes of `flash_sdpa` and `flash_sdpa_fwd_lse` (csrc/flash_sdpa.cu):
+# 0 the float32 kernel with split-TF32 products, 1 the bf16 wgmma kernel with its
+# TMA ring.
+FLASH_ROUTES = {0: "f32_tf32x3", 1: "bf16_wgmma"}
+
+
+def flash_route(dtype: torch.dtype, d: int) -> int:
+    """The kernel route of a `flash_sdpa` / `flash_sdpa_fwd_lse` call on
+    CUDA operands of `dtype` and head dim `d` (a multiple of 8 within
+    `_MAX_HEAD_DIM`): bf16 takes the wgmma kernel at every such head dim,
+    float32 the split-TF32 kernel."""
+    limit = _MAX_HEAD_DIM["flash_sdpa"][dtype]
+    if d % 8 or not 0 < d <= limit:
+        raise ValueError(f"flash_sdpa: {dtype} head dim {d} must be a multiple of 8, <= {limit}")
+    return 1 if dtype == torch.bfloat16 else 0
+
 # Head dims the kernels are built for: bf16 runs on the tensor cores, float32
-# on the FMA pipes (csrc/flash_sdpa.cu, csrc/tca_flash.cu, csrc/flash_sdpa_bwd.cu).
+# on the FMA pipes (csrc/tca_flash.cu, csrc/flash_sdpa_bwd.cu, csrc/tca_flash_bwd.cu)
+# or, for flash_sdpa, in split-TF32 products on the tensor cores (csrc/flash_sdpa.cu).
 _MAX_HEAD_DIM = {
     "flash_sdpa": {torch.bfloat16: 160, torch.float32: 512},
     "flash_sdpa_fwd_lse": {torch.bfloat16: 160, torch.float32: 512},
@@ -405,7 +422,7 @@ def flash_sdpa(q, k, v, key_mask=None, *, heads: int) -> torch.Tensor:
     b, sq, _ = q.shape
     code = lib.flash_sdpa_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), out.data_ptr(),
-        b, heads, sq, k.shape[1], d, 1.0 / d**0.5, _DTYPE_CODE[q.dtype], _stream(q),
+        b, heads, sq, k.shape[1], d, 1.0 / d**0.5, flash_route(q.dtype, d), _stream(q),
     )
     cuda_build.check(lib, "flash_sdpa", code)
     _count_launch("flash_sdpa", b, heads, sq, k.shape[1], d, q.dtype, key_mask is not None)
@@ -425,7 +442,7 @@ def flash_sdpa_fwd_lse(q, k, v, key_mask=None, *, heads: int):
     lse = torch.empty(b, heads, sq, dtype=torch.float32, device=q.device)
     code = lib.flash_sdpa_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), out.data_ptr(),
-        lse.data_ptr(), b, heads, sq, k.shape[1], d, 1.0 / d**0.5, _DTYPE_CODE[q.dtype],
+        lse.data_ptr(), b, heads, sq, k.shape[1], d, 1.0 / d**0.5, flash_route(q.dtype, d),
         _stream(q),
     )
     cuda_build.check(lib, "flash_sdpa_fwd_lse", code)

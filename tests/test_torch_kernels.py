@@ -157,3 +157,28 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError):
         FA.tca_flash(tq, tk, tv, tk, tv, torch.ones(B, S), torch.ones(B, S - 1), 0.5,
                      heads=HEADS)
+
+
+# (dtype, head dim, seq_q, seq_k) of every `flash_sdpa` / `flash_sdpa_fwd_lse`
+# call on the SD-1.5 512^2 paths: the UNet's self-attentions in bf16 at each
+# resolution (the shapes of chip_smoke.py's FLASH_SHAPES and GRAD_SHAPES) and
+# the VAE mid-block's single f32 head
+SD15_FLASH_CALLS = [(torch.bfloat16, d, s, s)
+                    for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+SD15_FLASH_CALLS += [(torch.float32, 512, 4096, 4096)]
+
+
+@pytest.mark.parametrize("dtype, d, sq, sk", SD15_FLASH_CALLS)
+def test_sd15_flash_shapes_take_the_hopper_routes(dtype, d, sq, sk):
+    want = "bf16_wgmma" if dtype == torch.bfloat16 else "f32_tf32x3"
+    assert FA.FLASH_ROUTES[FA.flash_route(dtype, d)] == want
+
+
+@pytest.mark.parametrize("kernel", ["flash_sdpa", "flash_sdpa_fwd_lse"])
+def test_every_admitted_flash_head_dim_has_a_route(kernel):
+    for dtype, limit in FA._MAX_HEAD_DIM[kernel].items():
+        for d in range(8, limit + 1, 8):
+            assert FA.flash_route(dtype, d) in FA.FLASH_ROUTES
+        for d in (limit + 8, 12):
+            with pytest.raises(ValueError):
+                FA.flash_route(dtype, d)
