@@ -134,16 +134,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2, repeats: int = 3) -> float:
     return best
 
 
-def graph_ms(fn, iters: int = 10, replays: int = 3) -> float:
+def graph_ms(fn, iters: int = 10, replays: int = 3, stream=None) -> float:
     """Device time per call of `fn`: `iters` calls captured in one CUDA
     graph and replayed, so the host's launch rate does not set the time (it
-    does for eager calls of a few microseconds of work)."""
+    does for eager calls of a few microseconds of work).  `stream`: the
+    stream to warm up and capture on (an autograd backward runs on its
+    forward's stream, so that forward must have run on it)."""
     import torch
 
-    fn()
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -187,6 +190,34 @@ def flash_smem_report() -> list:
                 log(f"  flash_sdpa {FA.FLASH_ROUTES[route]} from head dim {d}: {smem} bytes of "
                     "dynamic shared memory")
                 last = smem
+    return rows
+
+
+def flash_bwd_smem_report() -> list:
+    """Dynamic shared memory of the `flash_sdpa_bwd_{dq,dkv}` wgmma
+    instantiations, one line per instantiation (kernel, consumer warpgroups:
+    one and two at every head dim, three at the small ones; head dims walked
+    in steps of 8, a new line where the bytes change)."""
+    import torch
+
+    from freefine_tpu_torch.ops import cuda_build
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    lib = cuda_build.library("flash_sdpa_bwd")
+    rows = []
+    for kernel, name in enumerate(("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv")):
+        for wgs in (1, 2, 3):
+            last = None
+            for d in range(8, FA._MAX_HEAD_DIM[name][torch.bfloat16] + 1, 8):
+                smem = lib.flash_sdpa_bwd_smem_bytes(d, kernel, wgs)
+                if smem < 0 and wgs < 3:  # one and two exist at every head dim
+                    raise AssertionError(f"{name}: no bf16 instantiation for head dim {d}")
+                if smem != last and smem >= 0:
+                    rows.append(dict(kernel=name, warpgroups=wgs, from_head_dim=d,
+                                     smem_bytes=smem))
+                    log(f"  {name} bf16_wgmma, {wgs} consumer warpgroup(s), from head dim "
+                        f"{d}: {smem} bytes of dynamic shared memory")
+                    last = smem
     return rows
 
 
@@ -492,6 +523,8 @@ def check_grad(gen, shape, timed: bool):
     for name, (kern, plain) in timings.items():
         rows[name]["kernel_ms"] = cuda_ms(kern, iters)
         rows[name]["plain_ms"] = cuda_ms(plain, iters)
+    for name in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+        rows[name]["kernel_graph_ms"] = graph_ms(timings[name][0])
     qh, kh, vh = (_sdpa_heads(x, h).requires_grad_() for x in (q, k, v))
     rows["flash_sdpa_fwd_lse"]["library_ms"] = cuda_ms(
         lambda: F.scaled_dot_product_attention(qh.detach(), kh.detach(), vh.detach()), iters)
@@ -502,11 +535,30 @@ def check_grad(gen, shape, timed: bool):
     o = F.scaled_dot_product_attention(qh, kh, vh)
     doh = _sdpa_heads(do, h)
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (qh, kh, vh), doh, retain_graph=True), iters)
+    bwd_graph_ms = library_bwd_graph_ms(qh, kh, vh, doh)
     for name in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
         rows[name]["library_ms"] = bwd_ms
+        rows[name]["library_graph_ms"] = bwd_graph_ms
         rows[name]["library_call"] = ("autograd backward of F.scaled_dot_product_attention "
-                                      "(dq, dk and dv in one call)")
+                                      f"(dq, dk and dv in one call; {o.grad_fn.name()})")
     return rows
+
+
+def library_bwd_graph_ms(qh, kh, vh, doh) -> float:
+    """The autograd backward of `F.scaled_dot_product_attention` in CUDA
+    graphs: autograd runs a backward op on its forward op's stream, and syncs
+    each leaf's gradient with the stream its grad accumulator was made on, so
+    fresh leaves and their forward are made on the capture stream."""
+    import torch
+    import torch.nn.functional as F
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
+        out = F.scaled_dot_product_attention(*leaves)
+    return graph_ms(lambda: torch.autograd.grad(out, leaves, doh, retain_graph=True),
+                    stream=side)
 
 
 def check_autograd(record):
@@ -1099,7 +1151,7 @@ def phase_tiny(record):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tiny_pipeline_config()
-    cpu = FreeFine(cfg, seed=0, device="cpu")
+    cpu = FreeFine(cfg, init_random=True, seed=0, device="cpu")
     gpu = FreeFine(cfg, params={n: m.state_dict() for n, m in cpu.components().items()},
                    device="cuda")
     h, w = cfg.height, cfg.width
@@ -1365,7 +1417,7 @@ def sd15_setup(record):
 
     cfg = sd15_pipeline_config()
     t0 = time.perf_counter()
-    pipe = FreeFine(cfg, seed=0, device="cuda")
+    pipe = FreeFine(cfg, init_random=True, seed=0, device="cuda")
     torch.cuda.synchronize()
     record["sd15_setup_s"] = time.perf_counter() - t0
     h, w = cfg.height, cfg.width
@@ -1686,6 +1738,7 @@ def main():
 
     record["ptxas"] = ptxas_report(libs)
     record["flash_smem"] = flash_smem_report()
+    record["flash_bwd_smem"] = flash_bwd_smem_report()
 
     from freefine_tpu_torch.config import sd15_pipeline_config
 

@@ -12,8 +12,8 @@
 //   * keys past the sequence end are excluded (probability exactly 0);
 //   * with bf16 operands the probabilities are rounded to bf16 before the
 //     P.V product, whose sum stays float32.
-// bf16 operands run on the tensor cores (mma.sync); float32 operands on the
-// FMA pipes.
+// The mma.sync pieces below serve the TCA kernels and the float32 pieces the
+// FMA kernels; the flash kernels' bf16 routes run wgmma (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

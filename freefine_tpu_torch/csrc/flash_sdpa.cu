@@ -59,8 +59,8 @@
 //     instantiated width; keys past Sk get probability exactly 0 (-inf).
 // Every bf16 head dim the wrapper accepts (a multiple of 8 up to 160) maps
 // to an instantiation: no other bf16 route exists.  The tensor maps are
-// encoded on the host for every call (cuTensorMapEncodeTiled, fetched from
-// the driver through the runtime) and passed as __grid_constant__.
+// encoded on the host for every call (`hopper::make_map`: cuTensorMapEncodeTiled,
+// fetched from the driver through the runtime) and passed as __grid_constant__.
 //
 // Route 0, float32 (the VAE, d = 512, and the tiny config): split-TF32
 // products on the tensor cores (mma.sync m16n8k8; each operand split into
@@ -75,8 +75,6 @@
 // the output columns.
 //
 // Measured times against the bound: PERF.md.
-#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is fetched at run time)
-
 #include "attention_common.cuh"
 #include "hopper.cuh"
 
@@ -91,7 +89,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 namespace wg {
 
-constexpr int kPanel = 64;  // bf16 columns of one 128-byte swizzled panel
+using hopper::kPanel;
+using hopper::make_map;
 
 // NC consumer warpgroups of 64 query rows each, one producer warpgroup.
 template <int DK, int DV, int BK, int STAGES, int NC>
@@ -331,51 +330,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
             pack_bf16(o[4 * i + 2 * hh] * inv, o[4 * i + 2 * hh + 1] * inv);
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so that
-// the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#endif
-  }
-  return fn;
-}
-
-// [B, S, H*D] bf16 as a (D, H, S, B) tensor; boxes of 64 columns x `rows`
-// rows of one head of one batch row, 128-byte swizzled; out-of-bounds reads
-// (columns past D, rows past S) are zeros.  Built anew for every call.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int s, int d,
-                     int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int DK, int DV, int BK, int STAGES, int NC>

@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of the flash VJP in
 // freefine_tpu/ops/flash_attention.py: `_flash_bwd_dq_kernel` (:344) and
-// `_flash_bwd_dkv_kernel` (:378), both launched by `_flash_sdpa_bwd` (:487).
-// Same function, per (batch, head):
+// `_flash_bwd_dkv_kernel` (:378), both launched by `_flash_sdpa_bwd` (:487,
+// pallas_call at :508 and :526).  Same function, per (batch, head):
 //   P  = exp(q k^T * scale + bias - lse)   recomputed from the forward's lse
 //   dS = P * (dO v^T - delta)              delta = rowsum(out * dO), given
 //   dQ = dS k * scale,  dK = dS^T q * scale,  dV = P^T dO
@@ -13,223 +13,493 @@
 // -1e9 bias on the scaled logit, `masked_logit`); lse and delta float32
 // [B, H, Sq].  Keys past Sk do not exist (no dK/dV row is written for them);
 // query rows past Sq add nothing.  Two kernels, as on the TPU, each
-// recomputing P: no atomics, deterministic.
+// recomputing P: no atomics, deterministic, one launch each.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s f32 FMA, 3.35 TB/s,
-// about 4.2e12 exp/s): dQ is 6*Sq*Sk*D FLOPs and Sq*Sk exps per (b, h), dK/dV
-// 8*Sq*Sk*D FLOPs and Sq*Sk exps; the bytes are the operands once.  At the
-// energy-guidance shape S=4096, d=40, B*H=8 that is 32 GFLOP (33 us) and
-// 0.13 G exps (32 us) for dQ against 2.6 MB (0.8 us): operations bound, the
-// exponentials as much as the products.
+// about 4.2e12 exp/s from 16 SFU ops/clk/SM): dQ is 6*Sq*Sk*D FLOPs and
+// Sq*Sk exps per (b, h), dK/dV 8*Sq*Sk*D FLOPs and Sq*Sk exps; the bytes
+// (the operands once) are far below both.  Per call at the SD-1.5 shapes,
+// batch 1 (B*H = 8):
+//   * S 4096, d 40 (the energy-guidance layers at 64^2): dQ 32 GFLOP (33 us
+//     on the tensor cores) and 0.134 G exps (32 us on the SFU): the
+//     exponentials cost as much as the products; dK/dV 43 GFLOP (43 us);
+//   * S 1024, d 80: dQ 4.0 GFLOP (4.1 us), dK/dV 5.4 us;
+//   * S 256 and 64, d 160: under 1 us per call: latency and the grid's
+//     fill rule.
 //
-// Design (a first, simple version; wgmma/TMA, pipelined tiles and a fused
-// dQ with atomics are later work):
-//   * bf16: 4 warps of 16 rows on mma.sync m16n8k16 (bf16 in, f32
-//     accumulate).  S and dP are products of bf16 operands (exact products,
-//     f32 sums, as the f32 products of the TPU kernel on the same values).
-//     P and dS are rounded to bf16 to feed the tensor cores for dS.K, P^T.dO
-//     and dS^T.Q, as FlashAttention-2 does; the TPU kernel keeps them f32.
-//     The twins keep them f32, and chip_smoke.py holds the difference to its
-//     per-shape limits.
-//     - dQ: a block owns 64 query rows and sweeps key tiles of BK; K is
-//       staged twice, row major for S = Q K^T and transposed for dS.K.
-//     - dK/dV: a block owns 64 keys (16 per warp) and sweeps query tiles of
-//       BQ; Q and dO are staged row major (for S^T = K Q^T, dP^T = V dO^T)
-//       and transposed (for dK += dS^T Q, dV += P^T dO).  Two f32
-//       accumulators of 16 x d per warp: at d = 160 the query tile is 32 so
-//       that the S^T and dP^T tiles fit beside them in registers.
-//   * float32 (the tiny configuration's head dims, d <= 128): FMA pipes, one
-//     key (dQ) or one query (dK/dV) per lane, ROWS rows per warp, the
-//     structure of the f32 forward kernel in flash_sdpa.cu.
+// Two routes, chosen by the caller (`flash_bwd_route` in
+// ops/flash_attention.py, the operands' dtype) and passed in as an int:
+//
+// Route 1, bf16 (every SD-1.5 call, d <= 160): warp-specialised wgmma
+// kernels, the structure of the forward's `flash_fwd_wgmma_kernel`
+// (flash_sdpa.cu) on the helpers of hopper.cuh.  A CTA runs one producer
+// and NC consumer warpgroups; each consumer owns 64 resident rows.
+//   * dQ (`dq_wgmma_kernel`): the resident rows are queries.  The producer
+//     warp loads Q and dO once, then keeps a ring of K/V tiles of BK keys
+//     full with TMA (full/empty mbarriers), writing the key mask's f32 bias
+//     tile ((mask - 1) * 1e9, -inf past Sk) beside each.  A consumer runs
+//     S = Q K^T and dP = dO V^T as SS wgmma (all four K-major), turns the
+//     accumulators into dS in registers, packs dS to bf16 as the forward
+//     packs P and runs dQ += dS K as RS wgmma with K read MN-major through
+//     its descriptor: one K tile feeds two products and no transposed copy
+//     exists (the mma.sync design before it staged K twice).  The consumers
+//     take turns issuing S and dP (one named barrier each, as the forward
+//     does), so one's products run during another's dS: faster at S 4096,
+//     d 40; the same turns measured slower in the dK/dV kernel.
+//   * dK/dV (`dkv_wgmma_kernel`): the resident rows are keys.  The producer
+//     loads K and V once and streams Q/dO tiles of BQ queries, writing each
+//     tile's lse (in the exponent's units) and delta beside it with plain
+//     loads guarded by the row bound: [B, H, Sq] f32 rows of a ragged Sq
+//     (20 bytes at Sq 5) are no TMA operand.  A consumer runs S^T = K Q^T
+//     and dP^T = V dO^T as SS wgmma, then dV += P^T dO and dK += dS^T Q as
+//     RS wgmma, Q and dO read MN-major.  Its two f32 accumulators of
+//     64 x d sit in registers, so the query tile is 64 up to d 80 and 32
+//     above (at d 160: 160 accumulator registers a thread before S^T, dP^T).
+//   * Tensor maps describe the operands as (D, H, S, B) (hopper::make_map):
+//     columns past d and rows past S read as zeros and no box reads the next
+//     head or batch row.  Keys past Sk get P = 0 (-inf, never logit 0); query
+//     rows past Sq get lse = +inf and delta = 0, so P = dS = 0 and their zero
+//     Q/dO rows add exactly nothing, whatever lies past the row in memory.
+//   * Exponentials: unmasked, one FFMA with scale * log2 e folded in and one
+//     ex2 against lse * log2 e.  Masked, the logit is rounded as
+//     `masked_logit` rounds it (scale, then the bias) and the difference to
+//     lse is exponentiated, so a fully masked row (every logit and its lse
+//     exactly -1e9) gives P = 1 per key, JAX's value.
+//   * P and dS are rounded to bf16 before their products, as FlashAttention
+//     does; the twins and the TPU kernel keep them f32, and chip_smoke.py
+//     holds the difference to its per-shape limits.
+//   * The grid: 64 * NC rows per CTA, NC of 1 to 3 picked per call for the
+//     fewest waves of CTAs over the SMs (`warpgroups`): a warpgroup's tile
+//     loop is bound by its own latency (products, exponentials and waits in
+//     turn), so more warpgroups on an SM hide more of it, while a small grid
+//     (S 1024, batch 1: 64 CTAs of 128 rows) spreads over twice the SMs at
+//     one.  Three need the small tiles of d <= 40 (160 registers a thread).
+//     Within a warpgroup the products and the elementwise work run in turn:
+//     overlapping a tile's exponentials with its own dP product (two commit
+//     groups), or the next tile's products with this tile's dQ / dK, dV
+//     product, measured no faster at S 4096, d 40 (PERF.md), and the
+//     latter makes ptxas serialise the wgmma pipeline (C7515).
+//   * Every bf16 head dim the wrapper accepts (a multiple of 8 up to 160)
+//     maps to an instantiation (FF_BWD_CONFIGS); no other bf16 route exists.
+//
+// Route 0, float32 (the tiny configuration's head dims, d <= 128): FMA
+// pipes, one key (dQ) or one query (dK/dV) per lane, ROWS rows per warp, the
+// structure of the forward's f32 kernels before their TF32 redesign.
+//
+// Measured times against the bound: PERF.md.
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace ff {
 
 // ---------------------------------------------------------------------------
-// bf16, tensor cores
+// Route 1: bf16, wgmma with a TMA ring
 // ---------------------------------------------------------------------------
 
-template <int DK, int DV, int BK>
-__global__ void __launch_bounds__(128)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const float* __restrict__ key_mask, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int heads, int sq, int sk, int d, float scale) {
-  constexpr int kBQ = 64;
-  constexpr int kLd = DK + 8, kLdT = BK + 8;
-  constexpr int kKT = DK / 16, kNT = BK / 8, kOT = DV / 8;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dos = qs + kBQ * kLd;
-  bf16* ks = dos + kBQ * kLd;
-  bf16* vs = ks + BK * kLd;
-  bf16* kt = vs + BK * kLd;  // K transposed: [DV][BK + 8]
+namespace wgb {
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+constexpr float kLog2e = 1.4426950408889634f;
+using hopper::kPanel;
+
+// NC consumer warpgroups of 64 resident rows each (queries for dQ, keys for
+// dK/dV) and one producer warpgroup streaming tiles of BT rows of the other
+// operand pair through STAGES slots.
+template <int DK, int DV, int BT, int STAGES, int NC>
+struct Cfg {
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr int kRows = 64 * NC;
+  // registers per thread after setmaxnreg (65536 in all); with one consumer
+  // the launch bound already gives every thread the most there is
+  static constexpr int kProducerRegs = NC == 3 ? 32 : 24;
+  static constexpr int kConsumerRegs = NC == 3 ? 160 : 240;
+  static constexpr int kPK = (DK + kPanel - 1) / kPanel;  // panels of a row
+  static constexpr int kResBytes = kPK * kRows * 128;     // one resident operand
+  static constexpr int kTileBytes = kPK * BT * 128;       // one streamed operand
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // two resident operands | STAGES x two streamed tiles | per-stage row data
+  // f32 [STAGES][2][BT] | mbarriers, from a 1024-byte aligned base (the
+  // 128-byte swizzle repeats every 8 rows)
+  static constexpr int kRowOff = 2 * kResBytes + STAGES * kStageBytes;
+  static constexpr int kBarOff = kRowOff + STAGES * 2 * BT * 4;
+  static constexpr int kSmem = kBarOff + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(DK % 16 == 0 && DV % 8 == 0 && DV <= DK && BT % 16 == 0, "wgmma tile shapes");
+  static_assert(NC >= 1 && NC <= 3, "one to three consumer warpgroups");
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
+};
+
+// acc[64 x N] (+)= A . B^T over the padded head dim DK: A the 64 rows at
+// `a` of a K-major operand of a_rows rows a panel, B the N rows of a K-major
+// tile at `b`.  Issued, not committed.
+template <int N, int DK>
+__device__ __forceinline__ void ss_issue(float (&acc)[N / 2], uint32_t a, int a_rows, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the panel
+    const uint64_t da = hopper::desc_sw128(a + (kk / 4) * a_rows * 128 + off, 16, 1024);
+    const uint64_t db = hopper::desc_sw128(b + (kk / 4) * N * 128 + off, 16, 1024);
+    hopper::Wgmma<N>::ss(acc, da, db, kk > 0);
+  }
+}
+
+// acc[64 x DV] += A . B over the BT rows of a tile: A bf16 fragments in
+// registers, B the tile at `b` read MN-major (its 64-column panels BT * 128
+// bytes apart).  Issued, not committed.
+template <int DV, int BT>
+__device__ __forceinline__ void rs_issue(float (&acc)[DV / 2], const uint32_t (&a)[BT / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk)
+    hopper::WgmmaRS<DV>::rs(acc, a[kk], hopper::desc_sw128(b + kk * 16 * 128, BT * 128, 1024));
+}
+
+// An accumulator of a 64 x N tile as the A fragments of a product over its
+// N columns, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+  }
+}
+
+// A consumer thread's two rows of a 64 x DV accumulator -> bf16 row-major
+// global rows (stride e), times `mul`; columns past d and rows past `rows`
+// are not written.
+template <int DV>
+__device__ __forceinline__ void store_acc_rows(bf16* dst, const float (&acc)[DV / 2], int row0,
+                                           int rows, int e, int d, float mul, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= rows) continue;
+    bf16* orow = dst + (size_t)row * e;
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i) {
+      const int col = 8 * i + 2 * t;
+      if (col < d)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack_bf16(acc[4 * i + 2 * hh] * mul, acc[4 * i + 2 * hh + 1] * mul);
+    }
+  }
+}
+
+// Barriers: full[s] completes when the producer warp's 32 lanes have arrived
+// and the stage's bytes have landed; empty[s] when every consumer thread has
+// released the stage; res when the resident operands have landed.
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* res,
+                                              int stages, int consumers) {
+  for (int s = 0; s < stages; ++s) {
+    hopper::mbar_init(&full[s], 32);
+    hopper::mbar_init(&empty[s], consumers);
+  }
+  hopper::mbar_init(res, 1);
+  hopper::mbar_fence_init();
+}
+
+// The producer lane 0's loads of one stage: two tiles of BT rows at row r0.
+template <int PK, int BT>
+__device__ __forceinline__ void load_stage(uint8_t* dst, const CUtensorMap* m0,
+                                           const CUtensorMap* m1, uint64_t* bar, int h, int r0,
+                                           int b) {
+  constexpr int kTile = PK * BT * 128;
+  hopper::mbar_arrive_tx(bar, 2 * kTile);
+#pragma unroll
+  for (int p = 0; p < PK; ++p) {
+    hopper::tma_load_4d(dst + p * BT * 128, m0, bar, p * kPanel, h, r0, b);
+    hopper::tma_load_4d(dst + kTile + p * BT * 128, m1, bar, p * kPanel, h, r0, b);
+  }
+}
+
+template <int DK, int DV, int BK, int STAGES, int NC, bool MASKED>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ key_mask, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq, int heads, int sq, int sk,
+                int d, float scale) {
+  using C = Cfg<DK, DV, BK, STAGES, NC>;
+  constexpr int kBQ = C::kRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (hopper::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* stages = base + 2 * C::kResBytes;  // Q | dO | STAGES x (K | V)
+  float* bias = reinterpret_cast<float*>(base + C::kRowOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::kBarOff);
+  uint64_t* empty = full + STAGES;
+  uint64_t* res = empty + STAGES;
+
+  const int tid = threadIdx.x, wgi = tid / 128;
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int e = heads * d;
   const int q0 = blockIdx.x * kBQ;
-  const bf16* kb = k + (size_t)b * sk * e + h * d;
-  const bf16* vb = v + (size_t)b * sk * e + h * d;
-  const float* mb = key_mask ? key_mask + (size_t)b * sk : nullptr;
+  const int ntiles = (sk + BK - 1) / BK;
 
-  load_tile_bf16<DK>(qs, q + (size_t)b * sq * e + h * d, q0, kBQ, sq, e, d, tid, 128);
-  load_tile_bf16<DK>(dos, dout + (size_t)b * sq * e + h * d, q0, kBQ, sq, e, d, tid, 128);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + warp * 16 + g + 8 * hh;
-    lse_r[hh] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
-    delta_r[hh] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
-  }
-  const bf16* qw = qs + warp * 16 * kLd;
-  const bf16* dow = dos + warp * 16 * kLd;
+  if (tid == 0) init_barriers(full, empty, res, STAGES, 128 * NC);
+  __syncthreads();
 
-  float acc[kOT][4];
+  if (wgi == 0) {
+    // ---- producer warpgroup: one warp issues, three idle ----
+    if constexpr (NC > 1) hopper::regs_dec<C::kProducerRegs>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(res, 2 * C::kResBytes);
 #pragma unroll
-  for (int ot = 0; ot < kOT; ++ot) acc[ot][0] = acc[ot][1] = acc[ot][2] = acc[ot][3] = 0.f;
-
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    __syncthreads();  // the previous tiles are consumed (and Q, dO are in place)
-    load_tile_bf16<DK>(ks, kb, k0, BK, sk, e, d, tid, 128);
-    load_tile_bf16<DK>(vs, vb, k0, BK, sk, e, d, tid, 128);
-    load_tile_bf16_t<DV, BK>(kt, kb, k0, sk, e, d, tid, 128);
-    __syncthreads();
-
-    float s[kNT][4], dp[kNT][4];
-    mma_abt<kKT, kNT, kLd>(s, qw, ks, g, t);
-    mma_abt<kKT, kNT, kLd>(dp, dow, vs, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = k0 + nt * 8 + 2 * t + (c & 1);
-        const int hh = c >> 1;
-        float ds = 0.f;
-        if (col < sk) {
-          const float p = __expf(masked_logit(s[nt][c], scale, mb, col) - lse_r[hh]);
-          ds = p * (dp[nt][c] - delta_r[hh]);
-        }
-        s[nt][c] = ds;
-      }
-    }
-    pv_tile<kNT, kOT, kLdT>(acc, s, kt, g, t);  // dQ += dS (bf16) . K
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + warp * 16 + g + 8 * hh;
-    if (row < sq) {
-      bf16* orow = dq + ((size_t)b * sq + row) * e + h * d;
-#pragma unroll
-      for (int ot = 0; ot < kOT; ++ot) {
-        const int col = ot * 8 + 2 * t;
-        if (col < d) {
-          *reinterpret_cast<uint32_t*>(orow + col) =
-              pack_bf16(acc[ot][2 * hh] * scale, acc[ot][2 * hh + 1] * scale);
+        for (int p = 0; p < C::kPK; ++p) {
+          hopper::tma_load_4d(base + p * kBQ * 128, &tq, res, p * kPanel, h, q0, b);
+          hopper::tma_load_4d(base + C::kResBytes + p * kBQ * 128, &tdo, res, p * kPanel, h, q0,
+                              b);
         }
       }
+      const float* mrow = MASKED ? key_mask + (size_t)b * sk : nullptr;
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);  // first round passes
+        if (MASKED) {
+          for (int c = lane; c < BK; c += 32) {
+            const int col = j * BK + c;
+            bias[s * 2 * BK + c] = col < sk ? (mrow[col] - 1.0f) * kMaskBias : -INFINITY;
+          }
+        }
+        if (lane == 0)
+          load_stage<C::kPK, BK>(stages + s * C::kStageBytes, &tk, &tv, &full[s], h, j * BK, b);
+        else
+          hopper::mbar_arrive(&full[s]);
+      }
     }
+    return;
   }
-}
 
-template <int DK, int DV, int BQ>
-__global__ void __launch_bounds__(128)
-dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-               const float* __restrict__ key_mask, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq, int sk, int d,
-               float scale) {
-  constexpr int kKeys = 64;
-  constexpr int kLd = DK + 8, kLdT = BQ + 8;
-  constexpr int kKT = DK / 16, kNT = BQ / 8, kOT = DV / 8;
-  extern __shared__ float4 smem4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem4);
-  bf16* vs = ks + kKeys * kLd;
-  bf16* qs = vs + kKeys * kLd;
-  bf16* dos = qs + BQ * kLd;
-  bf16* qt = dos + BQ * kLd;    // Q transposed: [DV][BQ + 8]
-  bf16* dot = qt + DV * kLdT;   // dO transposed
-  float* lse_s = reinterpret_cast<float*>(dot + DV * kLdT);
-  float* delta_s = lse_s + BQ;
+  // ---- consumer warpgroups ----
+  if constexpr (NC > 1) hopper::regs_inc<C::kConsumerRegs>();
+  const int cw = wgi - 1;
+  const int ctid = tid - 128 * wgi;
+  const int warp = ctid / 32, lane = ctid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  // turns on the tensor cores in round robin, as in the forward: named
+  // barrier 1 + c is consumer c's; the last consumer opens the first round
+  const int turn = 1 + cw, next = 1 + (cw + 1) % NC;
+  if (NC > 1 && cw == NC - 1) hopper::bar_arrive(1, 256);
+  // per row: lse (masked: natural units; else times log2 e) and delta; rows
+  // past Sq get +inf and 0, so their P and dS are 0
+  float lr[2], dr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const bool ok = row < sq;
+    const float l = ok ? lse[(size_t)bh * sq + row] : INFINITY;
+    lr[hh] = MASKED ? l : l * kLog2e;
+    dr[hh] = ok ? delta[(size_t)bh * sq + row] : 0.f;
+  }
+  const float c2 = scale * kLog2e;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  float acc[DV / 2], sacc[BK / 2], dpacc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  uint32_t pa[BK / 16][4];  // dS of the tile as bf16 A fragments
+
+  hopper::mbar_wait(res, 0);
+  const uint32_t qaddr = hopper::smem_addr(base) + cw * 64 * 128;
+  const uint32_t doaddr = qaddr + C::kResBytes;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % STAGES;
+    hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+    const uint32_t kaddr = hopper::smem_addr(stages + s * C::kStageBytes);
+    const uint32_t vaddr = kaddr + C::kTileBytes;
+    // S = Q K^T and dP = dO V^T, both K-major, on this warpgroup's turn;
+    // the next one's products then run during this one's dS
+    if (NC > 1) hopper::bar_sync(turn, 256);
+    hopper::wgmma_fence();
+    ss_issue<BK, DK>(sacc, qaddr, kBQ, kaddr);
+    ss_issue<BK, DK>(dpacc, doaddr, kBQ, vaddr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dpacc);
+    if (NC > 1 && !(cw == NC - 1 && j == ntiles - 1)) hopper::bar_arrive(next, 256);
+    // dS = P (dP - delta); element 4 i + e is row g + 8 (e / 2), key
+    // 8 i + 2 t + (e % 2) of the tile
+    const int k0 = j * BK;
+    if (!MASKED && k0 + BK > sk) {  // keys past Sk: P = 0 (the bias tile says so when masked)
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * i + 2 * t + (e & 1) >= sk) sacc[4 * i + e] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      float2 bb = make_float2(0.f, 0.f);
+      if (MASKED) bb = *reinterpret_cast<const float2*>(bias + s * 2 * BK + 8 * i + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float p;
+        if (MASKED) {
+          const float x = __fadd_rn(__fmul_rn(sacc[4 * i + e], scale), (e & 1) ? bb.y : bb.x);
+          p = hopper::ex2((x - lr[hh]) * kLog2e);
+        } else {
+          p = hopper::ex2(fmaf(sacc[4 * i + e], c2, -lr[hh]));
+        }
+        sacc[4 * i + e] = p * (dpacc[4 * i + e] - dr[hh]);
+      }
+    }
+    pack_frags<BK>(pa, sacc);
+    // dQ += dS K, K MN-major
+    hopper::wgmma_fence();
+    rs_issue<DV, BK>(acc, pa, kaddr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
   const int e = heads * d;
-  const int k0 = blockIdx.x * kKeys;
-  const bf16* qb = q + (size_t)b * sq * e + h * d;
-  const bf16* dob = dout + (size_t)b * sq * e + h * d;
-  const float* mb = key_mask ? key_mask + (size_t)b * sk : nullptr;
-
-  load_tile_bf16<DK>(ks, k + (size_t)b * sk * e + h * d, k0, kKeys, sk, e, d, tid, 128);
-  load_tile_bf16<DK>(vs, v + (size_t)b * sk * e + h * d, k0, kKeys, sk, e, d, tid, 128);
-  int key[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) key[hh] = k0 + warp * 16 + g + 8 * hh;
-  const bf16* kw = ks + warp * 16 * kLd;
-  const bf16* vw = vs + warp * 16 * kLd;
-
-  float adk[kOT][4], adv[kOT][4];
-#pragma unroll
-  for (int ot = 0; ot < kOT; ++ot) {
-    adk[ot][0] = adk[ot][1] = adk[ot][2] = adk[ot][3] = 0.f;
-    adv[ot][0] = adv[ot][1] = adv[ot][2] = adv[ot][3] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < sq; q0 += BQ) {
-    __syncthreads();  // the previous tiles are consumed (and K, V are in place)
-    load_tile_bf16<DK>(qs, qb, q0, BQ, sq, e, d, tid, 128);
-    load_tile_bf16<DK>(dos, dob, q0, BQ, sq, e, d, tid, 128);
-    load_tile_bf16_t<DV, BQ>(qt, qb, q0, sq, e, d, tid, 128);
-    load_tile_bf16_t<DV, BQ>(dot, dob, q0, sq, e, d, tid, 128);
-    for (int i = tid; i < BQ; i += 128) {
-      const int row = q0 + i;
-      lse_s[i] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
-      delta_s[i] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kNT][4], dp[kNT][4];  // S^T and dP^T: [16 keys x BQ queries]
-    mma_abt<kKT, kNT, kLd>(s, kw, qs, g, t);
-    mma_abt<kKT, kNT, kLd>(dp, vw, dos, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int li = nt * 8 + 2 * t + (c & 1);
-        const int kj = key[c >> 1];
-        float p = 0.f, ds = 0.f;
-        if (q0 + li < sq && kj < sk) {
-          p = __expf(masked_logit(s[nt][c], scale, mb, kj) - lse_s[li]);
-          ds = p * (dp[nt][c] - delta_s[li]);
-        }
-        s[nt][c] = p;
-        dp[nt][c] = ds;
-      }
-    }
-    pv_tile<kNT, kOT, kLdT>(adv, s, dot, g, t);  // dV += P^T (bf16) . dO
-    pv_tile<kNT, kOT, kLdT>(adk, dp, qt, g, t);  // dK += dS^T (bf16) . Q
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    if (key[hh] < sk) {
-      const size_t off = ((size_t)b * sk + key[hh]) * e + h * d;
-#pragma unroll
-      for (int ot = 0; ot < kOT; ++ot) {
-        const int col = ot * 8 + 2 * t;
-        if (col < d) {
-          *reinterpret_cast<uint32_t*>(dk + off + col) =
-              pack_bf16(adk[ot][2 * hh] * scale, adk[ot][2 * hh + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dv + off + col) =
-              pack_bf16(adv[ot][2 * hh], adv[ot][2 * hh + 1]);
-        }
-      }
-    }
-  }
+  store_acc_rows<DV>(dq + (size_t)b * sq * e + h * d, acc, row0, sq, e, d, scale, t);
 }
+
+template <int DK, int DV, int BQ, int STAGES, int NC, bool MASKED>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ key_mask, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 int heads, int sq, int sk, int d, float scale) {
+  using C = Cfg<DK, DV, BQ, STAGES, NC>;
+  constexpr int kKeys = C::kRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (hopper::smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* stages = base + 2 * C::kResBytes;  // K | V | STAGES x (Q | dO)
+  float* rows = reinterpret_cast<float*>(base + C::kRowOff);  // [STAGES][lse, delta][BQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::kBarOff);
+  uint64_t* empty = full + STAGES;
+  uint64_t* res = empty + STAGES;
+
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int k0 = blockIdx.x * kKeys;
+  const int ntiles = (sq + BQ - 1) / BQ;
+
+  if (tid == 0) init_barriers(full, empty, res, STAGES, 128 * NC);
+  __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer warpgroup: one warp issues, three idle ----
+    if constexpr (NC > 1) hopper::regs_dec<C::kProducerRegs>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(res, 2 * C::kResBytes);
+#pragma unroll
+        for (int p = 0; p < C::kPK; ++p) {
+          hopper::tma_load_4d(base + p * kKeys * 128, &tk, res, p * kPanel, h, k0, b);
+          hopper::tma_load_4d(base + C::kResBytes + p * kKeys * 128, &tv, res, p * kPanel, h, k0,
+                              b);
+        }
+      }
+      const float* lrow = lse + (size_t)bh * sq;
+      const float* drow = delta + (size_t)bh * sq;
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);  // first round passes
+        // the tile's lse (masked: natural units; else times log2 e) and
+        // delta; rows past Sq get +inf and 0, so their P and dS are 0
+        for (int c = lane; c < BQ; c += 32) {
+          const int row = j * BQ + c;
+          const bool ok = row < sq;
+          const float l = ok ? lrow[row] : INFINITY;
+          rows[s * 2 * BQ + c] = MASKED ? l : l * kLog2e;
+          rows[s * 2 * BQ + BQ + c] = ok ? drow[row] : 0.f;
+        }
+        if (lane == 0)
+          load_stage<C::kPK, BQ>(stages + s * C::kStageBytes, &tq, &tdo, &full[s], h, j * BQ, b);
+        else
+          hopper::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  if constexpr (NC > 1) hopper::regs_inc<C::kConsumerRegs>();
+  const int cw = wgi - 1;
+  const int ctid = tid - 128 * wgi;
+  const int warp = ctid / 32, lane = ctid % 32, g = lane / 4, t = lane % 4;
+  const int key0 = k0 + cw * 64 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  float kb[2] = {0.f, 0.f};  // the keys' mask bias (keys past Sk are never written)
+  if (MASKED) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key0 + 8 * hh;
+      if (key < sk) kb[hh] = (key_mask[(size_t)b * sk + key] - 1.0f) * kMaskBias;
+    }
+  }
+  const float c2 = scale * kLog2e;
+
+  float adk[DV / 2], adv[DV / 2], st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) adk[i] = adv[i] = 0.f;
+  uint32_t pa[BQ / 16][4], pb[BQ / 16][4];  // P^T and dS^T as bf16 A fragments
+
+  hopper::mbar_wait(res, 0);
+  const uint32_t kaddr = hopper::smem_addr(base) + cw * 64 * 128;
+  const uint32_t vaddr = kaddr + C::kResBytes;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % STAGES;
+    hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+    const uint32_t qaddr = hopper::smem_addr(stages + s * C::kStageBytes);
+    const uint32_t doaddr = qaddr + C::kTileBytes;
+    // S^T = K Q^T and dP^T = V dO^T, both K-major
+    hopper::wgmma_fence();
+    ss_issue<BQ, DK>(st, kaddr, kKeys, qaddr);
+    ss_issue<BQ, DK>(dpt, vaddr, kKeys, doaddr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    // element 4 i + e is key g + 8 (e / 2), query 8 i + 2 t + (e % 2) of the tile
+    const float* lt = rows + s * 2 * BQ;
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * i + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(lt + BQ + 8 * i + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+        float p;
+        if (MASKED) {
+          const float x = __fadd_rn(__fmul_rn(st[4 * i + e], scale), kb[e >> 1]);
+          p = hopper::ex2((x - lq) * kLog2e);
+        } else {
+          p = hopper::ex2(fmaf(st[4 * i + e], c2, -lq));
+        }
+        st[4 * i + e] = p;
+        dpt[4 * i + e] = p * (dpt[4 * i + e] - dl);
+      }
+    }
+    pack_frags<BQ>(pa, st);
+    pack_frags<BQ>(pb, dpt);
+    // dV += P^T dO and dK += dS^T Q, dO and Q MN-major
+    hopper::wgmma_fence();
+    rs_issue<DV, BQ>(adv, pa, doaddr);
+    rs_issue<DV, BQ>(adk, pb, qaddr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(adv);
+    hopper::fence_regs(adk);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  const int e = heads * d;
+  const size_t off = (size_t)b * sk * e + h * d;
+  store_acc_rows<DV>(dk + off, adk, key0, sk, e, d, scale, t);
+  store_acc_rows<DV>(dv + off, adv, key0, sk, e, d, 1.0f, t);
+}
+
+}  // namespace wgb
+
 
 // ---------------------------------------------------------------------------
 // float32, FMA pipes
@@ -373,6 +643,7 @@ dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<DP, ROWS>(dv + off, adv, r0, sk, e, d, 1.0f, lane);
 }
 
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
@@ -386,34 +657,139 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <int DK, int DV, int BK>
-cudaError_t launch_dq_mma(const BwdArgs& a) {
-  const size_t smem = sizeof(bf16) * (size_t)((2 * 64 + 2 * BK) * (DK + 8) + DV * (BK + 8));
-  auto kern = dq_mma_kernel<DK, DV, BK>;
-  static bool attr_set = false;
-  if (const cudaError_t err = set_smem(kern, smem, attr_set)) return err;
-  const dim3 grid((a.sq + 63) / 64, a.batch * a.heads);
-  kern<<<grid, 128, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const float*>(a.mask), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dq), a.heads, a.sq, a.sk, a.d, a.scale);
+namespace wgb {
+
+// One bf16 kernel: dQ (BT = the key tile) or dK/dV (BT = the query tile).
+template <bool DQ, int DK, int DV, int BT, int STAGES, int NC>
+cudaError_t launch(const BwdArgs& a) {
+  constexpr bool want_dq = DQ;
+  using C = Cfg<DK, DV, BT, STAGES, NC>;
+  // resident rows of the CTA's own operand pair, tiles of the streamed one
+  const int rq = want_dq ? C::kRows : BT, rk = want_dq ? BT : C::kRows;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = hopper::make_map(&tq, a.q, a.batch, a.heads, a.sq, a.d, rq)) != cudaSuccess ||
+      (err = hopper::make_map(&tdo, a.dout, a.batch, a.heads, a.sq, a.d, rq)) != cudaSuccess ||
+      (err = hopper::make_map(&tk, a.k, a.batch, a.heads, a.sk, a.d, rk)) != cudaSuccess ||
+      (err = hopper::make_map(&tv, a.v, a.batch, a.heads, a.sk, a.d, rk)) != cudaSuccess)
+    return err;
+  const dim3 grid(((want_dq ? a.sq : a.sk) + C::kRows - 1) / C::kRows, a.batch * a.heads);
+  const float* m = static_cast<const float*>(a.mask);
+  const bool masked = m != nullptr;
+#define FF_BWD_LAUNCH(KERN, MASKED, ...)                                              \
+  {                                                                                   \
+    auto kern = KERN<DK, DV, BT, STAGES, NC, MASKED>;                                 \
+    static bool done = false;                                                         \
+    if ((err = set_smem(kern, C::kSmem, done)) != cudaSuccess) return err;            \
+    kern<<<grid, C::kThreads, C::kSmem, a.stream>>>(tq, tk, tv, tdo, m, a.lse, a.delta, \
+                                                    __VA_ARGS__, a.heads, a.sq, a.sk, \
+                                                    a.d, a.scale);                    \
+  }
+  bf16* dq = static_cast<bf16*>(a.dq);
+  bf16* dk = static_cast<bf16*>(a.dk);
+  bf16* dv = static_cast<bf16*>(a.dv);
+  if constexpr (DQ) {
+    if (masked) FF_BWD_LAUNCH(dq_wgmma_kernel, true, dq)
+    else FF_BWD_LAUNCH(dq_wgmma_kernel, false, dq)
+  } else {
+    if (masked) FF_BWD_LAUNCH(dkv_wgmma_kernel, true, dk, dv)
+    else FF_BWD_LAUNCH(dkv_wgmma_kernel, false, dk, dv)
+  }
+#undef FF_BWD_LAUNCH
   return cudaGetLastError();
 }
 
-template <int DK, int DV, int BQ>
-cudaError_t launch_dkv_mma(const BwdArgs& a) {
-  const size_t smem = sizeof(bf16) * (size_t)((2 * 64 + 2 * BQ) * (DK + 8) + 2 * DV * (BQ + 8)) +
-                      sizeof(float) * 2 * BQ;
-  auto kern = dkv_mma_kernel<DK, DV, BQ>;
-  static bool attr_set = false;
-  if (const cudaError_t err = set_smem(kern, smem, attr_set)) return err;
-  const dim3 grid((a.sk + 63) / 64, a.batch * a.heads);
-  kern<<<grid, 128, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const float*>(a.mask), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.heads, a.sq, a.sk, a.d, a.scale);
-  return cudaGetLastError();
+// The SMs of the current device (the grid rule's yardstick), read once.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
 }
+
+// Consumer warpgroups per CTA, of 1 .. max_nc: the fewest waves of CTAs
+// over the SMs (one CTA an SM), ties to fewer warpgroups, whose CTAs finish
+// sooner.  A warpgroup's tile loop is bound by its own latency, so a CTA of
+// more warpgroups takes little longer: S 4096 at batch 1 takes two (256
+// CTAs, two waves), at batch 3 three (528 CTAs, four waves); S 1024 at batch
+// 1 takes one (128 CTAs, one wave, where two would leave half the SMs idle).
+inline int warpgroups(int rows, int bh, int max_nc) {
+  int best = 1;
+  long best_waves = -1;
+  for (int nc = 1; nc <= max_nc; ++nc) {
+    const long ctas = (long)((rows + 64 * nc - 1) / (64 * nc)) * bh;
+    const long waves = (ctas + sm_count() - 1) / sm_count();
+    if (best_waves < 0 || waves < best_waves) best = nc, best_waves = waves;
+  }
+  return best;
+}
+
+// The instantiation of one kernel for NC consumer warpgroups: tile BT and
+// ring ST at one or two, BT3 and ST3 at three (none where BT3 is 0: the
+// 160 registers of a thread at three do not hold the accumulators).
+template <bool DQ, int DK, int DV, int BT, int ST, int BT3, int ST3>
+struct Variants {
+  static constexpr int kMaxNc = BT3 > 0 ? 3 : 2;
+  static cudaError_t launch(const BwdArgs& a, int nc) {
+    if constexpr (BT3 > 0) {
+      if (nc == 3) return wgb::launch<DQ, DK, DV, BT3, ST3, 3>(a);
+    }
+    return nc == 2 ? wgb::launch<DQ, DK, DV, BT, ST, 2>(a) : wgb::launch<DQ, DK, DV, BT, ST, 1>(a);
+  }
+  static int smem(int nc) {
+    if constexpr (BT3 > 0) {
+      if (nc == 3) return Cfg<DK, DV, BT3, ST3, 3>::kSmem;
+    }
+    if (nc == 3) return -1;
+    return nc == 2 ? Cfg<DK, DV, BT, ST, 2>::kSmem : Cfg<DK, DV, BT, ST, 1>::kSmem;
+  }
+};
+
+// Head dim -> instantiations: (DK, DV) the head dim padded to the products'
+// depth 16 and the output width; then for dQ the key tile and ring depth at
+// one or two consumer warpgroups and at three (0: none), and the same for
+// dK/dV's query tile (32 queries above d 80, where its two 64 x d
+// accumulators take most of a thread's registers).  Each within the 227 KB
+// of one CTA.
+#define FF_BWD_CONFIGS(X)                      \
+  X(32, 32, 128, 4, 64, 4, 64, 4, 64, 4)       \
+  X(48, 40, 128, 4, 64, 4, 64, 4, 64, 4)       \
+  X(64, 64, 128, 4, 0, 0, 64, 4, 0, 0)         \
+  X(80, 80, 64, 4, 0, 0, 64, 4, 0, 0)          \
+  X(128, 128, 64, 4, 0, 0, 32, 4, 0, 0)        \
+  X(160, 160, 64, 2, 0, 0, 32, 4, 0, 0)
+
+cudaError_t dispatch(const BwdArgs& a, bool want_dq) {
+  const int rows = want_dq ? a.sq : a.sk, bh = a.batch * a.heads;
+#define FF_BWD_CASE(DK, DV, BK, SK, BK3, SK3, BQ, SQ, BQ3, SQ3)                 \
+  if (a.d <= DV) {                                                              \
+    if (want_dq) {                                                              \
+      using V = Variants<true, DK, DV, BK, SK, BK3, SK3>;                       \
+      return V::launch(a, warpgroups(rows, bh, V::kMaxNc));                    \
+    }                                                                           \
+    using V = Variants<false, DK, DV, BQ, SQ, BQ3, SQ3>;                        \
+    return V::launch(a, warpgroups(rows, bh, V::kMaxNc));                       \
+  }
+  FF_BWD_CONFIGS(FF_BWD_CASE)
+#undef FF_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+int smem_bytes(int d, bool want_dq, int nc) {
+#define FF_BWD_SMEM(DK, DV, BK, SK, BK3, SK3, BQ, SQ, BQ3, SQ3)                 \
+  if (d <= DV)                                                                  \
+    return want_dq ? Variants<true, DK, DV, BK, SK, BK3, SK3>::smem(nc)         \
+                   : Variants<false, DK, DV, BQ, SQ, BQ3, SQ3>::smem(nc);
+  FF_BWD_CONFIGS(FF_BWD_SMEM)
+#undef FF_BWD_SMEM
+  return -1;
+}
+
+}  // namespace wgb
 
 constexpr int kFmaWarps = 4, kFmaRows = 8;
 
@@ -450,28 +826,14 @@ cudaError_t launch_dkv_fma(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// bf16: (DK, DV) = head dim padded to the mma depth 16, output width; key
-// (dQ) and query (dK/dV) tiles of 64, 32 at d > 80.  f32: DP = d padded.
-cudaError_t dispatch(const BwdArgs& a, int dtype, bool want_dq) {
-#define FF_MMA_CASE(DK, DV, T)                                               \
-  if (a.d <= DV) return want_dq ? launch_dq_mma<DK, DV, T>(a) : launch_dkv_mma<DK, DV, T>(a);
+// f32: DP = d padded to the FMA kernels' widths.
+cudaError_t dispatch_f32(const BwdArgs& a, bool want_dq) {
 #define FF_FMA_CASE(DP) \
   if (a.d <= DP) return want_dq ? launch_dq_fma<DP>(a) : launch_dkv_fma<DP>(a);
-  if (dtype == 1) {
-    FF_MMA_CASE(16, 16, 64)
-    FF_MMA_CASE(32, 32, 64)
-    FF_MMA_CASE(48, 40, 64)
-    FF_MMA_CASE(64, 64, 64)
-    FF_MMA_CASE(80, 80, 64)
-    FF_MMA_CASE(128, 128, 32)
-    FF_MMA_CASE(160, 160, 32)
-  } else {
-    FF_FMA_CASE(16)
-    FF_FMA_CASE(32)
-    FF_FMA_CASE(64)
-    FF_FMA_CASE(128)
-  }
-#undef FF_MMA_CASE
+  FF_FMA_CASE(16)
+  FF_FMA_CASE(32)
+  FF_FMA_CASE(64)
+  FF_FMA_CASE(128)
 #undef FF_FMA_CASE
   return cudaErrorInvalidValue;
 }
@@ -480,33 +842,48 @@ cudaError_t dispatch(const BwdArgs& a, int dtype, bool want_dq) {
 
 namespace {
 
-bool bad_dims(int d, int dtype) {
-  return d <= 0 || d % 8 != 0 || d > (dtype == 1 ? 160 : 128);
+constexpr int kRouteF32 = 0;    // float32, FMA kernels, d <= 128
+constexpr int kRouteWgmma = 1;  // bf16, wgmma + TMA ring, d <= 160
+
+int bwd(const ff::BwdArgs& a, int route, bool want_dq) {
+  if (a.d <= 0 || a.d % 8 != 0 || a.sq < 1 || a.sk < 1) return (int)cudaErrorInvalidValue;
+  if (route == kRouteWgmma && a.d <= 160) return (int)ff::wgb::dispatch(a, want_dq);
+  if (route == kRouteF32 && a.d <= 128) return (int)ff::dispatch_f32(a, want_dq);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (FMA kernels, d <= 128), 1 = bfloat16 (tensor cores,
-// d <= 160); d a multiple of 8.  mask may be null.  lse and delta are float32
-// [batch, heads, sq].  Each returns the CUDA error of its launch (0 = launched).
+// dtype (the route): 0 = float32 (FMA kernels, d <= 128), 1 = bfloat16
+// (wgmma kernels, d <= 160); d a multiple of 8.  mask may be null.  lse and
+// delta are float32 [batch, heads, sq].  Each returns the CUDA error of its
+// launch (0 = launched).
 extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v, const void* mask,
                                  const void* dout, const void* lse, const void* delta, void* dq,
                                  int batch, int heads, int sq, int sk, int d, float scale,
                                  int dtype, void* stream) {
-  if (bad_dims(d, dtype)) return (int)cudaErrorInvalidValue;
   const ff::BwdArgs a{q, k, v, mask, dout, static_cast<const float*>(lse),
                       static_cast<const float*>(delta), dq, nullptr, nullptr, batch, heads, sq,
                       sk, d, scale, static_cast<cudaStream_t>(stream)};
-  return (int)ff::dispatch(a, dtype, true);
+  return bwd(a, dtype, true);
 }
 
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v, const void* mask,
                                   const void* dout, const void* lse, const void* delta, void* dk,
                                   void* dv, int batch, int heads, int sq, int sk, int d,
                                   float scale, int dtype, void* stream) {
-  if (bad_dims(d, dtype)) return (int)cudaErrorInvalidValue;
   const ff::BwdArgs a{q, k, v, mask, dout, static_cast<const float*>(lse),
                       static_cast<const float*>(delta), nullptr, dk, dv, batch, heads, sq, sk,
                       d, scale, static_cast<cudaStream_t>(stream)};
-  return (int)ff::dispatch(a, dtype, false);
+  return bwd(a, dtype, false);
+}
+
+// Dynamic shared memory (bytes) of the bf16 wgmma instantiation at head dim
+// d: kernel 0 = dQ, 1 = dK/dV; warpgroups = consumer warpgroups (1 to 3);
+// -1 where there is none.
+extern "C" int flash_sdpa_bwd_smem_bytes(int d, int kernel, int warpgroups) {
+  if (d <= 0 || d % 8 != 0 || d > 160 || (kernel != 0 && kernel != 1) || warpgroups < 1 ||
+      warpgroups > 3)
+    return -1;
+  return ff::wgb::smem_bytes(d, kernel == 0, warpgroups);
 }

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the attention forward in flash_sdpa.cu:
-// wgmma instruction wrappers and shared-memory matrix descriptors, TMA tile
-// loads tracked by mbarriers, named barriers, register reallocation and the
-// SFU exponential.  Every wrapper is one PTX instruction or a few; the
-// kernels decide the pipeline.
+// Hopper (sm_90a) building blocks of the wgmma attention kernels in
+// flash_sdpa.cu (forward) and flash_sdpa_bwd.cu (dQ, dK/dV): wgmma
+// instruction wrappers and shared-memory matrix descriptors, TMA tile loads
+// tracked by mbarriers and the host-side tensor maps they read, named
+// barriers, register reallocation and the SFU exponential.  Every device
+// wrapper is one PTX instruction or a few; the kernels decide the pipeline.
 //
 // Shared-memory operand layout (the one TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B): a tile of rows x 64 bf16 columns, 128 bytes a
@@ -17,11 +18,14 @@
 //     reduction are 1024 bytes apart (SBO), 64-column panels LBO apart.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ff {
 namespace hopper {
+
+constexpr int kPanel = 64;  // bf16 columns of one 128-byte swizzled panel
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -61,6 +65,19 @@ template <int N>
 struct Wgmma;
 template <int N>
 struct WgmmaRS;
+
+template <>
+struct Wgmma<32> {
+  // d[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -285,6 +302,54 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so that
+// the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#endif
+  }
+  return fn;
+}
+
+// [B, S, H*D] bf16 as a (D, H, S, B) tensor; boxes of 64 columns x `rows`
+// rows of one head of one batch row, 128-byte swizzled; out-of-bounds reads
+// (columns past D, rows past S) are zeros, so no box reads the next head or
+// the next batch row.  Built anew for every call.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int s, int d,
+                            int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

@@ -51,6 +51,7 @@ _SIGNATURES = {
         "flash_sdpa_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "flash_sdpa_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                _P],
+        "flash_sdpa_bwd_smem_bytes": [_I, _I, _I],
     },
     "group_norm": {
         "group_norm_silu_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],

@@ -309,6 +309,25 @@ def flash_route(dtype: torch.dtype, d: int) -> int:
         raise ValueError(f"flash_sdpa: {dtype} head dim {d} must be a multiple of 8, <= {limit}")
     return 1 if dtype == torch.bfloat16 else 0
 
+
+# Kernel routes of `flash_sdpa_bwd_dq` and `flash_sdpa_bwd_dkv`
+# (csrc/flash_sdpa_bwd.cu): 0 the float32 FMA kernels, 1 the bf16 wgmma kernels
+# with their TMA rings.
+FLASH_BWD_ROUTES = {0: "f32_fma", 1: "bf16_wgmma"}
+
+
+def flash_bwd_route(dtype: torch.dtype, d: int) -> int:
+    """The kernel route of a `flash_sdpa_bwd_dq` / `flash_sdpa_bwd_dkv` call
+    on CUDA operands of `dtype` and head dim `d` (a multiple of 8 within
+    `_MAX_HEAD_DIM`, the same for both kernels): bf16 takes the wgmma kernels
+    at every such head dim, float32 the FMA kernels."""
+    limit = _MAX_HEAD_DIM["flash_sdpa_bwd_dq"][dtype]
+    if d % 8 or not 0 < d <= limit:
+        raise ValueError(
+            f"flash_sdpa_bwd: {dtype} head dim {d} must be a multiple of 8, <= {limit}")
+    return 1 if dtype == torch.bfloat16 else 0
+
+
 # Head dims the kernels are built for: bf16 runs on the tensor cores, float32
 # on the FMA pipes (csrc/tca_flash.cu, csrc/flash_sdpa_bwd.cu, csrc/tca_flash_bwd.cu)
 # or, for flash_sdpa, in split-TF32 products on the tensor cores (csrc/flash_sdpa.cu).
@@ -466,7 +485,7 @@ def flash_sdpa_bwd_dq(q, k, v, key_mask, do, lse, delta, *, heads: int) -> torch
     code = lib.flash_sdpa_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, heads, sq, k.shape[1], d,
-        1.0 / d**0.5, _DTYPE_CODE[q.dtype], _stream(q),
+        1.0 / d**0.5, flash_bwd_route(q.dtype, d), _stream(q),
     )
     cuda_build.check(lib, "flash_sdpa_bwd_dq", code)
     _count_launch("flash_sdpa_bwd_dq", b, heads, sq, k.shape[1], d, q.dtype, key_mask is not None)
@@ -489,7 +508,7 @@ def flash_sdpa_bwd_dkv(q, k, v, key_mask, do, lse, delta, *, heads: int):
     code = lib.flash_sdpa_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, heads, sq,
-        k.shape[1], d, 1.0 / d**0.5, _DTYPE_CODE[q.dtype], _stream(q),
+        k.shape[1], d, 1.0 / d**0.5, flash_bwd_route(q.dtype, d), _stream(q),
     )
     cuda_build.check(lib, "flash_sdpa_bwd_dkv", code)
     _count_launch("flash_sdpa_bwd_dkv", b, heads, sq, k.shape[1], d, q.dtype,

@@ -322,19 +322,25 @@ def _guided_energy_masks(cfg: PipelineConfig, em: mask_ops.EditMasks):
 class FreeFine:
     """Training-free geometric image editing, UNet backbone.
 
-    params: optional {"unet", "vae", "text"} state dicts; otherwise the
-    weights are random (`weights.random_weights`, seeded by `seed`)."""
+    params: {"unet", "vae", "text"} state dicts.  Without them the
+    constructor raises, as JAX's does, unless `init_random=True` asks for
+    random weights (`weights.random_weights`, seeded by `seed`) for
+    weight-free runs (tests, throughput)."""
 
     def __init__(
         self,
         config: Optional[PipelineConfig] = None,
         params: Optional[dict] = None,
         tokenizer_path: Optional[str] = None,
+        init_random: bool = False,
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
     ):
         self.config = config or sd15_pipeline_config()
         self.device = resolve_device(device)
+        if params is None and not init_random:
+            raise ValueError("Pass state dicts as params, or init_random=True for "
+                             "weight-free runs.")
         cfg = self.config
         with torch.device(self.device):
             self.unet = UNet2DCondition(cfg.unet).eval()

@@ -174,6 +174,29 @@ def test_sd15_flash_shapes_take_the_hopper_routes(dtype, d, sq, sk):
     assert FA.FLASH_ROUTES[FA.flash_route(dtype, d)] == want
 
 
+# (dtype, head dim, seq_q, seq_k) of every `flash_sdpa_bwd_dq` / `_dkv` call
+# on the SD-1.5 512^2 paths (the shapes of chip_smoke.py's GRAD_SHAPES):
+# the self-attentions upstream of the energy taps and outside the TCA window
+SD15_FLASH_BWD_CALLS = [(torch.bfloat16, d, s, s)
+                        for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+
+
+@pytest.mark.parametrize("dtype, d, sq, sk", SD15_FLASH_BWD_CALLS)
+def test_sd15_flash_bwd_shapes_take_the_wgmma_route(dtype, d, sq, sk):
+    assert FA.FLASH_BWD_ROUTES[FA.flash_bwd_route(dtype, d)] == "bf16_wgmma"
+
+
+@pytest.mark.parametrize("kernel", ["flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"])
+def test_every_admitted_flash_bwd_head_dim_has_a_route(kernel):
+    for dtype, limit in FA._MAX_HEAD_DIM[kernel].items():
+        want = "bf16_wgmma" if dtype == torch.bfloat16 else "f32_fma"
+        for d in range(8, limit + 1, 8):
+            assert FA.FLASH_BWD_ROUTES[FA.flash_bwd_route(dtype, d)] == want
+        for d in (limit + 8, 12):
+            with pytest.raises(ValueError):
+                FA.flash_bwd_route(dtype, d)
+
+
 @pytest.mark.parametrize("kernel", ["flash_sdpa", "flash_sdpa_fwd_lse"])
 def test_every_admitted_flash_head_dim_has_a_route(kernel):
     for dtype, limit in FA._MAX_HEAD_DIM[kernel].items():

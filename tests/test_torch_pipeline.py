@@ -144,6 +144,34 @@ def test_cuda_default_never_falls_back_to_cpu():
         FreeFine(cfg_tiny())
 
 
+def test_missing_params_raise_as_in_jax():
+    """Without params both packages refuse to build random weights unasked."""
+    with pytest.raises(ValueError, match="init_random"):
+        FreeFine(cfg_tiny(), device="cpu")
+    with pytest.raises(ValueError, match="init_random"):
+        JFreeFine(config=jax_tiny_config())
+
+
+def test_init_random_builds_the_seeded_random_weights():
+    """`init_random=True` fills each component as `random_weights` does,
+    seeded `seed + i` in the order unet, vae, text."""
+    from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
+    from freefine_tpu_torch.models.unet import UNet2DCondition
+    from freefine_tpu_torch.models.vae import AutoencoderKL
+    from freefine_tpu_torch.weights import random_weights
+
+    cfg, seed = cfg_tiny(), 5
+    pipe = FreeFine(cfg, init_random=True, seed=seed, device="cpu")
+    want = (UNet2DCondition(cfg.unet), AutoencoderKL(cfg.vae), CLIPTextEncoder(cfg.text))
+    for i, ((name, got), ref) in enumerate(zip(pipe.components().items(), want)):
+        with torch.no_grad():
+            random_weights(ref, seed + i)
+        ref_sd, got_sd = ref.state_dict(), got.state_dict()
+        assert ref_sd.keys() == got_sd.keys(), name
+        for key, value in ref_sd.items():
+            assert torch.equal(got_sd[key], value), f"{name}.{key}"
+
+
 def cfg_tiny():
     from freefine_tpu_torch.config import tiny_pipeline_config
 
