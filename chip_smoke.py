@@ -16,7 +16,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      also against the two-pass float32 GroupNorm; the TCA VJP kernels on
      every output (composite, partials, logsumexps, dq, dk/dv of both key
      sets) at the TCA path shapes, with bggen, fully masked FG and f32
-     cases; time the kernel, the twin and, as a yardstick only, the PyTorch
+     cases; `tca_flash` at the masks each path passes (edit for
+     `generation` and `guided_generation`, bggen for `background_generation`,
+     each path's per-edit time weighted at its own), with teeth that a
+     kernel skipping the live pass instead of the dead one must fail, and
+     at random rows; time the kernel (eager, and in CUDA graphs for the
+     attention kernels), the twin and, as a yardstick only, the PyTorch
      call that computes the same (`F.scaled_dot_product_attention`, its
      forward or its autograd backward; `F.group_norm` then `F.silu`; none
      for TCA); check one gradient each through `flash_sdpa_diff`,
@@ -61,6 +66,7 @@ Exits with code 2 and prints no result when CUDA is not available.
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -416,34 +422,137 @@ def check_flash(gen, shape, timed: bool):
     return row
 
 
+# The masks each path passes to `tca_flash` after the parity split, the
+# layout its per-edit time is weighted at (`summarize`): `generation` and
+# `guided_generation` the edit layout, `background_generation` the bggen one.
+TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen"}
+
+
+@functools.lru_cache(maxsize=None)
+def tca_layouts(seq: int, device: str = "cuda"):
+    """The fg and tq rows [2 * 3, seq] the SD-1.5 paths pass to `tca_flash`
+    (streams [u_e, r, c_e], even-head block then odd-head block), built
+    from phase 4's case as `generation` and `background_generation` build
+    their states and `_tca_edit` / `_tca_bggen` their rows: "edit" (fg =
+    the source object, tq = the binarised target region on the even block,
+    ones on the odd one) and "bggen" (fg = 1 - object on the even block, tq
+    = 1 everywhere)."""
+    import torch
+
+    from freefine_tpu_torch import masks as mask_ops
+    from freefine_tpu_torch.config import sd15_pipeline_config
+    from freefine_tpu_torch.edit import build_mask_pyramid
+    from freefine_tpu_torch.ops.attention import _parity_rows as parity_rows
+
+    cfg = sd15_pipeline_config()
+    h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
+    _, mask, _, tm = edit_case(cfg, device)
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
+    em = mask_ops.prepare_various_mask(t(tm), t(mask), None, h, w, lh, lw, use_auto_draw=True,
+                                       cons_area=t(np.zeros((h, w), np.uint8)),
+                                       reduce_inp_artifacts=True)
+    fg_ref = build_mask_pyramid(em.fg_ref, lh, lw)[seq]
+    tgt = (build_mask_pyramid(em.fg_retain, lh, lw)[seq] > 0).float()
+    obj = build_mask_pyramid(mask_ops.prepare_mask_bggen(t(mask), h, w, lh, lw)[0], lh, lw)[seq]
+    streams = 3
+    return {"edit": (parity_rows(fg_ref, streams), parity_rows(tgt, streams)),
+            "bggen": (parity_rows(1.0 - obj, streams), torch.ones(2 * streams, seq,
+                                                                   device=device))}
+
+
+def _tca_swapped(ops, h):
+    """The twin as a kernel that skipped the wrong pass would give it: in
+    each 64-query tile where the bf16 kernel skips FG or BG (weight 0), the
+    other, live, mod pass's partial zeroed instead."""
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    tq, cg = ops[6], ops[7]
+    _, parts, _ = FA.tca_flash_fwd_lse_reference(*ops, heads=h)
+    rows = FA.tca_dead_passes(tq).repeat_interleave(FA.TCA_TILE_ROWS, dim=1)[:, : tq.shape[1]]
+    parts = parts.clone()
+    parts[1][rows[..., 2]] = 0.0  # BG dead: FG zeroed
+    parts[2][rows[..., 1]] = 0.0  # FG dead: BG zeroed
+    return FA._tca_composite(parts, tq, cg).to(ops[0].dtype)
+
+
+def tca_bound(ops, h, dtype, live: bool) -> dict:
+    """`bound` of one `tca_flash` call: bytes of the six operands, the masks
+    and the output; two Q K^T products and, per pass, a P V product and one
+    exponential per (query, key), for every pass (live=False) or for the
+    passes the bf16 kernel runs on these masks (live=True: each 64-query
+    tile's rows count its live passes, `tca_dead_passes`).  Also the passes
+    counted per query row."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    q, tq = ops[0], ops[6]
+    b, s, e = q.shape
+    d = e // h
+    nbytes = 6 * b * s * e * q.element_size() + 2 * b * s * 4
+    passes = 3.0 * b * s  # (query row, pass) pairs of the call
+    if live:
+        dead = FA.tca_dead_passes(tq)
+        rows = torch.full(dead.shape[:2], float(FA.TCA_TILE_ROWS), device=dead.device)
+        rows[:, -1] = s - FA.TCA_TILE_ROWS * (dead.shape[1] - 1)
+        passes = float(((3 - dead.sum(-1)) * rows).sum())
+    return dict(bound(nbytes, (4.0 * b * s + 2.0 * passes) * h * s * d, passes * h * s, dtype),
+                passes_per_row=passes / (b * s))
+
+
 def check_tca(gen, shape, timed: bool):
+    """`tca_flash` at one shape.  Timed shapes: held and timed at the masks
+    of the paths (`tca_layouts`: edit, bggen), with dropped-tile teeth and
+    the swapped-pass teeth, and held at the random parity rows, where
+    almost no 64-row tile lets the kernel skip a pass; check-only shapes at
+    the random parity rows and at contiguous "blocks" of tq (whole tiles
+    of tq 0 and 1, ragged ends)."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
     b, h, s, d, dtype = shape
     q, ks, vs, km, vm = _inputs(gen, b, h, s, d, dtype, 5)
-    fg = _parity_rows(gen, b, s, 0.5)
-    tq = _parity_rows(gen, b, s, 0.4)
     cg = 0.7
-    out = FA.tca_flash(q, ks, vs, km, vm, fg, tq, cg, heads=h)
-    ref = FA.tca_flash_reference(q, ks, vs, km, vm, fg, tq, cg, heads=h)
-    torch.cuda.synchronize()
-    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
-               key=(b, h, s, s, d, dtype, True))
-    _hold("tca_flash", out, ref, row)
+    layouts = {"parity": _tca_masks(gen, b, s, "parity")}
     if timed:
+        layouts.update(tca_layouts(s, gen.device.type))
+    else:
+        layouts["blocks"] = _tca_masks(gen, b, s, "blocks")
+    row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
+               key=(b, h, s, s, d, dtype, True), layouts={})
+    for name, (fg, tq) in layouts.items():
+        ops = (q, ks, vs, km, vm, fg, tq, cg)
+        out = FA.tca_flash(*ops, heads=h)
+        ref = FA.tca_flash_reference(*ops, heads=h)
+        torch.cuda.synchronize()
+        _hold("tca_flash", out, ref, row, tensor=name)
+        live = tca_bound(ops, h, dtype, True)
+        lay = row["layouts"][name] = dict(
+            dead_pass_tile_share=float(FA.tca_dead_passes(tq).any(-1).float().mean()),
+            passes_per_row=live["passes_per_row"])
+        if not timed or name == "parity":
+            continue
         n = min(DROP_KEYS, s // 2)
         _teeth("tca_flash", ref, FA.tca_flash_reference(
-            q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg, heads=h), row)
-        itemsize = q.element_size()
-        nbytes = 6 * b * s * h * d * itemsize + 2 * b * s * 4
-        row.update(bound(nbytes, 10.0 * b * h * s * s * d, 3.0 * b * h * s * s, dtype))
+            q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg, heads=h), row,
+            tensor=name)
+        swapped = err_over_tol(compare(_tca_swapped(ops, h), ref), dtype, "tca_flash")
+        row["tensors"][name]["swapped_pass_err_over_tol"] = swapped
+        if swapped <= 1.0:
+            raise AssertionError(f"tca_flash: the limits accept a kernel that skips the live "
+                                 f"pass ({name}): {row}")
+        lay.update(live, three_pass_bound_ms=tca_bound(ops, h, dtype, False)["bound_ms"])
         n = 3 if s >= 4096 else 10
-        row["kernel_ms"] = cuda_ms(lambda: FA.tca_flash(q, ks, vs, km, vm, fg, tq, cg, heads=h), n)
-        row["plain_ms"] = cuda_ms(
-            lambda: FA.tca_flash_reference(q, ks, vs, km, vm, fg, tq, cg, heads=h), n)
-        row["library_ms"] = None
+        lay["kernel_ms"] = cuda_ms(lambda: FA.tca_flash(*ops, heads=h), n)
+        lay["kernel_graph_ms"] = graph_ms(lambda: FA.tca_flash(*ops, heads=h))
+        if "plain_ms" not in row:  # the twin computes every pass on any masks
+            row["plain_ms"] = cuda_ms(lambda: FA.tca_flash_reference(*ops, heads=h), n)
+        lay.update(plain_ms=row["plain_ms"], library_ms=None, library_graph_ms=None)
+    if timed:  # the row's own numbers: the edit layout's (paths G and E)
+        row.update(row["layouts"]["edit"])
+        row["swapped_pass_err_over_tol"] = min(
+            row["tensors"][n]["swapped_pass_err_over_tol"] for n in ("edit", "bggen"))
     return row
 
 
@@ -592,13 +701,17 @@ def _tca_masks(gen, b, s, kind):
     """fg and tq rows [b, s] in the head-parity layout (odd block all ones):
     "parity" random on the even block; "bggen" tq = 1 everywhere (fg, that
     is 1 - obj, random on the even block); "empty_fg" no fg key on the even
-    block."""
+    block; "blocks" tq on the even block 1 on rows [s/4, s/2) and 0
+    elsewhere, as an object's rows give it."""
     fg = _parity_rows(gen, b, s, 0.5)
     tq = _parity_rows(gen, b, s, 0.4)
     if kind == "bggen":
         tq.fill_(1.0)
     elif kind == "empty_fg":
         fg[: b // 2] = 0.0
+    elif kind == "blocks":
+        tq[: b // 2] = 0.0
+        tq[: b // 2, s // 4 : s // 2] = 1.0
     return fg, tq
 
 
@@ -694,7 +807,9 @@ def check_tca_grad(gen, shape, timed: bool):
     for name, (kern, plain) in timings.items():
         rows[name]["kernel_ms"] = cuda_ms(kern, iters)
         rows[name]["plain_ms"] = cuda_ms(plain, iters)
-        rows[name]["library_ms"] = None  # no single PyTorch call computes TCA
+        rows[name]["kernel_graph_ms"] = graph_ms(kern)
+        # no single PyTorch call computes TCA
+        rows[name]["library_ms"] = rows[name]["library_graph_ms"] = None
     return rows
 
 
@@ -1001,11 +1116,24 @@ def _log_row(name, r, timed):
                 f"{'-' if lib is None else f'{lib:.4f}'} ms bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, {r['bound_ms'] / r['kernel_ms']:.3f} of the kernel's time)")
         if "kernel_graph_ms" in r:
+            glib = r["library_graph_ms"]
             msg += (f"; in CUDA graphs kernel {r['kernel_graph_ms']:.4f} ms library "
-                    f"{r['library_graph_ms']:.4f} ms")
+                    f"{'-' if glib is None else f'{glib:.4f}'} ms")
     if "route" in r:
         msg += f"; route {r['route']}"
     log(msg)
+    for name, lay in r.get("layouts", {}).items():
+        msg = (f"    masks {name}: {r['tensors'][name]['err_over_tol']:.3f} of tol, "
+               f"{lay['dead_pass_tile_share']:.3f} of the 64-row tiles with a dead pass, "
+               f"{lay['passes_per_row']:.3f} live passes a row")
+        if "kernel_ms" in lay:
+            msg += (f"; swapped pass {r['tensors'][name]['swapped_pass_err_over_tol']:.3g} of "
+                    f"tol; kernel {lay['kernel_ms']:.4f} ms, in CUDA graphs "
+                    f"{lay['kernel_graph_ms']:.4f} ms; live-pass bound {lay['bound_ms']:.4f} ms "
+                    f"({lay['bound_ms'] / lay['kernel_graph_ms']:.3f} of the graph time), "
+                    f"three-pass bound {lay['three_pass_bound_ms']:.4f} ms "
+                    f"({lay['three_pass_bound_ms'] / lay['kernel_graph_ms']:.3f})")
+        log(msg)
 
 
 def phase_kernels(record, sd15_cfg):
@@ -1035,7 +1163,7 @@ def phase_kernels(record, sd15_cfg):
 
 
 TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms",
-         "f32_route_ms", "kernel_graph_ms", "library_graph_ms")
+         "f32_route_ms", "kernel_graph_ms", "library_graph_ms", "three_pass_bound_ms")
 
 
 def summarize(name, source, replaces, rows, checks, counts_by_path):
@@ -1057,11 +1185,14 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
                                      f"{sorted(set(counted) - set(timed))} are not timed")
             launched |= set(counted)
             entry = dict(launches=sum(counted.values()))
+            # a row timed at several mask layouts: the one this path passes
+            at = {key: timed[key].get("layouts", {}).get(TCA_PATH_LAYOUT.get(path), timed[key])
+                  for key in counted}
             for field in (f for f in TIMES if f in rows[0]):
-                vals = [timed[key][field] for key in counted]
+                vals = [at[key][field] for key in counted]
                 entry[field.replace("kernel_ms", "ms")] = (
                     None if any(x is None for x in vals)
-                    else sum(timed[key][field] * n for key, n in counted.items()))
+                    else sum(at[key][field] * n for key, n in counted.items()))
             paths[path] = entry
             for key, n in counted.items():
                 timed[key].setdefault("launches", {})[path] = n
@@ -1111,6 +1242,18 @@ def _case(h, w, seed):
     mask = np.zeros((h, w), np.uint8)
     mask[h // 4 : h // 2, w // 4 : w // 2] = 255
     return img, mask
+
+
+def edit_case(cfg, device="cuda"):
+    """The edit of phases 4 to 8: (image, object mask, coarse edit, target
+    mask) at the config's resolution, the object moved, rotated and scaled
+    by `re_edit_2d`."""
+    from freefine_tpu_torch.ops.geometry import re_edit_2d
+
+    img, mask = _case(cfg.height, cfg.width, 3)
+    coarse, tm, _ = re_edit_2d(img, mask, dx=40, dy=-20, rotation=10, scale_x=1.1,
+                               scale_y=1.1, device=device)
+    return img, mask, coarse, tm
 
 
 def _capture_latents(pipe, store):
@@ -1412,7 +1555,6 @@ def sd15_setup(record):
     import torch
 
     from freefine_tpu_torch.config import sd15_pipeline_config
-    from freefine_tpu_torch.ops.geometry import re_edit_2d
     from freefine_tpu_torch.pipeline import FreeFine
 
     cfg = sd15_pipeline_config()
@@ -1420,13 +1562,9 @@ def sd15_setup(record):
     pipe = FreeFine(cfg, init_random=True, seed=0, device="cuda")
     torch.cuda.synchronize()
     record["sd15_setup_s"] = time.perf_counter() - t0
-    h, w = cfg.height, cfg.width
-    img, mask = _case(h, w, 3)
-    coarse, tm, _ = re_edit_2d(img, mask, dx=40, dy=-20, rotation=10, scale_x=1.1,
-                               scale_y=1.1, device="cuda")
     store = {}
     _capture_latents(pipe, store)
-    return pipe, (img, mask, coarse, tm), store
+    return pipe, edit_case(cfg), store
 
 
 def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2), *,

@@ -12,8 +12,9 @@
 //   * keys past the sequence end are excluded (probability exactly 0);
 //   * with bf16 operands the probabilities are rounded to bf16 before the
 //     P.V product, whose sum stays float32.
-// The mma.sync pieces below serve the TCA kernels and the float32 pieces the
-// FMA kernels; the flash kernels' bf16 routes run wgmma (hopper.cuh).
+// The mma.sync pieces below serve the TCA backward kernels and the float32
+// pieces the FMA kernels; the forward kernels' bf16 routes and the flash
+// backward's run wgmma (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -158,80 +159,6 @@ __device__ __forceinline__ void load_tile_bf16_t(bf16* dst, const bf16* base, in
     const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) dst[(c + i) * kLd + r] = e[i];
-  }
-}
-
-// A warp's 16 query rows of the Q tile -> A fragments for every 16-wide
-// k-step of the head dim.
-template <int KT, int LDK>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[KT][4], const bf16* qw, int g, int t) {
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const bf16* r0 = qw + g * LDK + kt * 16 + 2 * t;
-    const bf16* r1 = r0 + 8 * LDK;
-    qa[kt][0] = ld_u32(r0);
-    qa[kt][1] = ld_u32(r1);
-    qa[kt][2] = ld_u32(r0 + 8);
-    qa[kt][3] = ld_u32(r1 + 8);
-  }
-}
-
-// s[16 x 8*NT] = Q (16 x 16*KT) . K_tile^T; K tile [8*NT][LDK] in shared memory.
-template <int KT, int NT, int LDK>
-__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qa)[KT][4],
-                                        const bf16* ks, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  }
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* kr = ks + (nt * 8 + g) * LDK + kt * 16 + 2 * t;
-      mma_bf16(s[nt], qa[kt], ld_u32(kr), ld_u32(kr + 8));
-    }
-  }
-}
-
-// Online softmax over one key tile for the thread's two rows (g, g + 8):
-// update the running max m and partial sum l, rescale the accumulator o, and
-// turn the logits s into probabilities in place.  The row max is reduced
-// over the 4 lanes sharing a row; l stays a per-lane partial sum.
-template <int NT, int OT>
-__device__ __forceinline__ void softmax_update(float (&s)[NT][4], float (&o)[OT][4],
-                                               float (&m)[2], float (&l)[2]) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-  }
-  float corr[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-    const float mn = fmaxf(m[hh], mx[hh]);
-    corr[hh] = __expf(m[hh] - mn);
-    m[hh] = mn;
-    l[hh] *= corr[hh];
-  }
-#pragma unroll
-  for (int ot = 0; ot < OT; ++ot) {
-    o[ot][0] *= corr[0];
-    o[ot][1] *= corr[0];
-    o[ot][2] *= corr[1];
-    o[ot][3] *= corr[1];
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = __expf(s[nt][e] - m[e >> 1]);
-      l[e >> 1] += p;
-      s[nt][e] = p;
-    }
   }
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma attention kernels in
-// flash_sdpa.cu (forward) and flash_sdpa_bwd.cu (dQ, dK/dV): wgmma
-// instruction wrappers and shared-memory matrix descriptors, TMA tile loads
-// tracked by mbarriers and the host-side tensor maps they read, named
-// barriers, register reallocation and the SFU exponential.  Every device
+// flash_sdpa.cu (forward), flash_sdpa_bwd.cu (dQ, dK/dV) and tca_flash.cu
+// (the TCA forward): wgmma instruction wrappers and shared-memory matrix
+// descriptors, TMA tile loads tracked by mbarriers, TMA tile stores, the
+// host-side tensor maps they read, named barriers, register reallocation
+// and the SFU exponential.  Every device
 // wrapper is one PTX instruction or a few; the kernels decide the pipeline.
 //
 // Shared-memory operand layout (the one TMA writes with
@@ -279,6 +280,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// One box of shared memory into a rank-4 tensor map (a TMA store, tracked
+// as a bulk group of the issuing thread).  Coordinates innermost first.
+__device__ __forceinline__ void tma_store_4d(const void* tmap, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until every bulk group of this thread has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Make this thread's ordinary shared-memory writes visible to the TMA unit.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- warp specialisation --------------------------------------------------
 
 template <int N>
@@ -349,6 +372,25 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int he
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// [P, S, H*D] float32 as a (D, H, S, P) tensor for TMA stores of boxes of
+// `rows` rows x D columns of one head of one plane, dense in shared memory
+// (no swizzle); rows past S are not written.
+inline cudaError_t make_store_map_f32(CUtensorMap* map, void* ptr, int planes, int heads, int s,
+                                      int d, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 4, (cuuint64_t)heads * d * 4,
+                                 (cuuint64_t)s * heads * d * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)d, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

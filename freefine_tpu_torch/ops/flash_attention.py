@@ -218,6 +218,27 @@ def tca_flash_fwd_lse_reference(
     return _tca_composite(parts, tq_mask, context_guidance).to(q.dtype), parts, lse
 
 
+# Query rows per consumer warpgroup of the bf16 `tca_flash` kernel
+# (csrc/tca_flash.cu): the unit over which it skips a pass.
+TCA_TILE_ROWS = 64
+
+
+def tca_dead_passes(tq_mask: torch.Tensor) -> torch.Tensor:
+    """The passes the bf16 `tca_flash` kernel skips, per 64-query tile of
+    each batch row, as it decides on the device: [B, ceil(S/64), 3] bool
+    (self, fg, bg).  BG where every tq of the tile is 1 (its weight
+    cg * (1 - tq) is 0), else FG where every tq is 0; self never; rows past
+    S do not count.  `tca_flash_fwd_lse` skips nothing.  Plain math, for
+    the live-pass bound and the checks of chip_smoke.py."""
+    b, s = tq_mask.shape
+    n = -(-s // TCA_TILE_ROWS)
+    pad = n * TCA_TILE_ROWS - s
+    tq = tq_mask.float()
+    ones = torch.nn.functional.pad(tq, (0, pad), value=1.0).reshape(b, n, -1).eq(1.0).all(-1)
+    zeros = torch.nn.functional.pad(tq, (0, pad), value=0.0).reshape(b, n, -1).eq(0.0).all(-1)
+    return torch.stack([torch.zeros_like(ones), zeros & ~ones, ones], dim=-1)
+
+
 def tca_row_deltas(parts, do, tq_mask, context_guidance, *, heads: int) -> torch.Tensor:
     """The TCA backward's row sums, [3, B, H, S] float32: rowsum(o_x * dO)
     times each pass's share of the output, (1 - cg), cg * tq and

@@ -73,7 +73,28 @@ def test_flash_twin_bf16_matches_pallas():
                                rtol=0)
 
 
-@pytest.mark.parametrize("case", ["random", "parity_rows"])
+def _layout_rows(case):
+    """fg and tq rows [B, S] of the parity split as the SD-1.5 paths give
+    them, with contiguous object rows so that whole 64-row tiles have tq 0
+    or 1 (the tiles where the bf16 kernel skips a pass); the odd block all
+    ones.  "edit_layout": fg the source object's rows, tq the target's;
+    "bggen_layout": fg = 1 - the object's rows, tq = 1 everywhere."""
+    fg = np.ones((B, S), np.float32)
+    tq = np.ones((B, S), np.float32)
+    obj = np.zeros(S, np.float32)
+    obj[40:100] = 1.0
+    if case == "edit_layout":
+        fg[: B // 2] = obj
+        tq[0] = 0.0
+        tq[0, 64:] = 1.0  # tiles tq = 0 and tq = 1
+        tq[1] = 0.0
+        tq[1, 50:] = 1.0  # a mixed tile, then a tq = 1 tile
+    else:
+        fg[: B // 2] = 1.0 - obj
+    return fg, tq
+
+
+@pytest.mark.parametrize("case", ["random", "parity_rows", "edit_layout", "bggen_layout"])
 def test_tca_twin_matches_pallas(case, monkeypatch):
     rng, q, ks, vs = _qkv(3)
     _, _, km, vm = _qkv(4)
@@ -84,8 +105,10 @@ def test_tca_twin_matches_pallas(case, monkeypatch):
         # the BG pass masks every key; tq = 1 gives it weight 0
         fg[B // 2:] = 1.0
         tq[B // 2:] = 1.0
-    else:
+    elif case == "random":
         tq = rng.random((B, S)).astype(np.float32)  # soft per-query weights
+    else:
+        fg, tq = _layout_rows(case)
     cg = 0.7
     want = j_tca_flash(*(jnp.asarray(x) for x in (q, ks, vs, km, vm, fg, tq)),
                        jnp.float32(cg), heads=HEADS, block_q=64, block_k=64)
@@ -95,6 +118,48 @@ def test_tca_twin_matches_pallas(case, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=0)
     twin = spy(monkeypatch, FA, "tca_flash_reference")
     assert FA.tca_flash(*args, cg, heads=HEADS) is twin[0][2]
+
+
+@pytest.mark.parametrize("case", ["edit_layout", "bggen_layout"])
+def test_zero_weight_pass_contributes_nothing(case):
+    """The premise of the bf16 kernel's skip: where `tca_dead_passes` finds
+    a pass of weight 0 over a 64-row tile, the composite with that pass's
+    partial replaced by zeros is the twin's composite bit for bit."""
+    _, q, ks, vs = _qkv(3)
+    _, _, km, vm = _qkv(4)
+    fg, tq = _t(*_layout_rows(case))
+    cg = 0.7
+    _, parts, _ = FA.tca_flash_fwd_lse_reference(*_t(q, ks, vs, km, vm), fg, tq, cg, heads=HEADS)
+    dead = FA.tca_dead_passes(tq).repeat_interleave(FA.TCA_TILE_ROWS, dim=1)[:, :S]
+    assert dead[..., 1:].any()  # the layout lets the kernel skip somewhere
+    zeroed = parts.clone()
+    for p in range(3):
+        zeroed[p][dead[..., p]] = 0.0
+    want = FA._tca_composite(parts, tq, cg)
+    assert torch.equal(FA._tca_composite(zeroed, tq, cg), want)
+    # zeroing a live mod pass instead is visible
+    swapped = parts.clone()
+    swapped[1][dead[..., 2]] = 0.0
+    swapped[2][dead[..., 1]] = 0.0
+    assert (FA._tca_composite(swapped, tq, cg) - want).abs().max() > 0.1
+
+
+def test_tca_dead_passes_per_tile():
+    # [B = 2, S = 150]: three tiles of 64 rows, the last one 22 rows long
+    tq = torch.zeros(2, 150)
+    tq[0, 64:128] = 1.0         # tile 1 all ones: BG dead
+    tq[0, 128:] = 1.0           # the ragged tile: rows past S do not count
+    tq[1, :64] = 0.5            # soft weights: nothing dead
+    tq[1, 64:127] = 1.0         # one row of tq = 0 keeps both mod passes
+    tq[1, 128:] = 0.0           # FG dead
+    dead = FA.tca_dead_passes(tq)
+    assert dead.shape == (2, 3, 3) and dead.dtype == torch.bool
+    self_, fg, bg = dead.unbind(-1)
+    assert not self_.any()
+    assert fg.tolist() == [[True, False, False], [False, False, True]]
+    assert bg.tolist() == [[False, True, True], [False, False, False]]
+    # every row tq = 1: only BG is dead
+    assert FA.tca_dead_passes(torch.ones(1, 64)).tolist() == [[[False, False, True]]]
 
 
 def test_fully_masked_row_is_uniform_attention():
