@@ -7,12 +7,14 @@ NVIDIA H100.
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
-     each instantiation's registers, stack and spills;
+     each instantiation's registers, stack and spills (and for each `gn::`
+     instantiation the routes, cluster sizes and shared memory of its plans
+     at the GroupNorm shapes; a spill there fails);
   2. hold each kernel against its plain PyTorch twin on the card at every
      shape of the SD-1.5 512^2 paths (bf16, and f32 at the VAE shape), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
-     tile, or one statistics block, dropped must fail); `group_norm_silu`
+     tile, or one CTA's positions, dropped must fail); `group_norm_silu`
      also against the two-pass float32 GroupNorm; the TCA VJP kernels on
      every output (composite, partials, logsumexps, dq, dk/dv of both key
      sets) at the TCA path shapes, with bggen, fully masked FG and f32
@@ -20,9 +22,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `generation` and `guided_generation`, bggen for `background_generation`,
      each path's per-edit time weighted at its own), with teeth that a
      kernel skipping the live pass instead of the dead one must fail, and
-     at random rows; time the kernel (eager, and in CUDA graphs for the
-     attention kernels), the twin and, as a yardstick only, the PyTorch
-     call that computes the same (`F.scaled_dot_product_attention`, its
+     at random rows; `group_norm_silu` also bit for bit against itself
+     (a second call, and an NCHW input); time the kernel (eager, and in
+     CUDA graphs), the twin and, as a yardstick only, the PyTorch call
+     that computes the same (`F.scaled_dot_product_attention`, its
      forward or its autograd backward; `F.group_norm` then `F.silu`; none
      for TCA); check one gradient each through `flash_sdpa_diff`,
      `tca_flash_diff` and `GroupNormSiLU` on the card against the twin's
@@ -55,7 +58,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edit streams' eps taken back to the edit latent; one warm-up and three
      timed passes, launches checked against the counts worked out from the
      config;
-  9. the result lines: the `kernels` JSON line (launches and per-edit times
+  9. one call of `group_norm_silu` at every path shape under
+     torch.profiler: one `gn::` kernel launch per call (after the timed
+     edits, which a profiler session could slow; with --profile before
+     phase 4, as the process's first profiler session: after the profiled
+     edits a session can miss a call this short);
+ 10. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
      4 to 8; path D is one differentiated pass), the nvidia-smi line, and
      last `{"ok": true, "device": {...}}`.
@@ -99,8 +107,8 @@ REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 DROP_KEYS = 32  # the smallest key tile of either kernel
 # GroupNorm's output is one rounding of a float32 value that the kernel and
 # its twin compute alike to about 1e-6, so its limits are tighter: tight
-# enough that the twin with one statistics block's partial left out fails
-# them at every path shape (`_gn_dropped`).
+# enough that the twin with one CTA's positions left out of the statistics
+# fails them at every path shape (`_gn_dropped`).
 GN_ABS_OF_MAX = {"bfloat16": 2.0**-6, "float32": 2e-6}
 GN_REL_TOL = {"bfloat16": 1.5e-4, "float32": 2e-6}
 LIMITS = {"group_norm_silu": (GN_ABS_OF_MAX, GN_REL_TOL)}
@@ -249,6 +257,62 @@ def ptxas_report(libs) -> list:
     for r in rows:
         log(f"  ptxas {r['library']}: {r['function'].split('(')[0]}: {r['properties']}; "
             f"{r['used']}")
+    return rows
+
+
+def gn_report(cfg, ptxas) -> list:
+    """Each `gn::` instantiation (dtype; staged in shared memory by TMA,
+    16-byte vectors: the resident and streamed routes; or one element per
+    thread from global memory: the plain route) over the plans of the path
+    shapes and GN_EXTRA: registers and spills (ptxas), routes, cluster
+    sizes, the largest dynamic shared memory, and the fewest clusters of a
+    plan's shape the card holds at once (`group_norm_active_clusters`).
+    Fails on a spill in any instantiation or a plan the card cannot hold."""
+    import torch
+
+    from freefine_tpu_torch.ops import cuda_build
+    from freefine_tpu_torch.ops import group_norm as G
+
+    lib = cuda_build.library("group_norm")
+    inst = {}
+    for b, c, h, w, g, _, dtype, _ in gn_shapes(cfg) + GN_EXTRA:
+        x = torch.empty((b, c, h, w), dtype=getattr(torch, dtype), device="cuda")
+        plan = G.launch_plan(x.contiguous(memory_format=torch.channels_last), g)
+        active = lib.group_norm_active_clusters(G._DTYPE_CODE[x.dtype], plan["vec"],
+                                                plan["stages"], plan["cluster"],
+                                                plan["smem_bytes"])
+        if active <= 0:
+            raise AssertionError(f"group_norm_silu {(b, c, h, w, g, dtype)}: plan {plan} holds "
+                                 f"{active} clusters at once")
+        e = inst.setdefault((dtype, plan["vec"], plan["stages"] > 0), dict(
+            routes=set(), clusters=set(), max_smem_bytes=0, min_active_clusters=active))
+        e["routes"].add(plan["route"])
+        e["clusters"].add(plan["cluster"])
+        e["max_smem_bytes"] = max(e["max_smem_bytes"], plan["smem_bytes"])
+        e["min_active_clusters"] = min(e["min_active_clusters"], active)
+    cxx = {"bfloat16": "__nv_bfloat16", "float32": "float"}
+    rows = []
+    for r in ptxas:
+        if "gn::gn_" not in r["function"]:
+            continue
+        if "0 bytes spill stores" not in r["properties"] or "0 bytes spill loads" not in \
+                r["properties"]:
+            raise AssertionError(f"{r['function']} spills: {r['properties']}")
+        name = r["function"].split("(")[0].removeprefix("void ")
+        e = next((e for (dtype, vec, staged), e in inst.items() if name ==
+                  f"gn::gn_cluster_kernel<{cxx[dtype]}, {vec}, {str(staged).lower()}>"), {})
+        row = dict(name=name, used=r["used"], properties=r["properties"],
+                   routes=sorted(e.get("routes", ())), clusters=sorted(e.get("clusters", ())),
+                   max_smem_bytes=e.get("max_smem_bytes"),
+                   min_active_clusters=e.get("min_active_clusters"))
+        rows.append(row)
+        log(f"  {name}: {row['used']}; {row['properties']}; routes {row['routes'] or 'none'} "
+            f"at the GroupNorm shapes, clusters {row['clusters']}, up to "
+            f"{row['max_smem_bytes']} bytes of dynamic shared memory, at least "
+            f"{row['min_active_clusters']} clusters resident at once")
+    if len(rows) != 4 or sum(bool(r["routes"]) for r in rows) != len(inst):
+        raise AssertionError(f"gn:: instantiations {[r['name'] for r in rows]} do not match the "
+                             f"plans' {sorted(inst)}")
     return rows
 
 
@@ -978,16 +1042,21 @@ def _gn_inputs(gen, b, c, h, w, dtype):
 
 
 def _gn_dropped(x, scale, bias, plan, *, num_groups, eps, apply_silu):
-    """The twin with one statistics block's partial left out of every
-    group, as a kernel that lost it would give: the first of the plan's
-    position splits (a statistics block covers one split of its channels),
-    or with a single split the group's first channel (one of the per-channel
-    partials the finalize pass merges)."""
+    """The twin with one CTA's positions left out of its groups' statistics,
+    as a kernel whose cluster merge lost one rank's partial would give:
+    rank 0's `rows_per_cta` positions; with a cluster of one CTA, its first
+    TMA box, or with a single box one per-channel slot of the CTA's merge
+    (each group's first channel)."""
     import torch
 
     b, c, h, w = x.shape
     xf = x.float().reshape(b, num_groups, c // num_groups, h * w)
-    kept = xf[..., plan["chunk"]:] if plan["nsplit"] > 1 else xf[:, :, 1:]
+    if plan["cluster"] > 1:
+        kept = xf[..., plan["rows_per_cta"]:]
+    elif 0 < plan["box_rows"] < h * w:
+        kept = xf[..., plan["box_rows"]:]
+    else:
+        kept = xf[:, :, 1:]
     kept = kept.reshape(b, num_groups, -1)
     mean = kept.mean(-1, keepdim=True)
     var = (kept * kept).mean(-1, keepdim=True) - mean * mean
@@ -996,6 +1065,44 @@ def _gn_dropped(x, scale, bias, plan, *, num_groups, eps, apply_silu):
     if apply_silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def gn_launches_per_call(rows):
+    """Device kernels that one `group_norm_silu` call launches at each timed
+    shape (torch.profiler, after a warm-up call), into each row; fails
+    unless it is one `gn::` kernel.  Run after the timed edits (a profiler
+    session can leave the host's launches slower for the rest of the
+    process), and before any other profiler session (after the profiled
+    edits of --profile, a session recorded no device event of a call this
+    short)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from freefine_tpu_torch.ops import group_norm as G
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for row in rows:
+        b, c, h, w, g, eps, dtype, silu = row["key"]
+        x, scale, bias = _gn_inputs(gen, b, c, h, w, dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        G.group_norm_silu(x, scale, bias, num_groups=g, eps=eps, apply_silu=silu)
+        torch.cuda.synchronize()
+        for attempt in range(3):  # a session now and then records no device event at all
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                G.group_norm_silu(x, scale, bias, num_groups=g, eps=eps, apply_silu=silu)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        row.update(kernels_per_call=len(names), kernel_names=sorted(set(names)),
+                   profiler_sessions=attempt + 1)
+        log(f"  group_norm_silu {row['key']}: {len(names)} kernel launch(es) per call "
+            f"{sorted(set(n.split('(')[0] for n in names))}"
+            + (f" ({attempt + 1} profiler sessions)" if attempt else ""))
+        if len(names) != 1 or "gn::gn_" not in names[0]:
+            raise AssertionError(f"group_norm_silu {row['key']}: one call launched {names}, not "
+                                 "one gn:: kernel")
 
 
 def check_gn(gen, shape, timed: bool):
@@ -1010,23 +1117,25 @@ def check_gn(gen, shape, timed: bool):
     x = x.contiguous(memory_format=torch.channels_last)
     kw = dict(num_groups=g, eps=eps, apply_silu=silu)
     out = G.group_norm_silu(x, scale, bias, **kw)
+    again = G.group_norm_silu(x, scale, bias, **kw)
     ref = G.group_norm_silu_reference(x, scale, bias, **kw)
     two_pass = G.group_norm_reference(x, scale, bias, **kw)
     torch.cuda.synchronize()
+    plan = G.launch_plan(x, g)
     row = dict(batch=b, channels=c, height=h, width=w, groups=g, eps=eps, dtype=dtype, silu=silu,
-               key=shape)
+               key=shape, plan=plan, route=f"{plan['route']}, cluster {plan['cluster']}")
     if not out.is_contiguous(memory_format=torch.channels_last):
         raise AssertionError(f"group_norm_silu {shape}: output is not channels-last")
+    if not torch.equal(out, again):
+        raise AssertionError(f"group_norm_silu {shape}: two calls differ")
+    if not torch.equal(G.group_norm_silu(nchw, scale, bias, **kw), out):
+        raise AssertionError(f"group_norm_silu {shape}: NCHW input differs from channels-last")
     _hold("group_norm_silu", out, ref, row, tensor="vs_twin")
     _hold("group_norm_silu", out, two_pass, row, tensor="vs_two_pass")
     if not timed:
-        if not torch.equal(G.group_norm_silu(nchw, scale, bias, **kw), out):
-            raise AssertionError(f"group_norm_silu {shape}: NCHW input differs from channels-last")
         return row
-    plan = G.launch_plan(x)
-    row["plan"] = plan
     _teeth("group_norm_silu", ref, _gn_dropped(x, scale, bias, plan, **kw), row,
-           what="stats_block", tensor="vs_twin")
+           what="cta", tensor="vs_twin")
     n = x.numel()
     row.update(bound(2 * n * x.element_size() + 8 * c, 8.0 * n, float(n if silu else 0),
                      "float32"))
@@ -1121,6 +1230,9 @@ def _log_row(name, r, timed):
                     f"{'-' if glib is None else f'{glib:.4f}'} ms")
     if "route" in r:
         msg += f"; route {r['route']}"
+    if name == "group_norm_silu" and timed:
+        msg += (f"; eager {r['kernel_eager_ms']:.4f} ms (the times above in CUDA graphs; "
+                "launches per call counted last)")
     log(msg)
     for name, lay in r.get("layouts", {}).items():
         msg = (f"    masks {name}: {r['tensors'][name]['err_over_tol']:.3f} of tol, "
@@ -1880,11 +1992,16 @@ def main():
 
     from freefine_tpu_torch.config import sd15_pipeline_config
 
+    record["gn_instantiations"] = gn_report(sd15_pipeline_config(), record["ptxas"])
+
     log("phase 2: kernels against their twins")
     checked = phase_kernels(record, sd15_pipeline_config())
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
     counts = None
+    if args.profile:  # the process's first profiler session: later ones can miss short calls
+        log("phase 9 (before the profiled edits): group_norm_silu launches per call")
+        gn_launches_per_call(checked["group_norm_silu"][0])
     if not args.skip_sd15:
         pipe, case, store = sd15_setup(record)
         log("phase 4: SD-1.5 512^2 edit (generation)")
@@ -1902,6 +2019,9 @@ def main():
         log("phase 8: SD-1.5 512^2 differentiated TCA edit pass (tca_flash_diff)")
         with fused_gn("0"):
             counts["D"] = phase_tca_grad(record, pipe, case)
+    if not args.profile:
+        log("phase 9: group_norm_silu launches per call at every path shape (profiled last)")
+        gn_launches_per_call(checked["group_norm_silu"][0])
     kernels = [summarize(name, source, replaces, *checked[name], counts)
                for name, _, _, _, source, replaces in KERNELS]
     record["kernels"] = kernels

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the wgmma attention kernels in
 // flash_sdpa.cu (forward), flash_sdpa_bwd.cu (dQ, dK/dV) and tca_flash.cu
-// (the TCA forward): wgmma instruction wrappers and shared-memory matrix
-// descriptors, TMA tile loads tracked by mbarriers, TMA tile stores, the
-// host-side tensor maps they read, named barriers, register reallocation
-// and the SFU exponential.  Every device
+// (the TCA forward), and of the cluster GroupNorm in group_norm.cu: wgmma
+// instruction wrappers and shared-memory matrix descriptors, TMA tile loads
+// tracked by mbarriers, TMA tile stores, the host-side tensor maps they
+// read, cluster barriers, named barriers, register reallocation and the SFU
+// exponential.  Every device
 // wrapper is one PTX instruction or a few; the kernels decide the pipeline.
 //
 // Shared-memory operand layout (the one TMA writes with
@@ -280,6 +281,22 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// Start fetching a tensor map (a kernel parameter) into the TMA unit's
+// descriptor cache ahead of its first load.
+__device__ __forceinline__ void prefetch_map(const void* tmap) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
+}
+
+// One box of a rank-3 tensor map into shared memory, as `tma_load_4d`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of shared memory into a rank-4 tensor map (a TMA store, tracked
 // as a bulk group of the issuing thread).  Coordinates innermost first.
 __device__ __forceinline__ void tma_store_4d(const void* tmap, const void* src, int c0, int c1,
@@ -300,6 +317,19 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Make this thread's ordinary shared-memory writes visible to the TMA unit.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters ------------------------------------------------
+
+// The two halves of a cluster barrier: arrive (release: this thread's
+// earlier writes, shared memory included, become visible to the cluster)
+// and wait (acquire).  Every thread of every CTA of the cluster calls both,
+// in turn; arrive then wait is cooperative_groups' cluster.sync().
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---- warp specialisation --------------------------------------------------
@@ -391,6 +421,28 @@ inline cudaError_t make_store_map_f32(CUtensorMap* map, void* ptr, int planes, i
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// [B, R, C] rows of C elements (a channels-last [B, C, H, W] activation as
+// R = H * W positions of C channels) as a (C, R, B) tensor; boxes of
+// `box_cols` columns x `box_rows` rows of one batch row, dense in shared
+// memory (no swizzle).  Rows past R read as zeros and are not written, so
+// no box reads or writes the next batch row.  Rows and the box's width must
+// be multiples of 16 bytes.  Built anew for every call.
+inline cudaError_t make_rows_map(CUtensorMap* map, const void* ptr, bool f32, int batch, int rows,
+                                 int cols, int box_cols, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * es, (cuuint64_t)rows * cols * es};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         3, const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

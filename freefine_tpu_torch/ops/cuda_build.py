@@ -54,7 +54,9 @@ _SIGNATURES = {
         "flash_sdpa_bwd_smem_bytes": [_I, _I, _I],
     },
     "group_norm": {
-        "group_norm_silu_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+        "group_norm_silu_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P],
+        "group_norm_active_clusters": [_I, _I, _I, _I, _I],
     },
 }
 

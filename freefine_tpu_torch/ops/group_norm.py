@@ -30,12 +30,18 @@ launches the kernel or raises.  The kernel works on the channels-last
 layout (NHWC in memory), which every call on the SD-1.5 paths has: the
 convolutions pass the pipeline's NHWC latents' layout on.  Any other input
 (an NCHW-contiguous tensor of the tests or the tiny config) is copied to
-it first; y is channels-last.  `LAUNCHES` counts calls of the op (three
-kernel launches each) and `LAUNCH_SHAPES` the same calls by shape.
+it first; y is channels-last.  Each call is one launch of one cluster
+kernel (`launch_plan` says how it covers the tensor).  `LAUNCHES` counts
+calls of the op and `LAUNCH_SHAPES` the same calls by shape.
+
+`group_norm_reference` returns its result in the memory format of its
+input (channels-last in, channels-last out), so that the convolution
+after it does not transpose; its values do not depend on the layout.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from collections import Counter
 from typing import Sequence
@@ -51,12 +57,22 @@ LAUNCHES = {name: 0 for name in KERNELS}
 #  -> launches
 LAUNCH_SHAPES: Counter = Counter()
 
-# Statistics pass of the kernel (csrc/group_norm.cu): each batch's
-# positions are split over enough blocks to give each of the H100's 132 SMs
-# about eight, each split at least 64 positions.
-_TARGET_BLOCKS = 8 * 132
 _VEC = {torch.bfloat16: 8, torch.float32: 4}  # elements per 16-byte load
+_ES = {torch.bfloat16: 2, torch.float32: 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The cluster kernel (csrc/group_norm.cu) and the H100 it is sized for.
+_THREADS = 256              # threads per CTA
+_MAX_CLUSTER = 16           # CTAs per cluster (above 8: non-portable)
+_MAX_BOX = 256              # TMA box edge, elements
+_SMEM_MAX = 232448          # dynamic shared memory of one CTA (227 KB)
+_SMS = 132
+_MIN_CTA_BYTES = 16384      # a CTA below this much of x is not worth a cluster rank
+_MIN_ROW_BYTES = 64         # the resident route's narrowest block row (narrower costs more a byte)
+_MAX_CTAS = 192             # the resident route's most CTAs (beyond, cluster launches cost more)
+_STREAM_UNIT_BYTES = 524288  # a unit above this much of x streams
+_STREAM_UNITS = 4           # the streamed route's fewest units (clusters of 16)
+_RING_BYTES = 98304         # the streamed route's ring of TMA boxes, bytes per CTA
 
 
 def reset_launch_counts() -> None:
@@ -84,10 +100,14 @@ def _affine_shape(x: torch.Tensor) -> tuple:
 def group_norm_reference(x, scale, bias, *, num_groups: int, eps: float,
                          apply_silu: bool) -> torch.Tensor:
     """Two-pass GroupNorm in float32 (`F.group_norm` on the cast), optional
-    SiLU, output cast back to x's dtype.  x [B, C, ...]."""
+    SiLU, output cast back to x's dtype in x's memory format.  x [B, C, ...].
+    (On CUDA `F.group_norm` computes on an NCHW copy and returns NCHW; the
+    cast back also restores a channels-last input's layout, in one copy.)"""
     y = F.group_norm(x.float(), num_groups, scale.float(), bias.float(), eps)
     if apply_silu:
         y = F.silu(y)
+    if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return y.to(x.dtype, memory_format=torch.channels_last)
     return y.to(x.dtype)
 
 
@@ -113,23 +133,118 @@ def group_norm_silu_reference(x, scale, bias, *, num_groups: int = 32, eps: floa
 # ---------------------------------------------------------------------------
 
 
-def launch_plan(x: torch.Tensor) -> dict:
-    """How the kernel covers a channels-last x [B, C, H, W]: the load width
-    `vec` (16 bytes where the channels allow), and `nsplit` position splits
-    of `chunk` positions per batch, each the statistics of one block per 32
-    vectors of channels, with the float32 scratch they need."""
+def smem_bytes(stages: int, stage_bytes: int, stat_floats: int, block_channels: int,
+               groups_per_block: int) -> int:
+    """Dynamic shared memory of one CTA (`gn::smem_bytes`): the ring of
+    TMA boxes, the per-thread sums (two slots per channel and position
+    phase), the channels' shifts, the CTA's per-group partials and the
+    groups' mean and rstd, one mbarrier per stage."""
+    floats = 2 * stat_floats + max(_THREADS, block_channels) + 5 * groups_per_block
+    return stages * stage_bytes + -(-floats * 4 // 8) * 8 + 8 * stages
+
+
+def launch_plan(x: torch.Tensor, num_groups: int) -> dict:
+    """How one launch of the cluster kernel covers a channels-last x
+    [B, C, H, W]:
+
+      * a unit is one image times a block of `groups_per_block` whole
+        groups (`block_channels` channels); `units` = B * blocks, one
+        cluster each, of `cluster` CTAs, CTA r taking positions
+        [r * rows_per_cta, (r + 1) * rows_per_cta) of the H * W;
+      * route "resident": each CTA's positions stay in shared memory as
+        `stages` TMA boxes of `box_rows` positions (x read once);
+        "streamed": they pass twice through a ring of `stages` boxes (x
+        read twice, one launch); "plain": the layout is no TMA operand (a
+        position's channels, or every group block, not a multiple of 16
+        bytes, or x not 16-byte aligned): one element per thread, ordinary
+        loads, x read twice;
+      * `smem_bytes`: dynamic shared memory per CTA.
+
+    The choice follows the kernel's times on an H100 over the plans at
+    every SD-1.5 shape (`scripts/gn_plan_sweep.py`): a block row narrower
+    than 64 bytes costs more a byte, and more than about 192 CTAs of
+    clusters cost launch time; the streamed route is bound by the card's
+    traffic, so it wants the widest rows over enough clusters.  So: a unit above 512 KB (at the narrowest block of 64 bytes
+    or more) streams, in clusters of 16 over the widest block that leaves
+    at least 4 units and whose ring of two boxes or more fits; any other
+    stays resident at that narrowest block, in the largest cluster (of 1
+    to 16 CTAs) that keeps to 192 CTAs and 16 KB of x a CTA (else the
+    smallest cluster whose boxes fit).  No global scratch on any route."""
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("group_norm_silu: the kernel takes a channels_last tensor")
     b, c, h, w = x.shape
-    hw = h * w
-    vec = _VEC[x.dtype]
-    if c % vec or x.data_ptr() % 16:
-        vec = 1
-    col_blocks = -(-(c // vec) // 32)
-    nsplit = max(1, min(-(-_TARGET_BLOCKS // (col_blocks * b)), -(-hw // 64)))
-    chunk = -(-hw // nsplit)
-    nsplit = -(-hw // chunk)
-    return dict(vec=vec, nsplit=nsplit, chunk=chunk, scratch=b * nsplit * c * 3 + b * c * 2)
+    return dict(_plan(b, c, h * w, num_groups, x.dtype, x.data_ptr() % 16 == 0))
+
+
+def group_blocks(c: int, groups: int, dtype: torch.dtype) -> list:
+    """Groups per block of the TMA routes, narrowest first: whole groups
+    whose row is a multiple of 16 bytes and at most 256 elements."""
+    es, cpg = _ES[dtype], c // groups
+    return [k for k in range(1, groups + 1)
+            if groups % k == 0 and k * cpg * es % 16 == 0 and k * cpg <= _MAX_BOX]
+
+
+def layout(b: int, c: int, hw: int, groups: int, dtype: torch.dtype, gb: int, n: int,
+           route: str):
+    """The TMA-route plan of `route` ("resident" or "streamed") for blocks
+    of gb groups in clusters of n CTAs, or None where it does not apply (a
+    CTA without positions, a resident CTA of less than 16 KB in a cluster,
+    a ring of fewer than two boxes) or its shared memory does not fit."""
+    es, cpg = _ES[dtype], c // groups
+    cb, units = gb * cpg, b * (groups // gb)
+    per = -(-hw // n)
+    boxes = -(-per // _MAX_BOX)
+    box = min((-(-per // boxes) + 7) // 8 * 8, hw)  # equal boxes of a multiple of 8 rows
+    rows = boxes * box
+    stage_bytes = -(-box * cb * es // 128) * 128
+    if (n - 1) * rows >= hw:
+        return None
+    if route == "resident":
+        if n > 1 and rows * cb * es < _MIN_CTA_BYTES:
+            return None
+        stages = boxes
+    else:
+        if boxes <= 2:
+            return None
+        stages = max(2, min(boxes - 1, _RING_BYTES // stage_bytes))
+    smem = smem_bytes(stages, stage_bytes, _THREADS * _VEC[dtype], cb, gb)
+    if smem > _SMEM_MAX:
+        return None
+    return dict(route=route, cluster=n, rows_per_cta=rows, box_rows=box, stages=stages,
+                smem_bytes=smem, vec=_VEC[dtype], groups_per_block=gb, block_channels=cb,
+                units=units)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, c: int, hw: int, groups: int, dtype: torch.dtype, aligned: bool) -> tuple:
+    es, cpg = _ES[dtype], c // groups
+    blocks = group_blocks(c, groups, dtype)
+    if not blocks or c * es % 16 or not aligned:
+        return _plain_plan(b, c, hw, groups)
+    narrow = next((gb for gb in blocks if gb * cpg * es >= _MIN_ROW_BYTES), blocks[-1])
+    wide = [gb for gb in blocks if b * (groups // gb) >= _STREAM_UNITS] or blocks[:1]
+    streamed = [p for p in (layout(b, c, hw, groups, dtype, gb, _MAX_CLUSTER, "streamed")
+                            for gb in reversed(wide)) if p]
+    if streamed and hw * narrow * cpg * es > _STREAM_UNIT_BYTES:
+        return tuple(streamed[0].items())
+    resident = [p for p in (layout(b, c, hw, groups, dtype, narrow, n, "resident")
+                            for n in range(1, _MAX_CLUSTER + 1)) if p]
+    few = [p for p in resident if p["units"] * p["cluster"] <= _MAX_CTAS]
+    plan = few[-1] if few else resident[0] if resident else streamed[0] if streamed else None
+    return tuple(plan.items()) if plan else _plain_plan(b, c, hw, groups)
+
+
+def _plain_plan(b: int, c: int, hw: int, groups: int) -> tuple:
+    """The plain-load route: one group per block, one element per thread,
+    a cluster of up to 8 CTAs of at least 32 positions each."""
+    cpg = c // groups
+    units = b * groups
+    n = 1
+    while n < 8 and units * n < _SMS and hw // (2 * n) >= 32:
+        n *= 2
+    return tuple(dict(route="plain", cluster=n, rows_per_cta=-(-hw // n), box_rows=0, stages=0,
+                      smem_bytes=smem_bytes(0, 0, max(_THREADS, cpg), cpg, 1), vec=1,
+                      groups_per_block=1, block_channels=cpg, units=units).items())
 
 
 def _check(x, scale, bias, num_groups: int) -> None:
@@ -165,19 +280,21 @@ def group_norm_silu(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
     if not (scale.is_contiguous() and bias.is_contiguous()):
         raise ValueError("group_norm_silu: scale and bias must be contiguous")
     b, c, h, w = x.shape
-    if b * num_groups > 65535:
-        raise ValueError(f"group_norm_silu: {b * num_groups} (batch, group) pairs exceed the grid")
     x = x.contiguous(memory_format=torch.channels_last)
-    plan = launch_plan(x)
+    plan = launch_plan(x, num_groups)
+    if plan["units"] > 65535:
+        raise ValueError(f"group_norm_silu: {plan['units']} (batch, group block) units exceed "
+                         "the grid")
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
     lib = cuda_build.library("group_norm")
     code = lib.group_norm_silu_fwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-        b, c, h * w, num_groups, float(eps), plan["nsplit"], plan["chunk"], int(apply_silu),
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), b, c, h * w, num_groups,
+        float(eps), plan["groups_per_block"], plan["cluster"], plan["rows_per_cta"],
+        plan["box_rows"], plan["stages"], plan["smem_bytes"], int(apply_silu),
         _DTYPE_CODE[x.dtype], plan["vec"], torch.cuda.current_stream(x.device).cuda_stream,
     )
-    cuda_build.check(lib, "group_norm_silu", code)
+    if code:
+        cuda_build.check(lib, f"group_norm_silu {tuple(x.shape)} {x.dtype} plan {plan}", code)
     LAUNCHES["group_norm_silu"] += 1
     LAUNCH_SHAPES[("group_norm_silu", b, c, h, w, num_groups, float(eps),
                    str(x.dtype).removeprefix("torch."), bool(apply_silu))] += 1

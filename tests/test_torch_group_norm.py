@@ -10,6 +10,9 @@ only), 2e-2 in bfloat16 (one rounding of the output), 1e-4 on the
 gradients; the UNet forward within the model parity tolerance 2e-4.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ from freefine_tpu.config import tiny_pipeline_config as jax_tiny_config
 from freefine_tpu.models.layers import GroupNorm32 as JGroupNorm32
 from freefine_tpu.models.unet import UNet2DCondition as JUNet
 from freefine_tpu.ops import group_norm as JG
+from freefine_tpu_torch.config import sd15_pipeline_config
 from freefine_tpu_torch.models.layers import GroupNorm32
 from freefine_tpu_torch.ops import group_norm as G
 from test_torch_weights import jax_params, tiny_modules
@@ -186,31 +190,131 @@ def test_wrapper_rejects_bad_operands():
         G.group_norm_silu(tx[:, :, 0], ts, tb, num_groups=8)
 
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((3, 320, 64, 64), "bfloat16"), ((1, 128, 512, 512), "bfloat16"),
-    ((2, 256, 512, 512), "bfloat16"), ((1, 512, 64, 64), "bfloat16"),
-    ((3, 640, 32, 32), "bfloat16"), ((3, 960, 16, 16), "bfloat16"),
-    ((4, 1280, 8, 8), "bfloat16"), ((4, 2560, 8, 8), "bfloat16"),
-    ((2, 36, 3, 5), "bfloat16"), ((2, 64, 16, 16), "float32"),
-    ((2, 18, 8, 8), "float32"), ((2, 128, 1, 1), "float32")])
-def test_launch_plan_covers_the_tensor(shape, dtype):
-    """The kernel's plan splits each batch's positions so that every block
-    has work and the splits cover them, with 16-byte loads only where they
-    stay inside a position; it takes channels-last tensors only (the wrapper
-    copies any other layout first)."""
+@pytest.mark.parametrize("shape,groups,dtype,route", [
+    ((3, 320, 64, 64), 32, "bfloat16", "resident"), ((4, 960, 64, 64), 32, "bfloat16", "resident"),
+    ((1, 1280, 8, 8), 32, "bfloat16", "resident"), ((4, 2560, 16, 16), 32, "bfloat16", "resident"),
+    ((3, 1920, 32, 32), 32, "bfloat16", "resident"), ((1, 512, 256, 256), 32, "bfloat16", "streamed"),
+    ((1, 128, 512, 512), 32, "bfloat16", "streamed"), ((2, 256, 512, 512), 32, "bfloat16", "streamed"),
+    ((3, 96, 20, 20), 32, "bfloat16", "resident"), ((2, 64, 16, 16), 8, "float32", "resident"),
+    ((2, 16, 64, 64), 8, "float32", "resident"), ((2, 128, 1, 1), 8, "float32", "resident"),
+    ((2, 64, 7, 9), 8, "float32", "resident"), ((2, 18, 8, 8), 6, "float32", "plain"),
+    ((2, 60, 30, 25), 6, "bfloat16", "plain"), ((2, 36, 3, 5), 6, "bfloat16", "plain")])
+def test_launch_plan_covers_the_tensor(shape, groups, dtype, route):
+    """One launch: each (image, block of whole groups) is a cluster of at
+    most 16 CTAs whose position ranges cover H * W once, the blocks cover
+    the channels once, a block is a 16-byte TMA box row of at most 256
+    elements (else the plain-load route), and a CTA's shared memory stays
+    within 227 KB; resident plans keep every box of a CTA in its own stage.
+    The kernel takes channels-last tensors only (the wrapper copies any
+    other layout first)."""
     b, c, h, w = shape
     x = torch.zeros(shape, dtype=getattr(torch, dtype)).contiguous(
         memory_format=torch.channels_last)
-    plan = G.launch_plan(x)
-    assert (plan["nsplit"] - 1) * plan["chunk"] < h * w <= plan["nsplit"] * plan["chunk"]
-    vec = 8 if dtype == "bfloat16" else 4
-    assert plan["vec"] == (vec if c % vec == 0 else 1)
-    assert plan["scratch"] == b * plan["nsplit"] * c * 3 + b * c * 2
-    if h * w > 1 and c > 1:
+    plan = G.launch_plan(x, groups)
+    assert plan["route"] == route
+    cpg, es, hw = c // groups, x.element_size(), h * w
+    gb, cb, n, rows = (plan[k] for k in ("groups_per_block", "block_channels", "cluster",
+                                         "rows_per_cta"))
+    assert cb == gb * cpg and groups % gb == 0 and plan["units"] == b * groups // gb
+    channels = np.zeros(c, int)
+    for blk in range(groups // gb):
+        channels[blk * cb:(blk + 1) * cb] += 1
+    positions = np.zeros(hw, int)
+    for rank in range(n):
+        positions[rank * rows:(rank + 1) * rows] += 1
+    assert (channels == 1).all() and (positions == 1).all() and n * rows - rows < hw
+    assert 1 <= n <= 16 and plan["smem_bytes"] <= 227 * 1024
+    if route == "plain":
+        assert plan["vec"] == 1 and plan["stages"] == 0 and gb == 1
+        assert (c * es) % 16 or (cb * es) % 16 or cb > 256
+    else:
+        assert plan["vec"] * es == 16 and (cb * es) % 16 == 0 and cb <= 256
+        assert 1 <= plan["box_rows"] <= 256 and rows % plan["box_rows"] == 0
+        boxes = rows // plan["box_rows"]
+        assert (boxes <= plan["stages"]) == (route == "resident")
+        stage = -(-plan["box_rows"] * cb * es // 128) * 128
+        assert plan["smem_bytes"] == G.smem_bytes(plan["stages"], stage, 256 * plan["vec"], cb, gb)
+    if hw > 1 and c > 1:
         with pytest.raises(ValueError):
-            G.launch_plan(x.contiguous())  # NCHW
+            G.launch_plan(x.contiguous(), groups)  # NCHW
     with pytest.raises(ValueError):
-        G.launch_plan(x[:, ::2])  # strided channels
+        G.launch_plan(x[:, ::2], groups // 2 or 1)  # strided channels
+
+
+def test_plan_constants_are_the_kernels():
+    """The plan's limits are the kernel source's (csrc/group_norm.cu)."""
+    src = (Path(G.__file__).resolve().parents[1] / "csrc" / "group_norm.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kThreads"]) == G._THREADS
+    assert int(consts["kMaxCluster"]) == G._MAX_CLUSTER
+    assert int(consts["kMaxSmem"]) == G._SMEM_MAX
+    assert int(consts["kMaxBox"]) == G._MAX_BOX
+
+
+def _path_shapes():
+    cfg = sd15_pipeline_config()
+    unet = {(b, *call) for b in {b for p in chip_smoke.GN_PATH_BATCHES.values()
+                                 for b in p["unet"]}
+            for call in chip_smoke.norm_calls(cfg, "unet")}
+    return [pytest.param(shape, shape[:-2] in unet, id="-".join(map(str, shape[:5])))
+            for shape in chip_smoke.gn_shapes(cfg)]
+
+
+@pytest.mark.parametrize("shape,is_unet", _path_shapes())
+def test_path_shapes_take_one_cluster_launch(shape, is_unet):
+    """Every GroupNorm shape of the SD-1.5 paths takes the TMA route in one
+    launch: every UNet shape (at most 7.9 MB an image) resident, x read
+    once; the 512^2 VAE slabs (67 and 134 MB an image, more than a cluster
+    holds at any block width) stream; the VAE's 128^2 and 256^2 slabs
+    stream where a unit passes 512 KB."""
+    b, c, h, w, g, eps, dtype, silu = shape
+    x = torch.empty((b, c, h, w), dtype=getattr(torch, dtype),
+                    memory_format=torch.channels_last)  # not touched: the plan reads the shape
+    plan = G.launch_plan(x, g)
+    if is_unet:
+        assert plan["route"] == "resident"
+    elif (h, w) == (512, 512):
+        assert plan["route"] == "streamed"
+    else:
+        narrow = 64 // 2  # channels of the narrowest block of 64 bytes or more
+        unit = h * w * max(narrow, c // g) * 2
+        assert plan["route"] == ("streamed" if unit > 512 * 1024 else "resident")
+    assert plan["units"] <= 65535 and plan["cluster"] <= 16
+    assert plan["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("apply_silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reference_keeps_the_input_layout(dtype, apply_silu):
+    """The two-pass route returns channels-last for a channels-last input
+    (the convolution after it then needs no transpose) with the values of
+    the cast back alone, bit for bit; an NCHW input stays NCHW; the
+    gradient through it is unchanged."""
+    x, scale, bias = _case(c=32, seed=8)
+    kw = dict(num_groups=8, eps=1e-6, apply_silu=apply_silu)
+    nchw = _nchw(x).to(dtype)
+    cl = nchw.contiguous(memory_format=torch.channels_last)
+    sc, bs = torch.from_numpy(scale), torch.from_numpy(bias)
+
+    def before(t):  # the route as it was: the cast back only
+        y = torch.nn.functional.group_norm(t.float(), 8, sc, bs, 1e-6)
+        return (torch.nn.functional.silu(y) if apply_silu else y).to(t.dtype)
+
+    got = G.group_norm_reference(cl, sc, bs, **kw)
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+    assert torch.equal(got, before(cl))
+    flat = G.group_norm_reference(nchw, sc, bs, **kw)
+    assert flat.is_contiguous() and torch.equal(flat, before(nchw))
+    leaves = [cl.clone().requires_grad_(), sc.clone().requires_grad_()]
+    want = [t.clone().requires_grad_() for t in leaves]
+    ct = torch.from_numpy(np.random.default_rng(9).normal(size=cl.shape).astype(np.float32))
+    g_new = torch.autograd.grad(G.group_norm_reference(leaves[0], leaves[1], bs, **kw), leaves,
+                                ct.to(dtype))
+    y_old = torch.nn.functional.group_norm(want[0].float(), 8, want[1], bs, 1e-6)
+    y_old = (torch.nn.functional.silu(y_old) if apply_silu else y_old).to(dtype)
+    g_old = torch.autograd.grad(y_old, want, ct.to(dtype))
+    for a, e in zip(g_new, g_old):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kind", ["unet", "vae_encode", "vae_decode"])
