@@ -7,9 +7,10 @@ NVIDIA H100.
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
-     each instantiation's registers, stack and spills (and for each `gn::`
-     instantiation the routes, cluster sizes and shared memory of its plans
-     at the GroupNorm shapes; a spill there fails);
+     each instantiation's registers, stack and spills (a spill in a wgmma
+     or `gn::` instantiation fails), the backward kernels' shared memory,
+     and for each `gn::` instantiation the routes, cluster sizes and shared
+     memory of its plans at the GroupNorm shapes;
   2. hold each kernel against its plain PyTorch twin on the card at every
      shape of the SD-1.5 512^2 paths (bf16, and f32 at the VAE shape), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
@@ -18,7 +19,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      also against the two-pass float32 GroupNorm; the TCA VJP kernels on
      every output (composite, partials, logsumexps, dq, dk/dv of both key
      sets) at the TCA path shapes, with bggen, fully masked FG and f32
-     cases; `tca_flash` at the masks each path passes (edit for
+     cases, the backward kernels also at the masks path D passes (edit) and
+     at bggen, timed against their three-pass and live bounds, two calls
+     bit for bit, with teeth that a kernel skipping the live pass instead
+     of the dead one must fail; `tca_flash` at the masks each path passes (edit for
      `generation` and `guided_generation`, bggen for `background_generation`,
      each path's per-edit time weighted at its own), with teeth that a
      kernel skipping the live pass instead of the dead one must fail, and
@@ -207,23 +211,24 @@ def flash_smem_report() -> list:
     return rows
 
 
-def flash_bwd_smem_report() -> list:
-    """Dynamic shared memory of the `flash_sdpa_bwd_{dq,dkv}` wgmma
-    instantiations, one line per instantiation (kernel, consumer warpgroups:
-    one and two at every head dim, three at the small ones; head dims walked
-    in steps of 8, a new line where the bytes change)."""
+def bwd_smem_report(source: str, kernels) -> list:
+    """Dynamic shared memory of the bf16 wgmma instantiations of a backward
+    source (`flash_sdpa_bwd`, `tca_flash_bwd`; kernels: dQ then dK/dV), one
+    line per instantiation (consumer warpgroups: one and two at every head
+    dim, three where there is an instantiation; head dims walked in steps of
+    8, a new line where the bytes change)."""
     import torch
 
     from freefine_tpu_torch.ops import cuda_build
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    lib = cuda_build.library("flash_sdpa_bwd")
+    smem_bytes = getattr(cuda_build.library(source), f"{source}_smem_bytes")
     rows = []
-    for kernel, name in enumerate(("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv")):
+    for kernel, name in enumerate(kernels):
         for wgs in (1, 2, 3):
             last = None
             for d in range(8, FA._MAX_HEAD_DIM[name][torch.bfloat16] + 1, 8):
-                smem = lib.flash_sdpa_bwd_smem_bytes(d, kernel, wgs)
+                smem = smem_bytes(d, kernel, wgs)
                 if smem < 0 and wgs < 3:  # one and two exist at every head dim
                     raise AssertionError(f"{name}: no bf16 instantiation for head dim {d}")
                 if smem != last and smem >= 0:
@@ -233,6 +238,14 @@ def flash_bwd_smem_report() -> list:
                         f"{d}: {smem} bytes of dynamic shared memory")
                     last = smem
     return rows
+
+
+def wgmma_spills(ptxas) -> None:
+    """Fail on a spill in any wgmma instantiation (phase 1's ptxas rows)."""
+    for r in ptxas:
+        if "wgmma" in r["function"] and not ("0 bytes spill stores" in r["properties"]
+                                             and "0 bytes spill loads" in r["properties"]):
+            raise AssertionError(f"{r['function']} spills: {r['properties']}")
 
 
 def ptxas_report(libs) -> list:
@@ -486,10 +499,11 @@ def check_flash(gen, shape, timed: bool):
     return row
 
 
-# The masks each path passes to `tca_flash` after the parity split, the
-# layout its per-edit time is weighted at (`summarize`): `generation` and
-# `guided_generation` the edit layout, `background_generation` the bggen one.
-TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen"}
+# The masks each path passes to the TCA kernels after the parity split, the
+# layout its per-edit time is weighted at (`summarize`): `generation`,
+# `guided_generation` and the differentiated edit pass D the edit layout,
+# `background_generation` the bggen one.
+TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -522,6 +536,12 @@ def tca_layouts(seq: int, device: str = "cuda"):
     return {"edit": (parity_rows(fg_ref, streams), parity_rows(tgt, streams)),
             "bggen": (parity_rows(1.0 - obj, streams), torch.ones(2 * streams, seq,
                                                                    device=device))}
+
+
+def _layout_numbers(lay):
+    """A layout entry's times and bounds, for its row's own numbers (the
+    row keeps its worst error over every layout)."""
+    return {k: v for k, v in lay.items() if k not in ("err_over_tol", "swapped_pass_err_over_tol")}
 
 
 def _tca_swapped(ops, h):
@@ -594,7 +614,8 @@ def check_tca(gen, shape, timed: bool):
         live = tca_bound(ops, h, dtype, True)
         lay = row["layouts"][name] = dict(
             dead_pass_tile_share=float(FA.tca_dead_passes(tq).any(-1).float().mean()),
-            passes_per_row=live["passes_per_row"])
+            passes_per_row=live["passes_per_row"],
+            err_over_tol=row["tensors"][name]["err_over_tol"])
         if not timed or name == "parity":
             continue
         n = min(DROP_KEYS, s // 2)
@@ -602,7 +623,8 @@ def check_tca(gen, shape, timed: bool):
             q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg, heads=h), row,
             tensor=name)
         swapped = err_over_tol(compare(_tca_swapped(ops, h), ref), dtype, "tca_flash")
-        row["tensors"][name]["swapped_pass_err_over_tol"] = swapped
+        row["tensors"][name]["swapped_pass_err_over_tol"] = lay["swapped_pass_err_over_tol"] = \
+            swapped
         if swapped <= 1.0:
             raise AssertionError(f"tca_flash: the limits accept a kernel that skips the live "
                                  f"pass ({name}): {row}")
@@ -614,7 +636,7 @@ def check_tca(gen, shape, timed: bool):
             row["plain_ms"] = cuda_ms(lambda: FA.tca_flash_reference(*ops, heads=h), n)
         lay.update(plain_ms=row["plain_ms"], library_ms=None, library_graph_ms=None)
     if timed:  # the row's own numbers: the edit layout's (paths G and E)
-        row.update(row["layouts"]["edit"])
+        row.update(_layout_numbers(row["layouts"]["edit"]))
         row["swapped_pass_err_over_tol"] = min(
             row["tensors"][n]["swapped_pass_err_over_tol"] for n in ("edit", "bggen"))
     return row
@@ -794,10 +816,80 @@ def _hold_lse(name, lse, ref, row, tensor):
     row["tensors"][tensor]["fully_masked_rows"] = int(full.sum())
 
 
+def tca_bwd_exps(ops, lse, h) -> float:
+    """Exponentials the bf16 TCA backward kernels need on these masks and
+    logsumexps (`csrc/tca_flash_bwd.cu`): per (query, key) one for self,
+    and for the mod logit one where the key's fg is 0 or 1 and every pass
+    that weights the row has a real logsumexp (above TCA_REAL_LSE), else one
+    per live pass of the row's 64-query tile (`tca_dead_passes`).  Each of
+    the two kernels takes them all."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    q, fg, tq, cg = ops[0], ops[5], ops[6], ops[7]
+    s = q.shape[1]
+    dead = FA.tca_dead_passes(tq).repeat_interleave(FA.TCA_TILE_ROWS, dim=1)[:, :s]
+    n_live = (~dead[..., 1:]).sum(-1).float()[:, None, :]  # [b, 1, s] live mod passes
+    w = FA._tca_weights(tq, cg)[1:, :, 0]  # [2, b, s]
+    real = ((lse[1:] > FA.TCA_REAL_LSE) | (w[:, :, None, :] == 0)).all(0)  # [b, h, s]
+    binary = ((fg == 0) | (fg == 1)).float().sum(-1)[:, None, None]  # [b, 1, 1] keys
+    mod = torch.where(real, binary + (s - binary) * n_live, s * n_live)
+    return float((s + mod).sum())
+
+
+def _tca_bwd_swapped(res, h):
+    """The TCA VJP twins as kernels that skipped the wrong pass would give
+    them: in each 64-query tile where one mod pass is dead, the other, live,
+    pass's P zeroed instead.  -> (dq, dk_self, dv_self, dk_mod, dv_mod)."""
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    q, ks, vs, km, vm, fg, tq, cg, do, lse, delta = res
+    probs = FA.tca_probs(q, ks, km, fg, lse, heads=h)
+    dead = FA.tca_dead_passes(tq).repeat_interleave(FA.TCA_TILE_ROWS, dim=1)[:, : tq.shape[1]]
+    probs[1] = probs[1].masked_fill(dead[:, None, :, None, 2], 0.0)  # BG dead: FG zeroed
+    probs[2] = probs[2].masked_fill(dead[:, None, :, None, 1], 0.0)  # FG dead: BG zeroed
+    terms = FA.tca_grad_terms(probs, vs, vm, tq, cg, do, delta, heads=h)
+    del probs
+    return (FA.tca_dq_from_terms(terms, q, ks, km, heads=h),
+            *FA.tca_dkv_from_terms(terms, q, do, ks, vs, km, vm, heads=h))
+
+
+TCA_DKV_NAMES = ("dk_self", "dv_self", "dk_mod", "dv_mod")
+
+
+def _tca_bwd_layout(row, kname, ops, lse, h, costs, sfx):
+    """A backward kernel's entry for one mask layout: its error, the dead
+    64-query tiles' share, the exponentials per (query, key) it needs
+    (`tca_bwd_exps`) and its live and three-pass bounds."""
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    q, tq = ops[0], ops[6]
+    b, s, _ = q.shape
+    work = float(b * h * s * s)
+    exps = tca_bwd_exps(ops, lse, h)
+    nbytes, flops = costs[kname]
+    names = ("dq",) if kname == "tca_flash_bwd_dq" else TCA_DKV_NAMES
+    return dict(
+        bound(nbytes, flops, exps, row["dtype"]),
+        three_pass_bound_ms=bound(nbytes, flops, 3.0 * work, row["dtype"])["bound_ms"],
+        exps_per_pair=exps / work,
+        dead_pass_tile_share=float(FA.tca_dead_passes(tq).any(-1).float().mean()),
+        err_over_tol=max(row["tensors"][n + sfx]["err_over_tol"] for n in names))
+
+
 def check_tca_grad(gen, shape, timed: bool):
     """The three kernels of the differentiable TCA at one shape: {kernel
     name: row}.  The backward kernels and their twins get the same
-    residuals (the twin's partials, logsumexps and row sums) and dO."""
+    residuals (the twin's partials, logsumexps and row sums) and dO.  Every
+    shape: held at its masks (timed shapes: the random parity rows, with
+    dropped-tile teeth and the three kernels timed there), and two calls of
+    each backward kernel bit for bit.  Timed shapes also at the masks the
+    paths pass (`tca_layouts`: edit, the layout of path D, and bggen),
+    where the backward kernels are held, timed against their three-pass and
+    live bounds (`tca_bwd_exps`), and their twins with the live pass zeroed
+    instead of the dead one must fail the limits; the rows' own numbers are
+    the edit layout's."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
@@ -805,75 +897,116 @@ def check_tca_grad(gen, shape, timed: bool):
     b, h, s, d, dtype, *kind = shape
     kind = kind[0] if kind else "parity"
     q, ks, vs, km, vm, do = _inputs(gen, b, h, s, d, dtype, 6)
-    fg, tq = _tca_masks(gen, b, s, kind)
     cg = 0.7
-    ops = (q, ks, vs, km, vm, fg, tq, cg)
+    layouts = {kind: _tca_masks(gen, b, s, kind)}
+    if timed:
+        layouts.update(tca_layouts(s, gen.device.type))
     base = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
                 masks=kind, key=(b, h, s, s, d, dtype, True))
     rows = {n: dict(base) for n in TCA_GRAD_KERNELS}
-    out, parts, lse = FA.tca_flash_fwd_lse(*ops, heads=h)
-    ref_out, ref_parts, ref_lse = FA.tca_flash_fwd_lse_reference(*ops, heads=h)
-    delta = FA.tca_row_deltas(ref_parts, do, tq, cg, heads=h)
-    res = (*ops, do, ref_lse, delta)
-    dq = FA.tca_flash_bwd_dq(*res, heads=h)
-    dkv = FA.tca_flash_bwd_dkv(*res, heads=h)
-    ref_dq = FA.tca_flash_bwd_dq_reference(*res, heads=h)
-    ref_dkv = FA.tca_flash_bwd_dkv_reference(*res, heads=h)
-    torch.cuda.synchronize()
-    r = rows["tca_flash_fwd_lse"]
-    _hold("tca_flash_fwd_lse", out, ref_out, r, tensor="out")
-    for i, p in enumerate(TCA_PASSES):
-        _hold("tca_flash_fwd_lse", parts[i], ref_parts[i], r, tensor=f"o_{p}")
-        _hold_lse("tca_flash_fwd_lse", lse[i], ref_lse[i], r, tensor=f"lse_{p}")
-    _hold("tca_flash_bwd_dq", dq, ref_dq, rows["tca_flash_bwd_dq"], tensor="dq")
-    dkv_names = ("dk_self", "dv_self", "dk_mod", "dv_mod")
-    for name, got, want in zip(dkv_names, dkv, ref_dkv):
-        _hold("tca_flash_bwd_dkv", got, want, rows["tca_flash_bwd_dkv"], tensor=name)
-    if not timed:
-        return rows
-
-    n = min(DROP_KEYS, s // 2)
-    kept = (q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg)
-    drop_out, drop_parts, _ = FA.tca_flash_fwd_lse_reference(*kept, heads=h)
-    _teeth("tca_flash_fwd_lse", ref_out, drop_out, r, tensor="out")
-    for i, p in enumerate(TCA_PASSES):
-        _teeth("tca_flash_fwd_lse", ref_parts[i], drop_parts[i], r, tensor=f"o_{p}")
-    _teeth("tca_flash_bwd_dq", ref_dq, FA.tca_flash_bwd_dq_reference(
-        *kept, do, ref_lse, delta, heads=h), rows["tca_flash_bwd_dq"], tensor="dq")
-    dropped = FA.tca_flash_bwd_dkv_reference(
-        q[:, n:], ks, vs, km, vm, fg, tq[:, n:], cg, do[:, n:], ref_lse[..., n:].contiguous(),
-        delta[..., n:].contiguous(), heads=h)
-    for name, want, drop in zip(dkv_names, ref_dkv, dropped):
-        _teeth("tca_flash_bwd_dkv", want, drop, rows["tca_flash_bwd_dkv"], what="query",
-               tensor=name)
-
+    iters = 3 if s >= 4096 else 10
     # bytes: operands read once and outputs written once; operations: the
     # products these kernels do (csrc/tca_flash.cu, csrc/tca_flash_bwd.cu)
-    # and three exponentials per (query, key)
+    # and three exponentials per (query, key), or (live) what the masks
+    # leave the bf16 backward kernels
     it, el, bh = q.element_size(), b * s * h * d, b * h
     work = float(bh * s * s)
     masks, stats = 2 * b * s * 4, 3 * bh * s * 4
-    rows["tca_flash_fwd_lse"].update(bound(6 * el * it + 3 * el * 4 + masks + stats,
-                                           10.0 * work * d, 3.0 * work, dtype))
-    rows["tca_flash_bwd_dq"].update(bound(7 * el * it + masks + 2 * stats, 12.0 * work * d,
-                                          3.0 * work, dtype))
-    rows["tca_flash_bwd_dkv"].update(bound(10 * el * it + masks + 2 * stats, 16.0 * work * d,
-                                           3.0 * work, dtype))
-    iters = 3 if s >= 4096 else 10
-    timings = {
-        "tca_flash_fwd_lse": (lambda: FA.tca_flash_fwd_lse(*ops, heads=h),
-                              lambda: FA.tca_flash_fwd_lse_reference(*ops, heads=h)),
-        "tca_flash_bwd_dq": (lambda: FA.tca_flash_bwd_dq(*res, heads=h),
-                             lambda: FA.tca_flash_bwd_dq_reference(*res, heads=h)),
-        "tca_flash_bwd_dkv": (lambda: FA.tca_flash_bwd_dkv(*res, heads=h),
-                              lambda: FA.tca_flash_bwd_dkv_reference(*res, heads=h)),
-    }
-    for name, (kern, plain) in timings.items():
-        rows[name]["kernel_ms"] = cuda_ms(kern, iters)
-        rows[name]["plain_ms"] = cuda_ms(plain, iters)
-        rows[name]["kernel_graph_ms"] = graph_ms(kern)
-        # no single PyTorch call computes TCA
-        rows[name]["library_ms"] = rows[name]["library_graph_ms"] = None
+    costs = {"tca_flash_fwd_lse": (6 * el * it + 3 * el * 4 + masks + stats, 10.0 * work * d),
+             "tca_flash_bwd_dq": (7 * el * it + masks + 2 * stats, 12.0 * work * d),
+             "tca_flash_bwd_dkv": (10 * el * it + masks + 2 * stats, 16.0 * work * d)}
+    for name, (fg, tq) in layouts.items():
+        sfx = "" if name == kind else f" {name}"
+        ops = (q, ks, vs, km, vm, fg, tq, cg)
+        out, parts, lse = FA.tca_flash_fwd_lse(*ops, heads=h)
+        ref_out, ref_parts, ref_lse = FA.tca_flash_fwd_lse_reference(*ops, heads=h)
+        delta = FA.tca_row_deltas(ref_parts, do, tq, cg, heads=h)
+        res = (*ops, do, ref_lse, delta)
+        dq = FA.tca_flash_bwd_dq(*res, heads=h)
+        dkv = FA.tca_flash_bwd_dkv(*res, heads=h)
+        ref_dq = FA.tca_flash_bwd_dq_reference(*res, heads=h)
+        ref_dkv = FA.tca_flash_bwd_dkv_reference(*res, heads=h)
+        torch.cuda.synchronize()
+        r = rows["tca_flash_fwd_lse"]
+        _hold("tca_flash_fwd_lse", out, ref_out, r, tensor="out" + sfx)
+        for i, p in enumerate(TCA_PASSES):
+            _hold("tca_flash_fwd_lse", parts[i], ref_parts[i], r, tensor=f"o_{p}{sfx}")
+            _hold_lse("tca_flash_fwd_lse", lse[i], ref_lse[i], r, tensor=f"lse_{p}{sfx}")
+        _hold("tca_flash_bwd_dq", dq, ref_dq, rows["tca_flash_bwd_dq"], tensor="dq" + sfx)
+        for tname, got, want in zip(TCA_DKV_NAMES, dkv, ref_dkv):
+            _hold("tca_flash_bwd_dkv", got, want, rows["tca_flash_bwd_dkv"], tensor=tname + sfx)
+        # no atomics, a fixed order of sums: a second call gives the same bits
+        again = (FA.tca_flash_bwd_dq(*res, heads=h), *FA.tca_flash_bwd_dkv(*res, heads=h))
+        if not all(torch.equal(x, y) for x, y in zip((dq, *dkv), again)):
+            raise AssertionError(f"TCA backward kernels: two calls differ at {shape} ({name})")
+        for kname in ("tca_flash_bwd_dq", "tca_flash_bwd_dkv"):
+            rows[kname]["bit_identical_calls"] = True
+        if not timed:
+            continue
+        if name == kind:
+            n = min(DROP_KEYS, s // 2)
+            kept = (q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg)
+            drop_out, drop_parts, _ = FA.tca_flash_fwd_lse_reference(*kept, heads=h)
+            _teeth("tca_flash_fwd_lse", ref_out, drop_out, r, tensor="out")
+            for i, p in enumerate(TCA_PASSES):
+                _teeth("tca_flash_fwd_lse", ref_parts[i], drop_parts[i], r, tensor=f"o_{p}")
+            _teeth("tca_flash_bwd_dq", ref_dq, FA.tca_flash_bwd_dq_reference(
+                *kept, do, ref_lse, delta, heads=h), rows["tca_flash_bwd_dq"], tensor="dq")
+            dropped = FA.tca_flash_bwd_dkv_reference(
+                q[:, n:], ks, vs, km, vm, fg, tq[:, n:], cg, do[:, n:],
+                ref_lse[..., n:].contiguous(), delta[..., n:].contiguous(), heads=h)
+            for tname, want, drop in zip(TCA_DKV_NAMES, ref_dkv, dropped):
+                _teeth("tca_flash_bwd_dkv", want, drop, rows["tca_flash_bwd_dkv"],
+                       what="query", tensor=tname)
+            timings = {
+                "tca_flash_fwd_lse": (lambda: FA.tca_flash_fwd_lse(*ops, heads=h),
+                                      lambda: FA.tca_flash_fwd_lse_reference(*ops, heads=h)),
+                "tca_flash_bwd_dq": (lambda: FA.tca_flash_bwd_dq(*res, heads=h),
+                                     lambda: FA.tca_flash_bwd_dq_reference(*res, heads=h)),
+                "tca_flash_bwd_dkv": (lambda: FA.tca_flash_bwd_dkv(*res, heads=h),
+                                      lambda: FA.tca_flash_bwd_dkv_reference(*res, heads=h)),
+            }
+            for kname, (kern, plain) in timings.items():
+                nbytes, flops = costs[kname]
+                rows[kname].update(bound(nbytes, flops, 3.0 * work, dtype))
+                rows[kname]["kernel_ms"] = cuda_ms(kern, iters)
+                rows[kname]["plain_ms"] = cuda_ms(plain, iters)
+                rows[kname]["kernel_graph_ms"] = graph_ms(kern)
+                # no single PyTorch call computes TCA
+                rows[kname]["library_ms"] = rows[kname]["library_graph_ms"] = None
+                if kname != "tca_flash_fwd_lse":
+                    lay = _tca_bwd_layout(rows[kname], kname, ops, ref_lse, h, costs, sfx)
+                    lay.update({k: rows[kname][k] for k in (
+                        "kernel_ms", "kernel_graph_ms", "plain_ms", "library_ms",
+                        "library_graph_ms")})
+                    rows[kname]["layouts"] = {name: lay}
+            continue
+        # the backward kernels at a path's masks: swapped-pass teeth, timed
+        swapped = _tca_bwd_swapped(res, h)
+        torch.cuda.synchronize()
+        teeth = {"tca_flash_bwd_dq": (("dq", ref_dq, swapped[0]),),
+                 "tca_flash_bwd_dkv": (("dk_mod", ref_dkv[2], swapped[3]),
+                                       ("dv_mod", ref_dkv[3], swapped[4]))}
+        kerns = {"tca_flash_bwd_dq": lambda: FA.tca_flash_bwd_dq(*res, heads=h),
+                 "tca_flash_bwd_dkv": lambda: FA.tca_flash_bwd_dkv(*res, heads=h)}
+        for kname, kern in kerns.items():
+            lay = _tca_bwd_layout(rows[kname], kname, ops, ref_lse, h, costs, sfx)
+            lay["swapped_pass_err_over_tol"] = min(
+                err_over_tol(compare(bad, want), dtype, kname) for _, want, bad in teeth[kname])
+            if lay["swapped_pass_err_over_tol"] <= 1.0:
+                raise AssertionError(f"{kname}: the limits accept a kernel that skips the live "
+                                     f"pass ({name}): {lay}")
+            lay["kernel_ms"] = cuda_ms(kern, iters)
+            lay["kernel_graph_ms"] = graph_ms(kern)
+            lay.update(plain_ms=rows[kname]["plain_ms"], library_ms=None, library_graph_ms=None)
+            rows[kname]["layouts"][name] = lay
+        del swapped
+    if timed:  # the backward rows' own numbers: the edit layout's (path D)
+        for kname in ("tca_flash_bwd_dq", "tca_flash_bwd_dkv"):
+            row = rows[kname]
+            row.update(_layout_numbers(row["layouts"]["edit"]))
+            row["swapped_pass_err_over_tol"] = min(
+                row["layouts"][n]["swapped_pass_err_over_tol"] for n in ("edit", "bggen"))
     return rows
 
 
@@ -1235,13 +1368,15 @@ def _log_row(name, r, timed):
                 "launches per call counted last)")
     log(msg)
     for name, lay in r.get("layouts", {}).items():
-        msg = (f"    masks {name}: {r['tensors'][name]['err_over_tol']:.3f} of tol, "
-               f"{lay['dead_pass_tile_share']:.3f} of the 64-row tiles with a dead pass, "
-               f"{lay['passes_per_row']:.3f} live passes a row")
+        work = (f"{lay['passes_per_row']:.3f} live passes a row" if "passes_per_row" in lay
+                else f"{lay['exps_per_pair']:.3f} exponentials a (query, key)")
+        msg = (f"    masks {name}: {lay['err_over_tol']:.3f} of tol, "
+               f"{lay['dead_pass_tile_share']:.3f} of the 64-row tiles with a dead pass, {work}")
         if "kernel_ms" in lay:
-            msg += (f"; swapped pass {r['tensors'][name]['swapped_pass_err_over_tol']:.3g} of "
-                    f"tol; kernel {lay['kernel_ms']:.4f} ms, in CUDA graphs "
-                    f"{lay['kernel_graph_ms']:.4f} ms; live-pass bound {lay['bound_ms']:.4f} ms "
+            if "swapped_pass_err_over_tol" in lay:
+                msg += f"; swapped pass {lay['swapped_pass_err_over_tol']:.3g} of tol"
+            msg += (f"; kernel {lay['kernel_ms']:.4f} ms, in CUDA graphs "
+                    f"{lay['kernel_graph_ms']:.4f} ms; live bound {lay['bound_ms']:.4f} ms "
                     f"({lay['bound_ms'] / lay['kernel_graph_ms']:.3f} of the graph time), "
                     f"three-pass bound {lay['three_pass_bound_ms']:.4f} ms "
                     f"({lay['three_pass_bound_ms'] / lay['kernel_graph_ms']:.3f})")
@@ -1988,7 +2123,11 @@ def main():
 
     record["ptxas"] = ptxas_report(libs)
     record["flash_smem"] = flash_smem_report()
-    record["flash_bwd_smem"] = flash_bwd_smem_report()
+    wgmma_spills(record["ptxas"])
+    record["flash_bwd_smem"] = bwd_smem_report(
+        "flash_sdpa_bwd", ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"))
+    record["tca_bwd_smem"] = bwd_smem_report(
+        "tca_flash_bwd", ("tca_flash_bwd_dq", "tca_flash_bwd_dkv"))
 
     from freefine_tpu_torch.config import sd15_pipeline_config
 

@@ -1,7 +1,7 @@
 // Shared pieces of the hand-written attention kernels (flash_sdpa.cu,
 // tca_flash.cu and their backward kernels): tile loads from the [B, S, H*D]
-// layout into shared memory, warp reductions, the mask rounding, the
-// tensor-core and FMA product helpers and the dtype helpers.
+// layout into shared memory, warp reductions, the mask rounding, the FMA
+// product helpers and the dtype helpers.
 //
 // Conventions shared with the plain PyTorch twins in
 // freefine_tpu_torch/ops/flash_attention.py:
@@ -12,9 +12,8 @@
 //   * keys past the sequence end are excluded (probability exactly 0);
 //   * with bf16 operands the probabilities are rounded to bf16 before the
 //     P.V product, whose sum stays float32.
-// The mma.sync pieces below serve the TCA backward kernels and the float32
-// pieces the FMA kernels; the forward kernels' bf16 routes and the flash
-// backward's run wgmma (hopper.cuh).
+// The float32 pieces serve the FMA kernels; every bf16 route runs wgmma
+// (hopper.cuh, attention_bwd.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,113 +91,13 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base, int row
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core pieces for the bf16 kernels: mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  Fragment layout, with g = lane / 4 and t = lane % 4:
-//   A (16x16, row major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//                         a3 = (g+8, 2t+8..)
-//   B (16x8, "col"):      b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
-//   C (16x8, f32):        c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
-// Shared-memory tiles are bf16 with rows padded by 8 elements, which makes the
-// 32-bit fragment loads of the 8 rows x 4 columns a warp touches hit 32
-// distinct banks for every width that is a multiple of 16.
-// ---------------------------------------------------------------------------
-
+// bf16 storage type of the kernels' operands.
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Two floats -> packed bf16x2 (lo in the low half), round to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + nrows) of one head into a bf16 tile [nrows][COLS + 8],
-// 16 bytes per copy; rows past rows_valid and columns past d are zero.
-template <int COLS>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base, int row0, int nrows,
-                                               int rows_valid, int stride, int d, int tid,
-                                               int nthreads) {
-  constexpr int kChunks = COLS / 8;
-  constexpr int kLd = COLS + 8;
-  for (int idx = tid; idx < nrows * kChunks; idx += nthreads) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const int s = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s < rows_valid && c < d) v = *reinterpret_cast<const uint4*>(base + (size_t)s * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = v;
-  }
-}
-
-// The same rows stored transposed: dst[c][r] with row stride NROWS + 8, so
-// that P.V reads V's columns as contiguous pairs of keys.
-template <int COLS, int NROWS>
-__device__ __forceinline__ void load_tile_bf16_t(bf16* dst, const bf16* base, int row0,
-                                                 int rows_valid, int stride, int d, int tid,
-                                                 int nthreads) {
-  constexpr int kChunks = COLS / 8;
-  constexpr int kLd = NROWS + 8;
-  for (int idx = tid; idx < NROWS * kChunks; idx += nthreads) {
-    const int r = idx % NROWS;  // consecutive threads: consecutive keys
-    const int c = (idx / NROWS) * 8;
-    const int s = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s < rows_valid && c < d) v = *reinterpret_cast<const uint4*>(base + (size_t)s * stride + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * kLd + r] = e[i];
-  }
-}
-
-// o[16 x 8*OT] += P (16 x 8*NT, rounded to bf16) . V_tile; V stored
-// transposed in shared memory as vt[8*OT][LDV].
-template <int NT, int OT, int LDV>
-__device__ __forceinline__ void pv_tile(float (&o)[OT][4], const float (&p)[NT][4],
-                                        const bf16* vt, int g, int t) {
-#pragma unroll
-  for (int kt = 0; kt < NT / 2; ++kt) {
-    const uint32_t pa[4] = {
-        pack_bf16(p[2 * kt][0], p[2 * kt][1]), pack_bf16(p[2 * kt][2], p[2 * kt][3]),
-        pack_bf16(p[2 * kt + 1][0], p[2 * kt + 1][1]),
-        pack_bf16(p[2 * kt + 1][2], p[2 * kt + 1][3])};
-#pragma unroll
-    for (int ot = 0; ot < OT; ++ot) {
-      const bf16* vr = vt + (ot * 8 + g) * LDV + kt * 16 + 2 * t;
-      mma_bf16(o[ot], pa, ld_u32(vr), ld_u32(vr + 8));
-    }
-  }
-}
-
-// c[16 x 8*NT] = A . B^T with A the 16 rows at `as` and B the 8*NT rows at
-// `bs`, both bf16 in shared memory with row stride LD and depth 16*KT.
-template <int KT, int NT, int LD>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const bf16* as, const bf16* bs, int g,
-                                        int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const bf16* r0 = as + g * LD + kt * 16 + 2 * t;
-    const bf16* r1 = r0 + 8 * LD;
-    const uint32_t a[4] = {ld_u32(r0), ld_u32(r1), ld_u32(r0 + 8), ld_u32(r1 + 8)};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* br = bs + (nt * 8 + g) * LD + kt * 16 + 2 * t;
-      mma_bf16(c[nt], a, ld_u32(br), ld_u32(br + 8));
-    }
-  }
 }
 
 // Backward kernels, float32: dot product of two rows of DP floats in shared

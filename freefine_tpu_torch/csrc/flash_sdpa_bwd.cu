@@ -32,7 +32,8 @@
 //
 // Route 1, bf16 (every SD-1.5 call, d <= 160): warp-specialised wgmma
 // kernels, the structure of the forward's `flash_fwd_wgmma_kernel`
-// (flash_sdpa.cu) on the helpers of hopper.cuh.  A CTA runs one producer
+// (flash_sdpa.cu) on the helpers of hopper.cuh and attention_bwd.cuh (the
+// latter shared with the TCA backward).  A CTA runs one producer
 // and NC consumer warpgroups; each consumer owns 64 resident rows.
 //   * dQ (`dq_wgmma_kernel`): the resident rows are queries.  The producer
 //     warp loads Q and dO once, then keeps a ring of K/V tiles of BK keys
@@ -87,8 +88,7 @@
 // structure of the forward's f32 kernels before their TF32 redesign.
 //
 // Measured times against the bound: PERF.md.
-#include "attention_common.cuh"
-#include "hopper.cuh"
+#include "attention_bwd.cuh"
 
 namespace ff {
 
@@ -97,9 +97,6 @@ namespace ff {
 // ---------------------------------------------------------------------------
 
 namespace wgb {
-
-constexpr float kLog2e = 1.4426950408889634f;
-using hopper::kPanel;
 
 // NC consumer warpgroups of 64 resident rows each (queries for dQ, keys for
 // dK/dV) and one producer warpgroup streaming tiles of BT rows of the other
@@ -126,76 +123,6 @@ struct Cfg {
   static_assert(NC >= 1 && NC <= 3, "one to three consumer warpgroups");
   static_assert(kSmem <= 232448, "shared memory of one CTA");
 };
-
-// acc[64 x N] (+)= A . B^T over the padded head dim DK: A the 64 rows at
-// `a` of a K-major operand of a_rows rows a panel, B the N rows of a K-major
-// tile at `b`.  Issued, not committed.
-template <int N, int DK>
-__device__ __forceinline__ void ss_issue(float (&acc)[N / 2], uint32_t a, int a_rows, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the panel
-    const uint64_t da = hopper::desc_sw128(a + (kk / 4) * a_rows * 128 + off, 16, 1024);
-    const uint64_t db = hopper::desc_sw128(b + (kk / 4) * N * 128 + off, 16, 1024);
-    hopper::Wgmma<N>::ss(acc, da, db, kk > 0);
-  }
-}
-
-// acc[64 x DV] += A . B over the BT rows of a tile: A bf16 fragments in
-// registers, B the tile at `b` read MN-major (its 64-column panels BT * 128
-// bytes apart).  Issued, not committed.
-template <int DV, int BT>
-__device__ __forceinline__ void rs_issue(float (&acc)[DV / 2], const uint32_t (&a)[BT / 16][4],
-                                         uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk)
-    hopper::WgmmaRS<DV>::rs(acc, a[kk], hopper::desc_sw128(b + kk * 16 * 128, BT * 128, 1024));
-}
-
-// An accumulator of a 64 x N tile as the A fragments of a product over its
-// N columns, rounded to bf16.
-template <int N>
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[N / 16][4], const float (&acc)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
-  }
-}
-
-// A consumer thread's two rows of a 64 x DV accumulator -> bf16 row-major
-// global rows (stride e), times `mul`; columns past d and rows past `rows`
-// are not written.
-template <int DV>
-__device__ __forceinline__ void store_acc_rows(bf16* dst, const float (&acc)[DV / 2], int row0,
-                                           int rows, int e, int d, float mul, int t) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + 8 * hh;
-    if (row >= rows) continue;
-    bf16* orow = dst + (size_t)row * e;
-#pragma unroll
-    for (int i = 0; i < DV / 8; ++i) {
-      const int col = 8 * i + 2 * t;
-      if (col < d)
-        *reinterpret_cast<uint32_t*>(orow + col) =
-            pack_bf16(acc[4 * i + 2 * hh] * mul, acc[4 * i + 2 * hh + 1] * mul);
-    }
-  }
-}
-
-// Barriers: full[s] completes when the producer warp's 32 lanes have arrived
-// and the stage's bytes have landed; empty[s] when every consumer thread has
-// released the stage; res when the resident operands have landed.
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* res,
-                                              int stages, int consumers) {
-  for (int s = 0; s < stages; ++s) {
-    hopper::mbar_init(&full[s], 32);
-    hopper::mbar_init(&empty[s], consumers);
-  }
-  hopper::mbar_init(res, 1);
-  hopper::mbar_fence_init();
-}
 
 // The producer lane 0's loads of one stage: two tiles of BT rows at row r0.
 template <int PK, int BT>
@@ -697,35 +624,6 @@ cudaError_t launch(const BwdArgs& a) {
   }
 #undef FF_BWD_LAUNCH
   return cudaGetLastError();
-}
-
-// The SMs of the current device (the grid rule's yardstick), read once.
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
-// Consumer warpgroups per CTA, of 1 .. max_nc: the fewest waves of CTAs
-// over the SMs (one CTA an SM), ties to fewer warpgroups, whose CTAs finish
-// sooner.  A warpgroup's tile loop is bound by its own latency, so a CTA of
-// more warpgroups takes little longer: S 4096 at batch 1 takes two (256
-// CTAs, two waves), at batch 3 three (528 CTAs, four waves); S 1024 at batch
-// 1 takes one (128 CTAs, one wave, where two would leave half the SMs idle).
-inline int warpgroups(int rows, int bh, int max_nc) {
-  int best = 1;
-  long best_waves = -1;
-  for (int nc = 1; nc <= max_nc; ++nc) {
-    const long ctas = (long)((rows + 64 * nc - 1) / (64 * nc)) * bh;
-    const long waves = (ctas + sm_count() - 1) / sm_count();
-    if (best_waves < 0 || waves < best_waves) best = nc, best_waves = waves;
-  }
-  return best;
 }
 
 // The instantiation of one kernel for NC consumer warpgroups: tile BT and

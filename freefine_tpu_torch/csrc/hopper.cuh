@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the wgmma attention kernels in
-// flash_sdpa.cu (forward), flash_sdpa_bwd.cu (dQ, dK/dV) and tca_flash.cu
-// (the TCA forward), and of the cluster GroupNorm in group_norm.cu: wgmma
+// flash_sdpa.cu (forward), flash_sdpa_bwd.cu (dQ, dK/dV), tca_flash.cu
+// (the TCA forward) and tca_flash_bwd.cu (the TCA dQ, dK/dV), and of the
+// cluster GroupNorm in group_norm.cu: wgmma
 // instruction wrappers and shared-memory matrix descriptors, TMA tile loads
 // tracked by mbarriers, TMA tile stores, the host-side tensor maps they
 // read, cluster barriers, named barriers, register reallocation and the SFU

@@ -46,6 +46,7 @@ _SIGNATURES = {
                              _I, _P],
         "tca_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _F, _I, _P],
+        "tca_flash_bwd_smem_bytes": [_I, _I, _I],
     },
     "flash_sdpa_bwd": {
         "flash_sdpa_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],

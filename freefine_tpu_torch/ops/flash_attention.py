@@ -219,7 +219,8 @@ def tca_flash_fwd_lse_reference(
 
 
 # Query rows per consumer warpgroup of the bf16 `tca_flash` kernel
-# (csrc/tca_flash.cu): the unit over which it skips a pass.
+# (csrc/tca_flash.cu), and per tile of the bf16 TCA backward kernels
+# (csrc/tca_flash_bwd.cu): the unit over which they skip a pass.
 TCA_TILE_ROWS = 64
 
 
@@ -228,8 +229,10 @@ def tca_dead_passes(tq_mask: torch.Tensor) -> torch.Tensor:
     each batch row, as it decides on the device: [B, ceil(S/64), 3] bool
     (self, fg, bg).  BG where every tq of the tile is 1 (its weight
     cg * (1 - tq) is 0), else FG where every tq is 0; self never; rows past
-    S do not count.  `tca_flash_fwd_lse` skips nothing.  Plain math, for
-    the live-pass bound and the checks of chip_smoke.py."""
+    S do not count.  `tca_flash_fwd_lse` skips nothing; the bf16 backward
+    kernels (`tca_flash_bwd_dq`, `tca_flash_bwd_dkv`) skip the same passes
+    per 64-query tile.  Plain math, for the live-pass bounds and the checks
+    of chip_smoke.py."""
     b, s = tq_mask.shape
     n = -(-s // TCA_TILE_ROWS)
     pad = n * TCA_TILE_ROWS - s
@@ -237,6 +240,13 @@ def tca_dead_passes(tq_mask: torch.Tensor) -> torch.Tensor:
     ones = torch.nn.functional.pad(tq, (0, pad), value=1.0).reshape(b, n, -1).eq(1.0).all(-1)
     zeros = torch.nn.functional.pad(tq, (0, pad), value=0.0).reshape(b, n, -1).eq(0.0).all(-1)
     return torch.stack([torch.zeros_like(ones), zeros & ~ones, ones], dim=-1)
+
+
+# A pass's logsumexp above this is a real softmax's (within a few thousand
+# of 0); at or below it, a fully masked row's (-1e9 to f32 rounding).  The
+# bf16 TCA backward kernels take one exponential per k_mod logit only where
+# every row's live passes are above it (`kRealLse`, csrc/tca_flash_bwd.cu).
+TCA_REAL_LSE = -5e8
 
 
 def tca_row_deltas(parts, do, tq_mask, context_guidance, *, heads: int) -> torch.Tensor:
@@ -248,17 +258,24 @@ def tca_row_deltas(parts, do, tq_mask, context_guidance, *, heads: int) -> torch
     return (deltas * _tca_weights(tq_mask, context_guidance)).contiguous()
 
 
-def _tca_probs_and_ds(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance,
-                      do, lse, delta, heads: int):
-    """P of the three passes recomputed from the saved logsumexps, and
-    -> (P_self * w_self, w_fg * P_fg + w_bg * P_bg, dS_self, dS_mod), each
+def tca_probs(q, k_self, k_mod, fg_key_mask, lse, *, heads: int):
+    """P of the three passes recomputed from the saved logsumexps,
+    [self, fg, bg] each [B, H, S, S] float32: exp(logit - lse) of the
+    logits of `_tca_logits`.  A fully masked row recomputes P = 1 per key,
+    as JAX does."""
+    return [torch.exp(x - lse[i][..., None]) for i, x in
+            enumerate(_tca_logits(q, k_self, k_mod, fg_key_mask, heads))]
+
+
+def tca_grad_terms(probs, v_self, v_mod, tq_mask, context_guidance, do, delta, *, heads: int):
+    """The backward's per-(query, key) terms from the passes' P (`tca_probs`):
+    (P_self * w_self, w_fg * P_fg + w_bg * P_bg, dS_self, dS_mod), each
     [B, H, S, S] float32, with dS_x = P_x * (w_x * dO V^T - delta_x) and
-    dS_mod the sum of the FG and BG terms (both read V_mod).  A fully
-    masked row recomputes P = 1 per key, as JAX does; where its weight is 0
-    (the BG pass of an fg = 1 row) its terms are exactly 0."""
+    dS_mod the sum of the FG and BG terms (both read V_mod).  Where a
+    pass's weight is 0 (the BG pass of an fg = 1 row) its terms are exactly
+    0, whatever its P."""
+    p_self, p_fg, p_bg = probs
     w = _tca_weights(tq_mask, context_guidance)[..., None]
-    p_self, p_fg, p_bg = (torch.exp(x - lse[i][..., None]) for i, x in
-                          enumerate(_tca_logits(q, k_self, k_mod, fg_key_mask, heads)))
     dof = _heads(do, heads).float()
     dp_self = torch.matmul(dof, _heads(v_self, heads).float().transpose(-1, -2))
     dp_mod = torch.matmul(dof, _heads(v_mod, heads).float().transpose(-1, -2))
@@ -268,27 +285,22 @@ def _tca_probs_and_ds(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, con
     return p_self * w[0], w[1] * p_fg + w[2] * p_bg, ds_self, ds_mod
 
 
-def tca_flash_bwd_dq_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
-                               context_guidance, do, lse, delta, *, heads: int):
-    """Plain twin of `tca_flash_bwd_dq`:
-    dQ = (dS_self K_self + dS_mod K_mod) / sqrt(d), in q's dtype."""
+def tca_dq_from_terms(terms, q, k_self, k_mod, *, heads: int):
+    """dQ = (dS_self K_self + dS_mod K_mod) / sqrt(d) from `tca_grad_terms`,
+    in q's dtype."""
     d = q.shape[2] // heads
-    _, _, ds_self, ds_mod = _tca_probs_and_ds(q, k_self, v_self, k_mod, v_mod, fg_key_mask,
-                                              tq_mask, context_guidance, do, lse, delta, heads)
+    _, _, ds_self, ds_mod = terms
     dq = (torch.matmul(ds_self, _heads(k_self, heads).float())
           + torch.matmul(ds_mod, _heads(k_mod, heads).float())) * (1.0 / d**0.5)
     return _unheads(dq).to(q.dtype)
 
 
-def tca_flash_bwd_dkv_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
-                                context_guidance, do, lse, delta, *, heads: int):
-    """Plain twin of `tca_flash_bwd_dkv`: (dK_self, dV_self, dK_mod, dV_mod)
-    with dK_x = dS_x^T Q / sqrt(d) and dV_x = (weighted P_x)^T dO, in the
-    operands' dtypes."""
+def tca_dkv_from_terms(terms, q, do, k_self, v_self, k_mod, v_mod, *, heads: int):
+    """(dK_self, dV_self, dK_mod, dV_mod) from `tca_grad_terms`:
+    dK_x = dS_x^T Q / sqrt(d), dV_x = (weighted P_x)^T dO, in the operands'
+    dtypes."""
     d = q.shape[2] // heads
-    pw_self, pw_mod, ds_self, ds_mod = _tca_probs_and_ds(
-        q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask, context_guidance, do, lse, delta,
-        heads)
+    pw_self, pw_mod, ds_self, ds_mod = terms
     qf, dof = _heads(q, heads).float(), _heads(do, heads).float()
     out = []
     for ds, pw, k, v in ((ds_self, pw_self, k_self, v_self), (ds_mod, pw_mod, k_mod, v_mod)):
@@ -296,6 +308,27 @@ def tca_flash_bwd_dkv_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq
         dv = torch.matmul(pw.transpose(-1, -2), dof)
         out += [_unheads(dk).to(k.dtype), _unheads(dv).to(v.dtype)]
     return tuple(out)
+
+
+def tca_flash_bwd_dq_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
+                               context_guidance, do, lse, delta, *, heads: int):
+    """Plain twin of `tca_flash_bwd_dq`:
+    dQ = (dS_self K_self + dS_mod K_mod) / sqrt(d), in q's dtype."""
+    probs = tca_probs(q, k_self, k_mod, fg_key_mask, lse, heads=heads)
+    terms = tca_grad_terms(probs, v_self, v_mod, tq_mask, context_guidance, do, delta,
+                           heads=heads)
+    return tca_dq_from_terms(terms, q, k_self, k_mod, heads=heads)
+
+
+def tca_flash_bwd_dkv_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,
+                                context_guidance, do, lse, delta, *, heads: int):
+    """Plain twin of `tca_flash_bwd_dkv`: (dK_self, dV_self, dK_mod, dV_mod)
+    with dK_x = dS_x^T Q / sqrt(d) and dV_x = (weighted P_x)^T dO, in the
+    operands' dtypes."""
+    probs = tca_probs(q, k_self, k_mod, fg_key_mask, lse, heads=heads)
+    terms = tca_grad_terms(probs, v_self, v_mod, tq_mask, context_guidance, do, delta,
+                           heads=heads)
+    return tca_dkv_from_terms(terms, q, do, k_self, v_self, k_mod, v_mod, heads=heads)
 
 
 def tca_flash_bwd_reference(q, k_self, v_self, k_mod, v_mod, fg_key_mask, tq_mask,

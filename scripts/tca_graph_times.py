@@ -10,9 +10,11 @@ CHECKOUT (default: this repository) is the root of a checkout whose
 edit and bggen layouts, and random parity rows) and the timer
 (`chip_smoke.graph_ms`) come from this repository's `chip_smoke.py`, so two
 checkouts, a parent and a change, are timed alike: run them in turns in one
-call on one card.  Needs one CUDA card.  Prints one JSON line: ms per call,
-and per edit of each path (row 2 at the launches and masks of G, E and R;
-rows 6-8 per differentiated pass D).
+call on one card.  Needs one CUDA card.  Prints one JSON line: ms per call
+(rows 2, 7 and 8 at each layout, row 6 at the parity rows, whose results
+do not depend on the masks' layout), and per edit of each path (row 2 at
+the launches and masks of G, E and R; rows 6-8 per differentiated pass D,
+rows 7-8 at the edit masks D passes).
 """
 
 import importlib.util
@@ -51,16 +53,20 @@ def main():
         for name, (fg, tq) in masks.items():
             ops = (q, ks, vs, km, vm, fg, tq, 0.7)
             ms[f"tca_flash {s} {name}"] = cs.graph_ms(lambda: FA.tca_flash(*ops, heads=h))
-        _, parts, lse = FA.tca_flash_fwd_lse_reference(*ops, heads=h)
-        res = (*ops, do, lse, FA.tca_row_deltas(parts, do, tq, 0.7, heads=h))
+            _, parts, lse = FA.tca_flash_fwd_lse_reference(*ops, heads=h)
+            res = (*ops, do, lse, FA.tca_row_deltas(parts, do, tq, 0.7, heads=h))
+            del parts
+            for kern in ("tca_flash_bwd_dq", "tca_flash_bwd_dkv"):
+                fn = getattr(FA, kern)
+                ms[f"{kern} {s} {name}"] = cs.graph_ms(lambda: fn(*res, heads=h))
         ms[f"tca_flash_fwd_lse {s}"] = cs.graph_ms(lambda: FA.tca_flash_fwd_lse(*ops, heads=h))
-        ms[f"tca_flash_bwd_dq {s}"] = cs.graph_ms(lambda: FA.tca_flash_bwd_dq(*res, heads=h))
-        ms[f"tca_flash_bwd_dkv {s}"] = cs.graph_ms(lambda: FA.tca_flash_bwd_dkv(*res, heads=h))
     sizes = [shape[2] for shape in cs.TCA_SHAPES]
     per_edit = {f"tca_flash {path}": n * sum(ms[f"tca_flash {s} {masks}"] for s in sizes)
                 for path, n, masks in ROW2_PATHS}
-    for name in ("tca_flash_fwd_lse", "tca_flash_bwd_dq", "tca_flash_bwd_dkv"):
-        per_edit[f"{name} D"] = D_LAUNCHES * sum(ms[f"{name} {s}"] for s in sizes)
+    per_edit["tca_flash_fwd_lse D"] = D_LAUNCHES * sum(ms[f"tca_flash_fwd_lse {s}"]
+                                                       for s in sizes)
+    for name in ("tca_flash_bwd_dq", "tca_flash_bwd_dkv"):
+        per_edit[f"{name} D"] = D_LAUNCHES * sum(ms[f"{name} {s} edit"] for s in sizes)
     print(json.dumps({"checkout": checkout, "card": cs.card_line(), "per_call_ms": ms,
                       "per_edit_ms": per_edit}))
 

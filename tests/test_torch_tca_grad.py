@@ -10,7 +10,15 @@ Layout: B = 4 rows as after the head-parity split (rows 0-1 the even-head
 block, 2-3 the odd one), S = 128, 2 heads of 16.  Cases: random masks; the
 parity layout (odd block fg = tq = 1, so its BG pass masks every key with
 weight 0); a fully masked FG row (no fg key in batch row 0, weight
-cg * tq != 0); bggen-style tq = 1.
+cg * tq != 0); bggen-style tq = 1; and, for the checks of the bf16
+kernels' shortcuts, "blocks" (the parity layout with tq 1 on rows
+[S/4, S/2) of the even block and 0 elsewhere, as an object's rows give it:
+one 64-row tile with FG dead).
+
+The bf16 backward kernels (csrc/tca_flash_bwd.cu) skip the exponentials
+of a pass whose weight is 0 over a 64-query tile, and take one exponential
+per k_mod logit where the row's live logsumexps are real; the twin-level
+identities those shortcuts rest on are held here bit for bit.
 
 Tolerances: float32 forward composite and partials within 3e-5 absolute,
 logsumexps within 1e-4 (streaming vs materialised softmax); float32
@@ -29,6 +37,8 @@ JAX and to finiteness, not to autograd.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +66,7 @@ torch.set_num_threads(2)
 B, S, HEADS, D = 4, 128, 2, 16
 CG = 0.7
 CASES = ["random", "parity", "empty_fg", "bggen"]
+SKIP_CASES = ["random", "parity", "bggen", "empty_fg", "blocks"]
 
 
 def _inputs(case, seed):
@@ -74,6 +85,9 @@ def _inputs(case, seed):
         fg[0] = 0.0
     if case == "bggen":
         tq[:] = 1.0
+    if case == "blocks":
+        tq[: B // 2] = 0.0
+        tq[: B // 2, S // 4 : S // 2] = 1.0
     return (q, ks, vs, km, vm, fg, tq), do
 
 
@@ -389,3 +403,108 @@ def test_wrappers_reject_bad_operands():
         FA.tca_flash_fwd_lse(*args[:6], args[6][:, 1:], CG, heads=HEADS)
     with pytest.raises(ValueError):
         FA.tca_flash_fwd_lse(*args, CG, heads=3)
+
+
+def _residual_tensors(case):
+    """The case's operands, dO, and JAX's partials and logsumexps (interpret
+    mode) in the port's layout, with the backward's row sums."""
+    ops, do, _, _, res = _jax_residuals(case)
+    args = _t(*ops)
+    parts = torch.from_numpy(np.stack([_unheads(r) for r in res[:3]]))
+    lse = torch.from_numpy(np.stack([_unheads(r) for r in res[3:]]))
+    tdo = torch.from_numpy(do)
+    delta = FA.tca_row_deltas(parts, tdo, args[6], CG, heads=HEADS)
+    return args, tdo, lse, delta
+
+
+def _grads_from_probs(probs, args, tdo, delta):
+    terms = FA.tca_grad_terms(probs, args[2], args[4], args[6], CG, tdo, delta, heads=HEADS)
+    return (FA.tca_dq_from_terms(terms, args[0], args[1], args[3], heads=HEADS),
+            *FA.tca_dkv_from_terms(terms, args[0], tdo, *args[1:5], heads=HEADS))
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_tile_skipping_twin_equals_the_full_twin(case):
+    """Point 3 of the bf16 kernels: the twin with each dead pass's P zeroed
+    over its 64-query tiles (`tca_dead_passes`), and with P zeroed on every
+    row whose pass weight is 0 (the kernels give such rows lse = +inf),
+    gives dQ, dK and dV bit for bit."""
+    args, tdo, lse, delta = _residual_tensors(case)
+    want = (FA.tca_flash_bwd_dq_reference(*args, CG, tdo, lse, delta, heads=HEADS),
+            *FA.tca_flash_bwd_dkv_reference(*args, CG, tdo, lse, delta, heads=HEADS))
+    probs = FA.tca_probs(args[0], args[1], args[3], args[5], lse, heads=HEADS)
+    dead = FA.tca_dead_passes(args[6]).repeat_interleave(FA.TCA_TILE_ROWS, dim=1)[:, :S]
+    assert bool(dead.any()) == (case != "random")  # soft tq: no tile is dead
+    skipped = [p.masked_fill(dead[:, None, :, None, x], 0.0) for x, p in enumerate(probs)]
+    # what is skipped is not already zero (the odd block's BG P is 1 per key)
+    assert all(bool(p[dead[:, None, :, None, x].expand_as(p)].ne(0).any())
+               for x, p in enumerate(probs) if dead[..., x].any())
+    for got, w in zip(_grads_from_probs(skipped, args, tdo, delta), want):
+        assert torch.equal(got, w)
+    weights = FA._tca_weights(args[6], CG)[:, :, :, :, None]  # [3, B, 1, S, 1]
+    zero_w = [p.masked_fill(weights[x] == 0, 0.0) for x, p in enumerate(probs)]
+    for got, w in zip(_grads_from_probs(zero_w, args, tdo, delta), want):
+        assert torch.equal(got, w)
+
+
+def _mod_probs(case):
+    args, _, lse, _ = _residual_tensors(case)
+    _, p_fg, p_bg = FA.tca_probs(args[0], args[1], args[3], args[5], lse, heads=HEADS)
+    # the one k_mod logit (scaled, unmasked) and the lse of the key's live pass
+    logits = FA._logits(args[0], args[3], None, HEADS)
+    fg = args[5][:, None, None, :] == 1.0
+    lse_sel = torch.where(fg, lse[1][..., None], lse[2][..., None])
+    real = (lse[1] > FA.TCA_REAL_LSE) & (lse[2] > FA.TCA_REAL_LSE)  # [B, H, S] rows
+    return p_fg, p_bg, logits, lse_sel, real
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_one_exponential_per_mod_logit_on_real_rows(case):
+    """Point 4: on rows whose FG and BG softmaxes are both real, at most
+    one of P_fg and P_bg is non-zero per key, and their sum is
+    exp(logit - lse_sel) with lse_sel = fg ? lse_fg : lse_bg, bit for bit;
+    logsumexps from JAX's `_tca_fwd_lse` in interpret mode."""
+    p_fg, p_bg, logits, lse_sel, real = _mod_probs(case)
+    assert bool(real.any())
+    assert torch.equal((p_fg * p_bg)[real], torch.zeros_like(p_fg[real]))
+    assert torch.equal((p_fg + p_bg)[real], torch.exp(logits - lse_sel)[real])
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_fully_masked_rows_need_both_exponentials(case):
+    """On a fully masked row (a pass's lse is -1e9: the odd block's BG
+    rows, the FG rows of "empty_fg") P is 1 per key in that pass and the
+    other pass's P is not 0: the identity of point 4 fails on every such
+    row, so the kernels take both exponentials there.  The random masks
+    have no such row."""
+    p_fg, p_bg, logits, lse_sel, real = _mod_probs(case)
+    full = ~real
+    assert bool(full.any()) == (case != "random")
+    both = (p_fg * p_bg).ne(0).any(-1)
+    assert bool(both[full].all())
+    assert bool((p_fg + p_bg).ne(torch.exp(logits - lse_sel)).any(-1)[full].all())
+
+
+_CSRC = Path(FA.__file__).resolve().parents[1] / "csrc"
+
+
+@pytest.mark.parametrize("d", range(8, 81, 8))
+def test_every_bf16_head_dim_reaches_a_tca_bwd_instantiation(d):
+    """The FF_TCA_BWD_CONFIGS table of csrc/tca_flash_bwd.cu, parsed: every
+    bf16 head dim the wrappers admit maps to a wgmma instantiation whose
+    widths hopper.cuh has, with 64-query dK/dV tiles (the dead-pass unit),
+    and the mma.sync kernels are gone."""
+    src = (_CSRC / "tca_flash_bwd.cu").read_text()
+    table = re.search(r"#define FF_TCA_BWD_CONFIGS\(X\)(.*?)\n\n", src, re.S).group(1)
+    rows = [tuple(int(v) for v in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", table)]
+    hopper = (_CSRC / "hopper.cuh").read_text()
+    ss = {int(n) for n in re.findall(r"struct Wgmma<(\d+)> \{", hopper)}
+    rs = {int(n) for n in re.findall(r"struct WgmmaRS<(\d+)> \{", hopper)}
+    assert FA._MAX_HEAD_DIM["tca_flash_bwd_dq"][torch.bfloat16] == 80
+    assert FA._MAX_HEAD_DIM["tca_flash_bwd_dkv"][torch.bfloat16] == 80
+    dk, dv, bk, sk, bk3, sk3, bq, sq, sq3 = next(r for r in rows if d <= r[1])
+    assert d <= dv <= dk and dk % 16 == 0 and dv in rs
+    assert bk in ss and sk >= 2 and (bk3 == 0 or (bk3 in ss and sk3 >= 2))
+    assert bq == FA.TCA_TILE_ROWS and bq in ss and sq >= 2 and (sq3 == 0 or sq3 >= 2)
+    assert "mma.sync" not in src and "mma_bf16" not in src
+    assert float(re.search(r"kRealLse = ([-0-9.e]+)f;", src).group(1)) == FA.TCA_REAL_LSE
