@@ -38,8 +38,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      weights and noise (TF32 off), final latents compared: `generation`
      (FREEFINE_FUSED_GN 0 and 1), `guided_generation`, and with
      FREEFINE_FUSED_GN=1 `background_generation` and
-     `cross_image_composition` (2 sources); and the latent gradient of one
-     differentiated TCA UNet pass in modes edit and bggen;
+     `cross_image_composition` (2 sources); the batched lanes
+     `BatchedFreeFine.generation` and `generation_shared_source` (2 cases,
+     TCA; the per-case lane also at 3 cases, with the same launch counts)
+     and, with FREEFINE_FUSED_GN=1, `background_generation_shared_source`;
+     and the latent gradient of one differentiated TCA UNet pass in modes
+     edit and bggen;
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -62,15 +66,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edit streams' eps taken back to the edit latent; one warm-up and three
      timed passes, launches checked against the counts worked out from the
      config;
-  9. one call of `group_norm_silu` at every path shape under
+  9. the full-width SD-1.5 512^2 batched lanes, `generation`'s protocol
+     (50 steps, start 35, guidance 7.5, eta 1.0, TCA) over the cases
+     `batch_cases` makes (one source image, a coarse edit each):
+     `BatchedFreeFine.generation_shared_source` at batch 16 (path S) with
+     FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then 0, 1, 1, 0)
+     and `BatchedFreeFine.generation` at batch 8 (path B, FREEFINE_FUSED_GN=1;
+     one warm-up, two timed calls); launch counters per call checked
+     against the counts worked out from the config (the per-case lane's do
+     not depend on the batch), s per call, s/edit, edits/min and peak
+     memory; case 0 of the per-case lane against `generation` of the same
+     case and seed (uint8 max and mean |diff|, reported);
+ 10. one call of `group_norm_silu` at every path shape under
      torch.profiler: one `gn::` kernel launch per call (after the timed
      edits, which a profiler session could slow; with --profile before
      phase 4, as the process's first profiler session: after the profiled
      edits a session can miss a call this short);
- 10. the result lines: the `kernels` JSON line (launches and per-edit times
+ 11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 8; path D is one differentiated pass), the nvidia-smi line, and
-     last `{"ok": true, "device": {...}}`.
+     4 to 9; path D is one differentiated pass, paths S and B one batched
+     call), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
 Exits with code 2 and prints no result when CUDA is not available.
@@ -333,19 +348,28 @@ def gn_report(cfg, ptxas) -> list:
 # Phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
+# Cases per call of the batched lanes of phase 9: the shared-source lane
+# (path S) and the per-case lane (path B).
+BATCH_SHARED, BATCH_CASES = 16, 8
 # (batch, heads, seq, head_dim, dtype, masked) of every call on the SD-1.5
 # 512^2 paths: inversion batch 2 (generation), 3 (composition) and 1
 # (object removal); regeneration batch 3 outside the TCA window, and batch
 # 4 in composition, whose TCA layers also run the 2N = 4 per-source
 # attentions with per-key masks; the energy's no-grad reference-feature pass
-# batch 1; VAE mid-block f32 one head of 512 (batch 2, or 1 per image).
-# Phases 4-7 count the launches at each shape and fail on a shape not timed
+# batch 1; VAE mid-block f32 one head of 512 (batch 2, or 1 per image).  The
+# batched lanes: S inverts its C cases at batch C and the source at 1, runs
+# the capture pass at 1 and the edit pass at 2C; B inverts at 2C and
+# regenerates at 3C; S encodes C + 1 images and decodes C, B encodes 2C and
+# decodes C.
+# Phases 4-9 count the launches at each shape and fail on a shape not timed
 # here, or a shape timed here that no path launches.
+LANE_UNET_BATCHES = (BATCH_SHARED, 2 * BATCH_SHARED, 2 * BATCH_CASES, 3 * BATCH_CASES)
+LANE_VAE_BATCHES = (BATCH_SHARED + 1, BATCH_SHARED, 2 * BATCH_CASES, BATCH_CASES)
 FLASH_SHAPES = [
-    (b, 8, s, d, "bfloat16", False) for b in (1, 2, 3, 4)
+    (b, 8, s, d, "bfloat16", False) for b in sorted({1, 2, 3, 4, *LANE_UNET_BATCHES})
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
-] + [(4, 8, 4096, 40, "bfloat16", True), (4, 8, 1024, 80, "bfloat16", True),
-     (2, 1, 4096, 512, "float32", False), (1, 1, 4096, 512, "float32", False)]
+] + [(4, 8, 4096, 40, "bfloat16", True), (4, 8, 1024, 80, "bfloat16", True)] + [
+    (b, 1, 4096, 512, "float32", False) for b in sorted({2, 1, *LANE_VAE_BATCHES}, reverse=True)]
 # check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
 # fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
 # (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
@@ -355,8 +379,13 @@ FLASH_EXTRA = [(2, 8, 1000, 1000, 80, "bfloat16"), (2, 1, 300, 300, 512, "float3
                (1, 2, 5, 5, 24, "bfloat16"), (6, 4, 4096, 8192, 40, "bfloat16"),
                (6, 4, 1024, 2048, 80, "bfloat16"), (6, 4, 256, 512, 160, "bfloat16"),
                (6, 1, 64, 128, 16, "float32")]
-# TCA after the head-parity split: batch 2*3 streams, 4 heads
-TCA_SHAPES = [(6, 4, 1024, 80, "bfloat16"), (6, 4, 4096, 40, "bfloat16")]
+# TCA after the head-parity split, 4 heads: batch 2*3 streams (single
+# edits), then 2*2*C (the shared lane's [u_e, c_e] per case) and 2*3*C (the
+# per-case lane)
+TCA_EDIT_SHAPES = [(6, 4, 1024, 80, "bfloat16"), (6, 4, 4096, 40, "bfloat16")]
+TCA_SHAPES = TCA_EDIT_SHAPES + [(b, 4, s, d, "bfloat16")
+                                for b in (4 * BATCH_SHARED, 6 * BATCH_CASES)
+                                for s, d in ((1024, 80), (4096, 40))]
 TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
              (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
 # The differentiated pass of energy guidance: batch 1, every self-attention
@@ -373,7 +402,7 @@ GRAD_EXTRA = [(2, 2, 1024, 1024, 80, "bfloat16"), (2, 2, 300, 77, 40, "bfloat16"
               (2, 2, 64, 64, 16, "float32"), (2, 2, 16, 16, 32, "float32"),
               (2, 2, 50, 33, 64, "float32"), (2, 2, 4, 4, 64, "float32")]
 AUTOGRAD_SHAPE = (1, 8, 1024, 80, "bfloat16")
-# The TCA VJP kernels are timed at TCA_SHAPES (the edit layout's masks);
+# The TCA VJP kernels are timed at TCA_EDIT_SHAPES (the edit layout's masks);
 # check-only (batch, heads, seq, head_dim, dtype, masks), masks as
 # `_tca_masks` makes them: "bggen" (tq = 1, fg = 1 - obj on the even block),
 # "empty_fg" (no fg key on the even block: every FG row fully masked, with
@@ -404,6 +433,26 @@ def _parity_rows(gen, b, s, frac):
     rows = torch.ones(b, s, device=gen.device)
     rows[: b // 2] = (torch.rand(b // 2, s, generator=gen, device=gen.device) > frac).float()
     return rows
+
+
+# The attention twins materialise their [B, H, Sq, Sk] float32 logits (TCA
+# three of them); at the batched lanes' shapes that would pass the card's
+# memory, so a twin runs on slices of the batch whose logits stay within
+# TWIN_LOGIT_BYTES (every single-edit shape fits in one slice).
+TWIN_LOGIT_BYTES = 8 * 2**30
+
+
+def by_batch(fn, *ops, logit_bytes_per_row: float, **kw):
+    """fn over slices of the batch (dim 0 of every tensor operand),
+    concatenated; one call where the whole batch fits."""
+    import torch
+
+    b = ops[0].shape[0]
+    step = max(1, int(TWIN_LOGIT_BYTES // logit_bytes_per_row))
+    if step >= b:
+        return fn(*ops, **kw)
+    return torch.cat([fn(*(x[i : i + step] if torch.is_tensor(x) else x for x in ops), **kw)
+                      for i in range(0, b, step)])
 
 
 def compare(out, ref) -> dict:
@@ -470,8 +519,13 @@ def check_flash(gen, shape, timed: bool):
         mask = (torch.rand(b, sk, generator=gen, device=gen.device) > 0.5).float()
         if not timed:
             mask[b - 1] = 0.0  # a fully masked row block
+    rows = 4.0 * h * sq * sk
+
+    def twin(*ops):
+        return by_batch(FA.flash_sdpa_reference, *ops, heads=h, logit_bytes_per_row=rows)
+
     out = FA.flash_sdpa(q, k, v, mask, heads=h)
-    ref = FA.flash_sdpa_reference(q, k, v, mask, heads=h)
+    ref = twin(q, k, v, mask)
     torch.cuda.synchronize()
     row = dict(batch=b, heads=h, seq_q=sq, seq_k=sk, head_dim=d, dtype=dtype, masked=masked,
                key=(b, h, sq, sk, d, dtype, masked),
@@ -479,14 +533,14 @@ def check_flash(gen, shape, timed: bool):
     _hold("flash_sdpa", out, ref, row)
     if timed:
         n = min(DROP_KEYS, sk // 2)
-        _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(
-            q, k[:, n:], v[:, n:], None if mask is None else mask[:, n:], heads=h), row)
+        _teeth("flash_sdpa", ref, twin(q, k[:, n:], v[:, n:],
+                                       None if mask is None else mask[:, n:]), row)
         itemsize = q.element_size()
         nbytes = 4 * b * sq * h * d * itemsize + (0 if mask is None else 4 * b * sk)
         row.update(bound(nbytes, 4.0 * b * h * sq * sk * d, float(b * h * sq * sk), dtype))
         n = 3 if sq >= 4096 else 10
         row["kernel_ms"] = cuda_ms(lambda: FA.flash_sdpa(q, k, v, mask, heads=h), n)
-        row["plain_ms"] = cuda_ms(lambda: FA.flash_sdpa_reference(q, k, v, mask, heads=h), n)
+        row["plain_ms"] = cuda_ms(lambda: twin(q, k, v, mask), n if b <= 4 else max(1, n * 4 // b))
         qh, kh, vh = (_sdpa_heads(x, h) for x in (q, k, v))
         keep = None if mask is None else (mask > 0)[:, None, None, :]
         row["library_ms"] = cuda_ms(
@@ -502,28 +556,39 @@ def check_flash(gen, shape, timed: bool):
 # The masks each path passes to the TCA kernels after the parity split, the
 # layout its per-edit time is weighted at (`summarize`): `generation`,
 # `guided_generation` and the differentiated edit pass D the edit layout,
-# `background_generation` the bggen one.
-TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit"}
+# `background_generation` the bggen one, the batched lanes their own.
+TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit",
+                   "S": "shared", "B": "cases"}
 
 
 @functools.lru_cache(maxsize=None)
-def tca_layouts(seq: int, device: str = "cuda"):
-    """The fg and tq rows [2 * 3, seq] the SD-1.5 paths pass to `tca_flash`
-    (streams [u_e, r, c_e], even-head block then odd-head block), built
-    from phase 4's case as `generation` and `background_generation` build
-    their states and `_tca_edit` / `_tca_bggen` their rows: "edit" (fg =
-    the source object, tq = the binarised target region on the even block,
-    ones on the odd one) and "bggen" (fg = 1 - object on the even block, tq
-    = 1 everywhere)."""
+def tca_layouts(seq: int, batch: int = 6, device: str = "cuda"):
+    """The fg and tq rows [batch, seq] the SD-1.5 paths pass to `tca_flash`
+    (even-head block then odd-head block), built as the entry points build
+    their states and `_tca_edit` / `_tca_bggen` their rows.  Batch 2 * 3
+    (streams [u_e, r, c_e]) from phase 4's case: "edit" (fg = the source
+    object, tq = the binarised target region on the even block, ones on the
+    odd one) and "bggen" (fg = 1 - object on the even block, tq = 1
+    everywhere).  Batch 2 * 2 * BATCH_SHARED: "shared", the shared lane's
+    [u_e, c_e] per case of phase 9's cases; batch 2 * 3 * BATCH_CASES:
+    "cases", the per-case lane's [u_e, r, c_e] per case."""
     import torch
 
     from freefine_tpu_torch import masks as mask_ops
     from freefine_tpu_torch.config import sd15_pipeline_config
     from freefine_tpu_torch.edit import build_mask_pyramid
     from freefine_tpu_torch.ops.attention import _parity_rows as parity_rows
+    from freefine_tpu_torch.pipeline import edit_mask_states
 
     cfg = sd15_pipeline_config()
     h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
+    if batch != 6:
+        name, cases, streams = {4 * BATCH_SHARED: ("shared", BATCH_SHARED, 2),
+                                6 * BATCH_CASES: ("cases", BATCH_CASES, 3)}[batch]
+        states, _, _ = edit_mask_states(cfg, device, batch_cases(cases, device), True, True)
+        tgt = (states.fg_retain[seq] > 0).float()
+        return {name: (parity_rows(states.fg_ref[seq], batch // 2),
+                       parity_rows(tgt, batch // 2))}
     _, mask, _, tm = edit_case(cfg, device)
     t = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
     em = mask_ops.prepare_various_mask(t(tm), t(mask), None, h, w, lh, lw, use_auto_draw=True,
@@ -598,9 +663,14 @@ def check_tca(gen, shape, timed: bool):
     b, h, s, d, dtype = shape
     q, ks, vs, km, vm = _inputs(gen, b, h, s, d, dtype, 5)
     cg = 0.7
+    rows = 3 * 4.0 * h * s * s
+
+    def twin(*ops):
+        return by_batch(FA.tca_flash_reference, *ops, heads=h, logit_bytes_per_row=rows)
+
     layouts = {"parity": _tca_masks(gen, b, s, "parity")}
     if timed:
-        layouts.update(tca_layouts(s, gen.device.type))
+        layouts.update(tca_layouts(s, b, gen.device.type))
     else:
         layouts["blocks"] = _tca_masks(gen, b, s, "blocks")
     row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
@@ -608,7 +678,7 @@ def check_tca(gen, shape, timed: bool):
     for name, (fg, tq) in layouts.items():
         ops = (q, ks, vs, km, vm, fg, tq, cg)
         out = FA.tca_flash(*ops, heads=h)
-        ref = FA.tca_flash_reference(*ops, heads=h)
+        ref = twin(*ops)
         torch.cuda.synchronize()
         _hold("tca_flash", out, ref, row, tensor=name)
         live = tca_bound(ops, h, dtype, True)
@@ -619,10 +689,10 @@ def check_tca(gen, shape, timed: bool):
         if not timed or name == "parity":
             continue
         n = min(DROP_KEYS, s // 2)
-        _teeth("tca_flash", ref, FA.tca_flash_reference(
-            q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq, cg, heads=h), row,
-            tensor=name)
-        swapped = err_over_tol(compare(_tca_swapped(ops, h), ref), dtype, "tca_flash")
+        _teeth("tca_flash", ref, twin(q, ks[:, n:], vs[:, n:], km[:, n:], vm[:, n:], fg[:, n:], tq,
+                                      cg), row, tensor=name)
+        swapped = by_batch(lambda *o: _tca_swapped(o, h), *ops, logit_bytes_per_row=rows)
+        swapped = err_over_tol(compare(swapped, ref), dtype, "tca_flash")
         row["tensors"][name]["swapped_pass_err_over_tol"] = lay["swapped_pass_err_over_tol"] = \
             swapped
         if swapped <= 1.0:
@@ -633,12 +703,13 @@ def check_tca(gen, shape, timed: bool):
         lay["kernel_ms"] = cuda_ms(lambda: FA.tca_flash(*ops, heads=h), n)
         lay["kernel_graph_ms"] = graph_ms(lambda: FA.tca_flash(*ops, heads=h))
         if "plain_ms" not in row:  # the twin computes every pass on any masks
-            row["plain_ms"] = cuda_ms(lambda: FA.tca_flash_reference(*ops, heads=h), n)
+            row["plain_ms"] = cuda_ms(lambda: twin(*ops), n if b <= 6 else max(1, n * 6 // b))
         lay.update(plain_ms=row["plain_ms"], library_ms=None, library_graph_ms=None)
-    if timed:  # the row's own numbers: the edit layout's (paths G and E)
-        row.update(_layout_numbers(row["layouts"]["edit"]))
+    if timed:  # the row's own numbers: its first path layout's (edit: paths G and E)
+        paths = [name for name in row["layouts"] if name != "parity"]
+        row.update(_layout_numbers(row["layouts"][paths[0]]))
         row["swapped_pass_err_over_tol"] = min(
-            row["tensors"][n]["swapped_pass_err_over_tol"] for n in ("edit", "bggen"))
+            row["tensors"][name]["swapped_pass_err_over_tol"] for name in paths)
     return row
 
 
@@ -900,7 +971,7 @@ def check_tca_grad(gen, shape, timed: bool):
     cg = 0.7
     layouts = {kind: _tca_masks(gen, b, s, kind)}
     if timed:
-        layouts.update(tca_layouts(s, gen.device.type))
+        layouts.update(tca_layouts(s, b, gen.device.type))
     base = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
                 masks=kind, key=(b, h, s, s, d, dtype, True))
     rows = {n: dict(base) for n in TCA_GRAD_KERNELS}
@@ -1124,12 +1195,18 @@ def norm_calls(cfg, kind: str) -> list:
 # Batches of each pass of the paths that run the fused GroupNorm
 # (FREEFINE_FUSED_GN=1): generation (phase 4: inversion 2, regeneration 3,
 # one VAE encode and decode of 2 images), object removal (phase 6: 1 and 3;
-# one image) and composition (phase 7: 3 and 4; 3 encodes and 1 decode of
-# one image each).
+# one image), composition (phase 7: 3 and 4; 3 encodes and 1 decode of
+# one image each), and the batched lanes of phase 9 (S: inversions C and 1,
+# capture 1, edit 2C, encode C + 1, decode C; B: inversion 2C, regeneration
+# 3C, encode 2C, decode C).
 GN_PATH_BATCHES = {
     "generation": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (2,)},
     "bggen": {"unet": (1, 3), "vae_encode": (1,), "vae_decode": (1,)},
     "compose": {"unet": (3, 4), "vae_encode": (1,), "vae_decode": (1,)},
+    "S": {"unet": (BATCH_SHARED, 1, 2 * BATCH_SHARED), "vae_encode": (BATCH_SHARED + 1,),
+          "vae_decode": (BATCH_SHARED,)},
+    "B": {"unet": (2 * BATCH_CASES, 3 * BATCH_CASES), "vae_encode": (2 * BATCH_CASES,),
+          "vae_decode": (BATCH_CASES,)},
 }
 
 
@@ -1331,11 +1408,11 @@ KERNELS = (
      "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:344"),
     ("flash_sdpa_bwd_dkv", check_grad, GRAD_SHAPES, GRAD_EXTRA,
      "freefine_tpu_torch/csrc/flash_sdpa_bwd.cu", "freefine_tpu/ops/flash_attention.py:378"),
-    ("tca_flash_fwd_lse", check_tca_grad, TCA_SHAPES, TCA_GRAD_EXTRA,
+    ("tca_flash_fwd_lse", check_tca_grad, TCA_EDIT_SHAPES, TCA_GRAD_EXTRA,
      "freefine_tpu_torch/csrc/tca_flash.cu", "freefine_tpu/ops/flash_attention.py:569"),
-    ("tca_flash_bwd_dq", check_tca_grad, TCA_SHAPES, TCA_GRAD_EXTRA,
+    ("tca_flash_bwd_dq", check_tca_grad, TCA_EDIT_SHAPES, TCA_GRAD_EXTRA,
      "freefine_tpu_torch/csrc/tca_flash_bwd.cu", "freefine_tpu/ops/flash_attention.py:636"),
-    ("tca_flash_bwd_dkv", check_tca_grad, TCA_SHAPES, TCA_GRAD_EXTRA,
+    ("tca_flash_bwd_dkv", check_tca_grad, TCA_EDIT_SHAPES, TCA_GRAD_EXTRA,
      "freefine_tpu_torch/csrc/tca_flash_bwd.cu", "freefine_tpu/ops/flash_attention.py:696"),
     ("group_norm_silu", check_gn, None, GN_EXTRA,
      "freefine_tpu_torch/csrc/group_norm.cu", "freefine_tpu/ops/group_norm.py:86"),
@@ -1416,9 +1493,10 @@ TIMES = ("kernel_ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms"
 def summarize(name, source, replaces, rows, checks, counts_by_path):
     """One kernel's entry of the `kernels` line.  For each path (phase 4
     `generation` with the fused GroupNorm, phase 5 `guided`, phase 6
-    `bggen`, phase 7 `compose`, phase 8 `D`, one differentiated TCA pass)
-    the per-edit times weight each timed shape by the launches counted at
-    that shape in one edit of that path (`counts_by_path`: {path: launch
+    `bggen`, phase 7 `compose`, phase 8 `D`, one differentiated TCA pass,
+    phase 9 `S` and `B`, one call of each batched lane with the fused
+    GroupNorm) the per-edit times weight each timed shape by the launches
+    counted at that shape in one edit of that path (`counts_by_path`: {path: launch
     shapes of one edit}); the top-level launches and times are one edit of
     each path together.  Without the edits (--skip-sd15) they are null."""
     timed = {r["key"]: r for r in rows}
@@ -1469,7 +1547,8 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
                           None if rows[0]["library_ms"] is None
                           else "F.scaled_dot_product_attention"),
         f32_route_ms=total("f32_route_ms") if "f32_route_ms" in rows[0] else None,
-        per="one edit of each path (D: one differentiated pass) together; per path under `paths`",
+        per=("one edit of each path (D: one differentiated pass; S and B: one batched call of "
+             f"{BATCH_SHARED} and {BATCH_CASES} edits) together; per path under `paths`"),
         paths=paths, shapes=rows, checks=checks,
     )
 
@@ -1501,6 +1580,27 @@ def edit_case(cfg, device="cuda"):
     coarse, tm, _ = re_edit_2d(img, mask, dx=40, dy=-20, rotation=10, scale_x=1.1,
                                scale_y=1.1, device=device)
     return img, mask, coarse, tm
+
+
+@functools.lru_cache(maxsize=None)
+def batch_cases(n: int, device: str = "cuda") -> tuple:
+    """The cases of phase 9, as `BatchedFreeFine` takes them: phase 4's
+    source image and object, case i's coarse edit the object moved by
+    (40 - 6i, -20 + 3i), rotated by 10 - i degrees and scaled by 1.1
+    (`re_edit_2d`), so case 0 is phase 4's edit and every case has its own
+    masks."""
+    from freefine_tpu_torch.config import sd15_pipeline_config
+    from freefine_tpu_torch.ops.geometry import re_edit_2d
+
+    cfg = sd15_pipeline_config()
+    img, mask = _case(cfg.height, cfg.width, 3)
+    cases = []
+    for i in range(n):
+        coarse, tm, _ = re_edit_2d(img, mask, dx=40 - 6 * i, dy=-20 + 3 * i, rotation=10 - i,
+                                   scale_x=1.1, scale_y=1.1, device=device)
+        cases.append(dict(ori_img=img, ori_mask=mask, coarse_input=coarse, target_mask=tm,
+                          guidance_text="a photo of a cat" if i == 0 else f"a photo of cat {i}"))
+    return tuple(cases)
 
 
 def _capture_latents(pipe, store):
@@ -1594,7 +1694,80 @@ def phase_tiny(record):
             f"image {img_err} levels")
         if not err <= TINY_TOL or img_err > 1 or not record["tiny"][entry]["finite"]:
             raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {record['tiny'][entry]}")
+    tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw)
     tiny_tca_grad(record, cpu, gpu, img, mask, coarse_c, tm_c)
+
+
+def tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw):
+    """Phase 3's batched lanes: `BatchedFreeFine.generation` and
+    `generation_shared_source` (2 cases, TCA) and, with the fused
+    GroupNorm, `background_generation_shared_source` (2 removal cases), on
+    CUDA against the CPU with the same weights and per-case noise; launches
+    of the CUDA call against the counts worked out from the config, and the
+    per-case lane at 3 cases launching exactly what it launches at 2."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
+    from freefine_tpu_torch.ops.geometry import re_edit_2d
+    from freefine_tpu_torch.pipeline import BatchedFreeFine
+
+    cfg = cpu.config
+    h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
+    cases, removals = [], []
+    for i, (dx, dy, rot) in enumerate(((10, 0, 15), (-6, 4, -10), (3, -5, 5))):
+        coarse, tm, _ = re_edit_2d(img, mask, dx=dx, dy=dy, rotation=rot, device="cpu")
+        cases.append(dict(ori_img=img, ori_mask=mask, coarse_input=coarse, target_mask=tm,
+                          guidance_text=f"a photo {i}"))
+        removals.append(dict(ori_img=img, ori_mask=tm, guidance_text=f"a wall {i}"))
+    k_edit, k_bg = edit_kw["num_step"] - edit_kw["start_step"], 5
+    bg_kw = dict(num_step=6, start_step=1, end_step=3)
+    # name: (GroupNorm mode, steps, inversion and capture passes, call)
+    runs = {
+        "batched_generation": ("0", k_edit, k_edit, lambda p, c, **kw: BatchedFreeFine(
+            p).generation(c, **edit_kw, **kw)),
+        "batched_generation_shared_source": ("0", k_edit, 3 * k_edit, lambda p, c, **kw:
+            BatchedFreeFine(p).generation_shared_source(c, **edit_kw, **kw)),
+        "batched_background_generation_shared_source": ("1", k_bg, 2 * k_bg, lambda p, c, **kw:
+            BatchedFreeFine(p).background_generation_shared_source(
+                [removals[i] for i in range(len(c))], **bg_kw, **kw)),
+    }
+    rng = np.random.default_rng(3)
+    for entry, (mode, k, k_inv, call) in runs.items():
+        noise = [[rng.standard_normal((2, lh, lw, 4)).astype(np.float32) for _ in range(k)]
+                 for _ in range(3)]
+        lats, outs, launched = {}, {}, {}
+        with fused_gn(mode):
+            for n, name, pipe in ((2, "cpu", cpu), (2, "cuda", gpu), (3, "cuda", gpu)):
+                if n == 3 and entry != "batched_generation":
+                    continue
+                FA.reset_launch_counts()
+                G.reset_launch_counts()
+                out = call(pipe, cases[:n], noise=[[torch.from_numpy(z).to(name) for z in zs]
+                                                   for zs in noise[:n]])
+                if n == 2:
+                    outs[name], lats[name] = out, stores[name]["lat"]
+                if name == "cuda":
+                    launched[n] = _launch_counts()[0]
+        err = float((lats["cpu"] - lats["cuda"]).abs().max())
+        img_err = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                      for a, b in zip(outs["cpu"], outs["cuda"]))
+        expect = _expected(cfg, gpu, k_inv, k, fused=mode == "1")
+        rec = record["tiny"][entry] = dict(
+            latent_max_abs_err=err, latent_tol=TINY_TOL, image_max_level_diff=img_err,
+            fused_gn=mode, cases=2, finite=bool(torch.isfinite(lats["cuda"]).all()),
+            launches=launched[2], launches_at_3_cases=launched.get(3))
+        log(f"  tiny {entry} (2 cases) CUDA vs CPU: latents max |diff| {err:.3g} "
+            f"(tol {TINY_TOL}), images {img_err} levels; launches by cases "
+            f"{ {n: {k: v for k, v in c.items() if v} for n, c in launched.items()} }")
+        if not err <= TINY_TOL or img_err > 1 or not rec["finite"]:
+            raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {rec}")
+        for kname in ("flash_sdpa", "tca_flash"):
+            if launched[2][kname] != expect[kname]:
+                raise AssertionError(f"tiny {entry}: {kname} launched {launched[2][kname]} "
+                                     f"times, expected {expect[kname]}")
+        if 3 in launched and launched[3] != launched[2]:
+            raise AssertionError(f"tiny {entry}: launches grow with the cases: {launched}")
 
 
 def tca_pass_inputs(pipe, case, mode, start_step, num_step=50, end_step=10):
@@ -1740,10 +1913,11 @@ def _launch_counts():
     return {**FA.LAUNCHES, **G.LAUNCHES}, {**FA.LAUNCH_SHAPES, **G.LAUNCH_SHAPES}
 
 
-def edit_once(key, run, expect, store, hw):
-    """One timed edit; the launch counters are set to 0 just before it and
-    read just after, and must equal `expect`.  -> (seconds, launches by
-    shape)."""
+def edit_once(key, run, expect, store, hw, cases=1):
+    """One timed edit (a batched call of `cases` edits: a list of images);
+    the launch counters are set to 0 just before it and read just after,
+    and must equal `expect`.  The output is left in store["out"].
+    -> (seconds, launches by shape)."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
@@ -1759,26 +1933,34 @@ def edit_once(key, run, expect, store, hw):
     launches, shapes = _launch_counts()
     if launches != expect:
         raise AssertionError(f"{key}: launch counts {launches} != expected per edit {expect}")
-    if out.shape != (*hw, 3) or out.dtype != np.uint8:
-        raise AssertionError(f"{key}: output {out.shape} {out.dtype}")
+    outs = out if isinstance(out, list) else [out]
+    if len(outs) != cases or any(o.shape != (*hw, 3) or o.dtype != np.uint8 for o in outs):
+        raise AssertionError(f"{key}: output {[(o.shape, o.dtype) for o in outs]}")
     if not torch.isfinite(store["lat"]).all():
         raise AssertionError(f"{key}: non-finite final latents")
+    store["out"] = out
     return secs, shapes
 
 
-def _edit_record(record, key, secs, shapes, expect, peak, card):
+def _edit_record(record, key, secs, shapes, expect, peak, card, cases=1):
     record[key] = dict(
-        seconds_per_edit=secs, edits_per_min=60.0 / float(np.mean(secs)),
+        seconds_per_edit=[t / cases for t in secs],
+        edits_per_min=60.0 * cases / float(np.mean(secs)),
         peak_memory_bytes=peak, launches=expect, expected_launches=expect,
         launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
     )
-    log(f"  {key}: {record[key]['edits_per_min']:.3f} edits/min, s/edit {secs}, "
-        f"peak {peak / 2**30:.2f} GiB, launches {expect} [{card}]")
+    if cases > 1:
+        record[key].update(cases_per_call=cases, seconds_per_call=secs)
+    log(f"  {key}: {record[key]['edits_per_min']:.3f} edits/min, s/edit "
+        f"{record[key]['seconds_per_edit']}"
+        + (f" (s per call of {cases} {secs})" if cases > 1 else "")
+        + f", peak {peak / 2**30:.2f} GiB, launches {expect} [{card}]")
 
 
-def timed_edits(record, key, run, expect, timed_runs, store, hw):
-    """One warm-up and `timed_runs` timed edits of one path (`edit_once`
-    each).  Returns the launches of one edit by call shape."""
+def timed_edits(record, key, run, expect, timed_runs, store, hw, cases=1):
+    """One warm-up and `timed_runs` timed edits (or batched calls of
+    `cases` edits) of one path (`edit_once` each).  Returns the launches of
+    one edit (call) by call shape."""
     import torch
 
     t0 = time.perf_counter()
@@ -1788,13 +1970,13 @@ def timed_edits(record, key, run, expect, timed_runs, store, hw):
     torch.cuda.reset_peak_memory_stats()
     secs, first_shapes = [], None
     for _ in range(timed_runs):
-        t, shapes = edit_once(key, run, expect, store, hw)
+        t, shapes = edit_once(key, run, expect, store, hw, cases)
         secs.append(t)
         if first_shapes is not None and shapes != first_shapes:
             raise AssertionError(f"{key}: launches by shape differ between edits: {shapes}")
         first_shapes = shapes
     _edit_record(record, key, secs, first_shapes, expect, torch.cuda.max_memory_allocated(),
-                 record["card"])
+                 record["card"], cases)
     return first_shapes
 
 
@@ -2094,10 +2276,97 @@ def phase_compose(record, pipe, case, store, timed_runs, profile):
     return shapes
 
 
+def phase_batched(record, pipe, store, timed_runs, profile):
+    """Phase 9: the batched lanes at full width, `generation`'s protocol
+    over `batch_cases`: the shared-source lane (path S, BATCH_SHARED cases)
+    with the fused GroupNorm off and on in turns (one warm-up of each, then
+    0, 1, 1, 0), and the per-case lane (path B, BATCH_CASES cases, fused
+    GroupNorm; one warm-up, `timed_runs` calls).  Case i is seeded 42 + i.
+    Case 0 of the per-case lane is then held against `generation` of the
+    same case and seed (reported: max and mean |diff| of the uint8 images).
+    Returns the launches by call shape of S (fused GroupNorm) and B."""
+    import torch
+
+    from freefine_tpu_torch.pipeline import BatchedFreeFine
+
+    cfg = pipe.config
+    h, w = cfg.height, cfg.width
+    num_step, start_step = 50, 35
+    k = num_step - start_step
+    kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
+              end_step=10, method_type="tca")
+    batched = BatchedFreeFine(pipe)
+    cases = list(batch_cases(BATCH_SHARED))
+    seeds = [42 + i for i in range(BATCH_SHARED)]
+
+    def shared():
+        return batched.generation_shared_source(cases, seed=seeds, **kw)
+
+    def per_case():
+        return batched.generation(cases[:BATCH_CASES], seed=seeds[:BATCH_CASES], **kw)
+
+    rec = record["sd15_batched"] = {"card": record["card"]}
+    # S: per step one batch-1 capture pass beside the edit pass, and the
+    # source's inversion beside the cases': 3k passes outside the edit pass
+    modes = ("0", "1")
+    expect = {m: _expected(cfg, pipe, 3 * k, k, fused=m == "1") for m in modes}
+    for m in modes:
+        with fused_gn(m):
+            t0 = time.perf_counter()
+            shared()
+            torch.cuda.synchronize()
+            rec[f"shared_gn{m}_warmup_s"] = time.perf_counter() - t0
+    order = [m for _ in range(-(-timed_runs // 2)) for m in ("0", "1", "1", "0")]
+    secs, shapes, peaks = {m: [] for m in modes}, {}, {}
+    for m in order[: 2 * timed_runs]:
+        with fused_gn(m):
+            torch.cuda.reset_peak_memory_stats()
+            t, sh = edit_once(f"shared lane FREEFINE_FUSED_GN={m}", shared, expect[m], store,
+                              (h, w), BATCH_SHARED)
+        secs[m].append(t)
+        peaks[m] = max(peaks.get(m, 0), torch.cuda.max_memory_allocated())
+        if shapes.setdefault(m, sh) != sh:
+            raise AssertionError(f"shared lane: launches by shape differ between calls: {sh}")
+    for m in modes:
+        _edit_record(rec, f"shared_gn{m}", secs[m], shapes[m], expect[m], peaks[m],
+                     record["card"], BATCH_SHARED)
+    rec["shared_order"] = order[: 2 * timed_runs]
+    # B: launches per call independent of the number of cases
+    expect_b = _expected(cfg, pipe, k, k, fused=True)
+    with fused_gn("1"):
+        shapes_b = timed_edits(rec, "per_case_gn1", per_case, expect_b, timed_runs, store,
+                               (h, w), BATCH_CASES)
+        batch_img, batch_lat = store["out"][0], store["lat"][0].clone()
+        case = cases[0]
+        single = pipe.generation(case["ori_img"], case["ori_mask"], case["coarse_input"],
+                                 case["target_mask"], case["guidance_text"], use_auto_draw=True,
+                                 cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True,
+                                 seed=seeds[0], **kw)
+        diff = np.abs(single.astype(np.int32) - batch_img.astype(np.int32))
+        lat_diff = (store["lat"][0] - batch_lat).abs()
+        if profile:
+            rec["shared_gn1_profile"] = profile_edit(shared, "profile_sd15_shared_gn1.txt")
+            rec["per_case_gn1_profile"] = profile_edit(per_case, "profile_sd15_per_case_gn1.txt")
+    rec["case0_vs_single"] = dict(
+        max_level_diff=int(diff.max()), mean_level_diff=float(diff.mean()),
+        latent_max_abs_diff=float(lat_diff.max()), latent_mean_abs_diff=float(lat_diff.mean()),
+        latent_max_abs=float(batch_lat.abs().max()))
+    rec["protocol"] = (
+        f"SD-1.5 512^2, generation's protocol (50-step DDIM, start 35, guidance 7.5, eta 1.0, "
+        f"TCA, use_auto_draw, reduce_inp_artifacts), bf16 random weights; shared-source lane at "
+        f"batch {BATCH_SHARED} with FREEFINE_FUSED_GN 0 and 1 in turns, per-case lane at batch "
+        f"{BATCH_CASES} with FREEFINE_FUSED_GN=1; case i: batch_cases(i), seed 42 + i")
+    log(f"  per-case lane case 0 vs generation of the same case and seed: uint8 max |diff| "
+        f"{int(diff.max())}, mean {float(diff.mean()):.4f}; final latents max |diff| "
+        f"{float(lat_diff.max()):.4g}, mean {float(lat_diff.mean()):.4g} (max |latent| "
+        f"{float(batch_lat.abs().max()):.4g})")
+    return shapes["1"], shapes_b
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 8 (kernel and tiny checks only)")
+                    help="skip phases 4 to 9 (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one SD-1.5 edit of each path (torch.profiler)")
@@ -2139,7 +2408,7 @@ def main():
     phase_tiny(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
-        log("phase 9 (before the profiled edits): group_norm_silu launches per call")
+        log("phase 10 (before the profiled edits): group_norm_silu launches per call")
         gn_launches_per_call(checked["group_norm_silu"][0])
     if not args.skip_sd15:
         pipe, case, store = sd15_setup(record)
@@ -2158,8 +2427,12 @@ def main():
         log("phase 8: SD-1.5 512^2 differentiated TCA edit pass (tca_flash_diff)")
         with fused_gn("0"):
             counts["D"] = phase_tca_grad(record, pipe, case)
+        log(f"phase 9: SD-1.5 512^2 batched lanes (shared source at batch {BATCH_SHARED}, "
+            f"per case at batch {BATCH_CASES})")
+        counts["S"], counts["B"] = phase_batched(record, pipe, store, args.timed_runs,
+                                                 args.profile)
     if not args.profile:
-        log("phase 9: group_norm_silu launches per call at every path shape (profiled last)")
+        log("phase 10: group_norm_silu launches per call at every path shape (profiled last)")
         gn_launches_per_call(checked["group_norm_silu"][0])
     kernels = [summarize(name, source, replaces, *checked[name], counts)
                for name, _, _, _, source, replaces in KERNELS]

@@ -36,6 +36,20 @@ class EditConfig:
 
     num_sources   : compose, the N reference images.
     prompt_length : compose, region prompts including the trailing "".
+    shared_ref    : the shared-reference layout: each case runs the 2
+                    streams [u_e, c_e] (bggen [u_g, c_g]) and the reference
+                    stream's K/V arrive in `EditState.ref_kv`, captured once
+                    per step by a standalone reference pass and shared by
+                    every case of one source image.  The capture pass runs
+                    the reference stream vanilla, so this layout implies
+                    `ref_vanilla`.
+    ref_vanilla   : the intent semantics of the reference stream: only the
+                    edit streams' even heads are masked, the reference
+                    streams stay unmasked.  False (default) keeps the
+                    reference-exact head-parity masks on every stream.
+    store_kv      : the capture pass: each self-attention that TCA would
+                    modulate (`TCA_SCOPE`, `layer_range`) writes its batch-1
+                    (k, v) into `EditState.ref_kv`, keyed by block index.
     """
 
     mode: str = "none"
@@ -44,6 +58,9 @@ class EditConfig:
     layer_range: Tuple[int, int] = DEFAULT_LAYER_RANGE
     num_sources: int = 0
     prompt_length: int = 0
+    shared_ref: bool = False
+    ref_vanilla: bool = False
+    store_kv: bool = False
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -78,7 +95,15 @@ class EditState:
     tgt_masks    : compose, {S: [N+1, S]} per-region query masks (last =
                    background).
     context_guidance, share_gate : per-step scalars (python floats or 0-d
-                   tensors).
+                   tensors), shared by every case.
+    ref_kv       : shared-reference layout, {block_index: (k [S, E],
+                   v [S, E])}: the reference stream's self-attention K/V at
+                   each TCA-gated layer (the capture pass writes it).
+
+    Case axis: the batched lanes stack C cases, and every mask pyramid
+    entry gains a leading case axis ([C, S]; compose [C, N, S]).  The UNet
+    batch is then the C cases' streams, case-major.  This stands in for
+    the JAX package's `jax.vmap` over cases.
     """
 
     fg_retain: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
@@ -88,6 +113,7 @@ class EditState:
     tgt_masks: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
     context_guidance: float = 0.0
     share_gate: float = 1.0
+    ref_kv: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
 def attention_resolutions(latent_h: int, latent_w: int) -> Tuple[Tuple[int, int], ...]:

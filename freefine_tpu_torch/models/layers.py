@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from freefine_tpu_torch.edit import EditConfig, EditState
+from freefine_tpu_torch.edit import TCA_SCOPE, EditConfig, EditState
 from freefine_tpu_torch.ops import attention as attn_ops
 from freefine_tpu_torch.ops.group_norm import group_norm_reference, group_norm_silu_diff, use_fused
 
@@ -185,7 +185,10 @@ class FeedForward(nn.Module):
 class EditAttention(nn.Module):
     """One attention layer (to_q/to_k/to_v without bias, to_out.0) with the
     edit dispatch: self-attention through `edit_self_attention`, text
-    cross-attention through `edit_cross_attention`."""
+    cross-attention through `edit_cross_attention`.  Under
+    `edit_cfg.store_kv` (the shared-reference capture pass, batch 1) each
+    self-attention that TCA would modulate writes its (k, v) [S, E] into
+    `edit_state.ref_kv` under its block index."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, is_cross: bool, dtype,
                  device=None):
@@ -202,6 +205,9 @@ class EditAttention(nn.Module):
                 context_extra: Optional[torch.Tensor] = None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if (edit_cfg.store_kv and not self.is_cross and place in TCA_SCOPE
+                and edit_cfg.block_gated(block_index)):
+            edit_state.ref_kv[block_index] = (k[0], v[0])
         if self.is_cross:
             k_extra = v_extra = None
             if context_extra is not None:  # compose region prompts [P, 77, D]

@@ -80,21 +80,50 @@ def _tca_fused(q, k_self, v_self, k_mod, v_mod, fg_rows, tq_rows, ecg: float, he
     )
 
 
-# Stream index of the reference K/V source per edit-layout batch size:
+# Stream index of the reference K/V source per edit-layout stream count:
 #   4-stream [u_e, u_r, c_e, c_r] -> [u_r, u_r, c_r, c_r] (legacy layout);
-#   3-stream [u_e, r, c_e]        -> [r, r, r]  (deduped layout).
-_REF_GATHER = {3: (1, 1, 1), 4: (1, 1, 3, 3)}
+#   3-stream [u_e, r, c_e]        -> [r, r, r]  (deduped layout);
+#   1-stream [r]                  -> [r]  (a standalone reference pass).
+_REF_GATHER = {1: (0,), 3: (1, 1, 1), 4: (1, 1, 3, 3)}
+
+# Which streams are edit streams per layout (1 = edit, 0 = reference);
+# consulted only under EditConfig.ref_vanilla.
+_EDIT_STREAMS = {1: (0,), 3: (1, 0, 1), 4: (1, 0, 1, 0)}
 
 
-def _ref_stream_gather(x: torch.Tensor) -> torch.Tensor:
-    """K/V replacement: every stream attends to the reference stream of its
-    CFG half (reference `cross_manner_attention_modulate`)."""
-    if x.shape[0] not in _REF_GATHER:
+def _num_cases(mask: torch.Tensor) -> int:
+    """Cases stacked in a mask pyramid entry: its leading axis, or 1 for an
+    entry [S] of one case."""
+    return mask.shape[0] if mask.ndim > 1 else 1
+
+
+def _ref_stream_gather(x: torch.Tensor, cases: int = 1) -> torch.Tensor:
+    """K/V replacement: within each case, every stream attends to the
+    reference stream of its CFG half (reference
+    `cross_manner_attention_modulate`).  x [cases * streams, S, E]."""
+    streams = x.shape[0] // cases
+    if streams * cases != x.shape[0] or streams not in _REF_GATHER:
         raise ValueError(
-            "edit attention expects the deduped 3-stream [u_e, r, c_e] or legacy "
-            f"4-stream [u_e, u_r, c_e, c_r] batch layout, got batch {x.shape[0]}"
+            "edit attention expects per case the deduped 3-stream [u_e, r, c_e] or legacy "
+            f"4-stream [u_e, u_r, c_e, c_r] batch layout, got batch {x.shape[0]} for "
+            f"{cases} case(s)"
         )
-    return x[list(_REF_GATHER[x.shape[0]])]
+    idx = list(_REF_GATHER[streams])
+    return x.reshape(cases, streams, *x.shape[1:])[:, idx].reshape(x.shape)
+
+
+def _reference_kv(k, v, cfg: EditConfig, state: EditState, block_index, cases: int):
+    """The keys and values every stream attends to as its reference, and
+    whether only the edit streams' even heads are masked.  Shared-reference
+    layout: the captured `state.ref_kv` of this layer, broadcast to every
+    stream of every case (all of them edit streams)."""
+    if cfg.shared_ref:
+        if state.ref_kv is None or block_index not in state.ref_kv:
+            raise ValueError("the shared_ref layout needs EditState.ref_kv captured at every "
+                             f"TCA-gated layer (missing block {block_index})")
+        rk, rv = state.ref_kv[block_index]
+        return rk[None].to(k.dtype).expand(k.shape), rv[None].to(v.dtype).expand(v.shape), False
+    return _ref_stream_gather(k, cases), _ref_stream_gather(v, cases), cfg.ref_vanilla
 
 
 # -- head-parity mask layout (reference-exact) ------------------------------
@@ -129,12 +158,20 @@ def _merge_parity(x: torch.Tensor, heads: int) -> torch.Tensor:
     return torch.cat([xe, xo], dim=3).reshape(b, s, -1)
 
 
-def _parity_rows(per_token: torch.Tensor, b: int) -> torch.Tensor:
-    """[S] mask -> [2B, S] rows: even-head block masked, odd-head block
-    unmasked."""
-    return torch.cat(
-        [per_token[None].expand(b, -1), torch.ones_like(per_token)[None].expand(b, -1)], dim=0
-    )
+def _parity_rows(per_token: torch.Tensor, b: int, edit_only: bool = False) -> torch.Tensor:
+    """[S] mask, or [C, S] per-case masks -> [2B, S] rows over a batch of B
+    = C * streams: the even-head block masked (each case's rows by its own
+    mask), the odd-head block unmasked.  edit_only (EditConfig.ref_vanilla):
+    mask only the edit streams' even heads."""
+    rows = per_token.reshape(-1, per_token.shape[-1])
+    cases = rows.shape[0]
+    ones = torch.ones_like(rows[0])
+    if edit_only:
+        pattern = _EDIT_STREAMS[b // cases]
+        even = torch.stack([rows[c] if e else ones for c in range(cases) for e in pattern])
+    else:
+        even = rows.repeat_interleave(b // cases, dim=0)
+    return torch.cat([even, ones[None].expand(b, -1)], dim=0)
 
 
 def _check_parity_heads(heads: int) -> None:
@@ -170,77 +207,99 @@ def edit_self_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[Ed
     if place not in TCA_SCOPE or not cfg.block_gated(block_index):
         return masked_sdpa(q, k, v, heads)
     if cfg.mode == "edit":
-        return _tca_edit(q, k, v, heads, cfg, state)
+        return _tca_edit(q, k, v, heads, cfg, state, block_index)
     if cfg.mode == "bggen":
-        return _tca_bggen(q, k, v, heads, cfg, state)
+        return _tca_bggen(q, k, v, heads, cfg, state, block_index)
     return _tca_compose(q, k, v, heads, cfg, state)
 
 
-def _tca_edit(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.Tensor:
+def _tca_edit(q, k, v, heads: int, cfg: EditConfig, state: EditState,
+              block_index: Optional[int] = None) -> torch.Tensor:
     """Temporal-contextual attention, edit mode (reference attention.py:
     1043-1091).  Every stream attends to the reference stream of its CFG
     half; even heads composite an FG- and a BG-restricted reference
     attention by the target mask, odd heads take unmasked reference-key
-    attention; both blend with self-attention by context guidance."""
+    attention; both blend with self-attention by context guidance.
+    Shared-reference layout (cfg.shared_ref): streams [u_e, c_e] per case,
+    the reference K/V from state.ref_kv[block_index]."""
     _check_parity_heads(heads)
     b, seq, _ = q.shape
     fg_ref = state.fg_ref[seq].to(q.device)
     tgt = state.fg_retain[seq].to(q.device)
-    kc, vc = _ref_stream_gather(k), _ref_stream_gather(v)
+    kc, vc, edit_only = _reference_kv(k, v, cfg, state, block_index, _num_cases(fg_ref))
     if cfg.method == "tca":
         tgt = (tgt > 0).float()  # binarised (attention.py:1071)
 
     qp, kp, vp = (_split_parity(x, heads) for x in (q, k, v))
     kcp, vcp = _split_parity(kc, heads), _split_parity(vc, heads)
-    rows_fg = _parity_rows(fg_ref, b)
-    rows_tgt = _parity_rows(tgt, b)
+    rows_fg = _parity_rows(fg_ref, b, edit_only)
+    rows_tgt = _parity_rows(tgt, b, edit_only)
     fused = _tca_fused(qp, kp, vp, kcp, vcp, rows_fg, rows_tgt,
                        _effective_cg(cfg, state), heads // 2)
     return _merge_parity(fused, heads)
 
 
-def _tca_bggen(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.Tensor:
+def _tca_bggen(q, k, v, heads: int, cfg: EditConfig, state: EditState,
+               block_index: Optional[int] = None) -> torch.Tensor:
     """Background-generation TCA (reference attention.py:1284-1324): even
     heads attend to the reference keys outside the removed object, odd
     heads to all reference keys; blended with self-attention.  The fused
-    kernel with FG keys = 1 - obj and tq = 1 is exactly that."""
+    kernel with FG keys = 1 - obj and tq = 1 is exactly that.
+    Shared-reference layout: streams [u_g, c_g] per case, as `_tca_edit`."""
     _check_parity_heads(heads)
     b, seq, _ = q.shape
     obj = state.fg_retain[seq].to(q.device)
-    kc, vc = _ref_stream_gather(k), _ref_stream_gather(v)
+    kc, vc, edit_only = _reference_kv(k, v, cfg, state, block_index, _num_cases(obj))
     qp, kp, vp = (_split_parity(x, heads) for x in (q, k, v))
     kcp, vcp = _split_parity(kc, heads), _split_parity(vc, heads)
-    rows_bg = _parity_rows(1.0 - obj, b)
+    rows_bg = _parity_rows(1.0 - obj, b, edit_only)
     ones_tq = torch.ones(2 * b, seq, device=q.device)
     fused = _tca_fused(qp, kp, vp, kcp, vcp, rows_bg, ones_tq,
                        _effective_cg(cfg, state), heads // 2)
     return _merge_parity(fused, heads)
 
 
+def _compose_masks(state: EditState, seq: int, device):
+    """Compose's per-source key masks [C, N, S] and per-region query masks
+    [C, N+1, S] (an unstacked state is one case)."""
+    src = state.src_masks[seq].to(device)
+    tgt = state.tgt_masks[seq].to(device)
+    if src.ndim == 2:
+        src, tgt = src[None], tgt[None]
+    return src, tgt
+
+
+def _by_case(x: torch.Tensor, cases: int) -> torch.Tensor:
+    """[C * streams, ...] -> [C, streams, ...]."""
+    return x.reshape(cases, x.shape[0] // cases, *x.shape[1:])
+
+
 def _tca_compose(q, k, v, heads: int, cfg: EditConfig, state: EditState) -> torch.Tensor:
     """Composition TCA (reference attention.py:1092-1140).  Streams
-    [e, r_1..r_N, c_e]: for each source i the two edit streams attend to
-    source i's keys inside src_mask_i, weighted per query by tgt_mask_i and
-    summed over sources, then blended with self-attention; the reference
-    streams stay vanilla.  The N per-source attentions run as one
-    `masked_sdpa` over [2N, S]."""
+    [e, r_1..r_N, c_e] per case: for each source i the two edit streams
+    attend to source i's keys inside src_mask_i, weighted per query by
+    tgt_mask_i and summed over sources, then blended with self-attention;
+    the reference streams stay vanilla.  The per-source attentions of every
+    case run as one `masked_sdpa` over [C * 2N, S]."""
     n = cfg.num_sources
     b, seq, _ = q.shape
-    if b != n + 2:
-        raise ValueError(f"compose attention expects [e, r_1..r_{n}, c_e], got batch {b}")
-    src = state.src_masks[seq].to(q.device)          # [N, S] key masks
-    tgt = state.tgt_masks[seq][:n].to(q.device)      # [N, S] query weights
-
-    self_h = masked_sdpa(q, k, v, heads)
-    qn = torch.stack([q[0], q[b - 1]]).repeat_interleave(n, dim=0)  # [2N, S, E]
-    kn = k[1 : n + 1].repeat(2, 1, 1)
-    vn = v[1 : n + 1].repeat(2, 1, 1)
-    per_src = masked_sdpa(qn, kn, vn, heads, src.repeat(2, 1))
-    w = tgt.repeat(2, 1)[:, :, None]
-    summed = (per_src.float() * w).reshape(2, n, seq, -1).sum(1)
-    hu_e = _blend_with_self(summed[0], self_h[0], cfg, state)
-    hc_e = _blend_with_self(summed[1], self_h[b - 1], cfg, state)
-    return torch.cat([hu_e[None], self_h[1 : b - 1], hc_e[None]], dim=0)
+    src, tgt = _compose_masks(state, seq, q.device)
+    cases = src.shape[0]
+    if b != cases * (n + 2):
+        raise ValueError(f"compose attention expects [e, r_1..r_{n}, c_e] per case, got batch "
+                         f"{b} for {cases} case(s)")
+    self_h = _by_case(masked_sdpa(q, k, v, heads), cases)
+    qc, kc, vc = (_by_case(x, cases) for x in (q, k, v))
+    qn = torch.stack([qc[:, 0], qc[:, -1]], dim=1).repeat_interleave(n, dim=1)
+    kn = kc[:, 1 : n + 1].repeat(1, 2, 1, 1)
+    vn = vc[:, 1 : n + 1].repeat(1, 2, 1, 1)
+    per_src = masked_sdpa(*(x.reshape(-1, seq, x.shape[-1]) for x in (qn, kn, vn)), heads,
+                          src.repeat(1, 2, 1).reshape(-1, seq))
+    w = tgt[:, :n].repeat(1, 2, 1).reshape(-1, seq)[:, :, None]
+    summed = (per_src.float() * w).reshape(cases, 2, n, seq, -1).sum(2)
+    hu_e = _blend_with_self(summed[:, 0], self_h[:, 0], cfg, state)
+    hc_e = _blend_with_self(summed[:, 1], self_h[:, -1], cfg, state)
+    return torch.cat([hu_e[:, None], self_h[:, 1:-1], hc_e[:, None]], dim=1).reshape(b, seq, -1)
 
 
 def _style_align_attention(q, k, v, heads: int, cfg: EditConfig,
@@ -252,19 +311,21 @@ def _style_align_attention(q, k, v, heads: int, cfg: EditConfig,
     source object, in bggen mode to the reference background, own keys
     blocked."""
     seq = q.shape[1]
-    k_cat = torch.cat([k, _ref_stream_gather(k)], dim=1)
-    v_cat = torch.cat([v, _ref_stream_gather(v)], dim=1)
+    cases = _num_cases(state.fg_retain[seq])
+    k_cat = torch.cat([k, _ref_stream_gather(k, cases)], dim=1)
+    v_cat = torch.cat([v, _ref_stream_gather(v, cases)], dim=1)
     if cfg.method != "sdsa":
         return masked_sdpa(q, k_cat, v_cat, heads)
     _check_parity_heads(heads)
-    ones = torch.ones(seq, device=q.device)
     if cfg.mode == "bggen":
-        allowed = 1.0 - torch.cat([ones, state.fg_retain[seq].to(q.device)])
+        obj = state.fg_retain[seq].to(q.device)
+        allowed = 1.0 - torch.cat([torch.ones_like(obj), obj], dim=-1)
     else:
-        allowed = torch.cat([ones, state.fg_ref[seq].to(q.device)])
+        fg = state.fg_ref[seq].to(q.device)
+        allowed = torch.cat([torch.ones_like(fg), fg], dim=-1)
     out = masked_sdpa(_split_parity(q, heads), _split_parity(k_cat, heads),
                       _split_parity(v_cat, heads), heads // 2,
-                      _parity_rows(allowed, q.shape[0]))
+                      _parity_rows(allowed, q.shape[0], cfg.ref_vanilla))
     return _merge_parity(out, heads)
 
 
@@ -285,18 +346,30 @@ def edit_cross_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[E
     b, seq, _ = q.shape
     if cfg.mode == "compose":
         p = cfg.prompt_length
-        if b != cfg.num_sources + 2 or k_extra is None or p < 1:
-            raise ValueError("compose cross-attention needs the [e, r_1..r_N, c_e] batch and "
-                             "the region prompts' k_extra / v_extra")
-        hu = sdpa(q[: b - 1], k[: b - 1], v[: b - 1], heads)
-        tgt = state.tgt_masks[seq][:p].to(q.device)               # [P, S]
-        per_prompt = sdpa(q[b - 1 : b].expand(p, -1, -1), k_extra, v_extra, heads)
-        hc = (per_prompt.float() * tgt[:, :, None]).sum(0)
-        return torch.cat([hu, hc[None].to(q.dtype)], dim=0)
-    local = state.local_region[seq].to(q.device)[:, None]
+        _, tgt = _compose_masks(state, seq, q.device)
+        cases = tgt.shape[0]
+        if b != cases * (cfg.num_sources + 2) or k_extra is None or p < 1:
+            raise ValueError("compose cross-attention needs the [e, r_1..r_N, c_e] batch per "
+                             "case and the region prompts' k_extra / v_extra")
+        qc, kc, vc = (_by_case(x, cases) for x in (q, k, v))
+        hu = sdpa(*(x[:, :-1].reshape(-1, *x.shape[2:]) for x in (qc, kc, vc)), heads)
+        qe = qc[:, -1:].expand(-1, p, -1, -1).reshape(cases * p, seq, -1)
+        per_prompt = sdpa(qe, k_extra, v_extra, heads)                   # [C * P, S, E]
+        hc = (per_prompt.float().reshape(cases, p, seq, -1) * tgt[:, :p, :, None]).sum(1)
+        return torch.cat([_by_case(hu, cases), hc[:, None].to(q.dtype)], dim=1).reshape(
+            b, seq, -1)
+    local = state.local_region[seq].to(q.device)
+    cases = _num_cases(local)
+    local = local.reshape(cases, seq, 1)
     h = sdpa(q, k, v, heads)
-    u_e, u_r, c_e = h[0], h[1], h[2]
+    hc = _by_case(h, cases)
+    if cfg.shared_ref:  # [u_e, c_e] per case, no reference stream
+        u_e, c_e = hc[:, 0], hc[:, 1]
+    else:
+        u_e, u_r, c_e = hc[:, 0], hc[:, 1], hc[:, 2]
     mod_c_e = (local * c_e.float() + (1.0 - local) * u_e.float()).to(h.dtype)
-    if b == 3:
-        return torch.stack([u_e, u_r, mod_c_e])
-    return torch.stack([u_e, u_r, mod_c_e, u_r])
+    if cfg.shared_ref:
+        out = [u_e, mod_c_e]
+    else:
+        out = [u_e, u_r, mod_c_e] + ([u_r] if hc.shape[1] == 4 else [])
+    return torch.stack(out, dim=1).reshape(h.shape)

@@ -21,6 +21,8 @@ for CUDA on a machine without it raises.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -35,6 +37,7 @@ from freefine_tpu_torch.edit import (
     build_mask_pyramid,
     build_mask_stack_pyramid,
     nearest_resize,
+    none_config,
 )
 from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
 from freefine_tpu_torch.models.tokenizer import load_tokenizer
@@ -81,35 +84,50 @@ def ddim_invert_loop(
 
 
 def _cfg_model_in(lat: torch.Tensor, nstr: int) -> torch.Tensor:
-    """UNet input from the per-stream latents: deduped layout appends the
-    edit latent as the conditional row ([u_e, r] -> [u_e, r, c_e]); the
-    legacy layout doubles every row."""
-    if nstr == lat.shape[0] + 1:
-        return torch.cat([lat, lat[:1]], dim=0)
-    return torch.cat([lat, lat], dim=0)
+    """UNet input from the per-stream latents (streams on axis -4, after an
+    optional case axis): deduped layout appends the edit latent as the
+    conditional row ([u_e, r] -> [u_e, r, c_e]); the legacy layout doubles
+    every row."""
+    if nstr == lat.shape[-4] + 1:
+        return torch.cat([lat, lat[..., :1, :, :, :]], dim=-4)
+    return torch.cat([lat, lat], dim=-4)
 
 
 def _cfg_split(eps: torch.Tensor, nstr: int):
-    """(uncond, cond) stream pairs: deduped nu = [u_e, r], nc = [c_e, r]."""
+    """(uncond, cond) stream pairs (streams on axis -4): deduped nu = [u_e,
+    r], nc = [c_e, r]."""
     eps = eps.float()
     if nstr == 3:
-        return eps[:2], torch.cat([eps[2:3], eps[1:2]], dim=0)
-    return eps.chunk(2, dim=0)
+        return eps[..., :2, :, :, :], torch.cat(
+            [eps[..., 2:3, :, :, :], eps[..., 1:2, :, :, :]], dim=-4)
+    return eps.chunk(2, dim=-4)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[C, streams, ...] -> [C * streams, ...] (case-major UNet batch)."""
+    return x.reshape(-1, *x.shape[2:])
+
+
+def _cfg_noise(nu, nc, cfg_mask, guidance_scale: float, local_text_edit: bool):
+    """Classifier-free guidance, localised to cfg_mask under local_text_edit."""
+    if local_text_edit:
+        return nu + guidance_scale * (nc - nu) * cfg_mask
+    return nu + guidance_scale * (nc - nu)
 
 
 @torch.no_grad()
-def sample_edit_loop(
+def sample_edit_cases(
     unet_apply: Callable,
     schedule: DDIMSchedule,
     ecfg: EditConfig,
-    traj: torch.Tensor,            # [K+1, 2, h, w, c] inversion trajectory
-    text_emb: torch.Tensor,        # [3, 77, D] [u, u_ref, edit] (or legacy [4])
-    state: EditState,
+    traj: torch.Tensor,            # [K+1, C, 2, h, w, c] inversion trajectories
+    text_emb: torch.Tensor,        # [C, 3, 77, D] [u, u_ref, edit] (or legacy [C, 4])
+    state: EditState,              # mask pyramids [C, S] ([S] for one case)
     cg: np.ndarray,                # [K] context guidance schedule
     gates: np.ndarray,             # [K] share gates
-    completion_cfg: torch.Tensor,  # [lh, lw] local CFG multiplier
-    local_var: torch.Tensor,       # [lh, lw] DDPM region
-    noise: NoiseSource,
+    completion_cfg: torch.Tensor,  # [C, lh, lw] local CFG multipliers
+    local_var: torch.Tensor,       # [C, lh, lw] DDPM regions
+    noise: Sequence[NoiseSource],  # one per case
     *,
     start_step: int,
     guidance_scale: float,
@@ -117,46 +135,55 @@ def sample_edit_loop(
     local_text_edit: bool,
     local_perturbation: bool,
 ) -> torch.Tensor:
-    """Geometric-edit regeneration (reference forward_sampling): per step
-    the reference stream is pinned to its inversion latent, the UNet runs
-    on [u_e, r, c_e], local CFG combines the streams and the hybrid
-    `ctrl_step` steps.  Returns the final 2-stream latents [2, h, w, c]."""
+    """Geometric-edit regeneration (reference forward_sampling) of C cases
+    at once: per step each case's reference stream is pinned to its
+    inversion latent, ONE UNet call runs every case's [u_e, r, c_e], local
+    CFG combines the streams and the hybrid `ctrl_step` steps each case's
+    2-stream stack with its own draw.  Returns the final latents
+    [C, 2, h, w, c]."""
     k = traj.shape[0] - 1
-    nstr = text_emb.shape[0]
+    cases, nstr = text_emb.shape[:2]
     ts = schedule.timesteps[start_step : start_step + k]
-    refs = torch.flip(traj[:k], dims=[0])[:, 1:]
+    refs = torch.flip(traj[:k], dims=[0])[:, :, 1:]
     lat = traj[-1].clone()
-    cfg_mask = completion_cfg[None, :, :, None]
+    text = _flat(text_emb)
+    cfg_mask = completion_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     for i in range(k):
         t = int(ts[i])
-        lat[1:] = refs[i]
+        lat[:, 1:] = refs[i]
         state.context_guidance = float(cg[i])
         state.share_gate = float(gates[i])
-        eps = unet_apply(_cfg_model_in(lat, nstr), t, text_emb, ecfg, state)
-        nu, nc = _cfg_split(eps, nstr)
-        if local_text_edit:
-            pred = nu + guidance_scale * (nc - nu) * cfg_mask
-        else:
-            pred = nu + guidance_scale * (nc - nu)
-        lat, _ = ctrl_step(schedule, pred, t, lat, var_mask, eta, _draw(noise, i, lat),
-                           ddim_streams_from=1)
+        eps = unet_apply(_flat(_cfg_model_in(lat, nstr)), t, text, ecfg, state)
+        nu, nc = _cfg_split(eps.reshape(cases, nstr, *eps.shape[1:]), nstr)
+        lat, _ = ctrl_step(schedule, _cfg_noise(nu, nc, cfg_mask, guidance_scale, local_text_edit),
+                           t, lat, var_mask, eta, _draw_cases(noise, i, lat), ddim_streams_from=1)
     return lat
 
 
+def sample_edit_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
+                     traj: torch.Tensor, text_emb: torch.Tensor, state: EditState, cg: np.ndarray,
+                     gates: np.ndarray, completion_cfg: torch.Tensor, local_var: torch.Tensor,
+                     noise: NoiseSource, **kw) -> torch.Tensor:
+    """`sample_edit_cases` of one case: traj [K+1, 2, h, w, c], text_emb
+    [3, 77, D], masks [lh, lw] -> the final 2-stream latents [2, h, w, c]."""
+    return sample_edit_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None], state,
+                             cg, gates, completion_cfg[None], local_var[None], [noise], **kw)[0]
+
+
 @torch.no_grad()
-def sample_bggen_loop(
+def sample_bggen_cases(
     unet_apply: Callable,
     schedule: DDIMSchedule,
     ecfg: EditConfig,
-    traj: torch.Tensor,            # [K+1, 1, h, w, c] inversion trajectory
-    text_emb: torch.Tensor,        # [3, 77, D] [u, u_ref, cond] (or legacy [4])
+    traj: torch.Tensor,            # [K+1, C, 1, h, w, c] inversion trajectories
+    text_emb: torch.Tensor,        # [C, 3, 77, D] [u, u_ref, cond] (or legacy [C, 4])
     state: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
-    local_cfg: torch.Tensor,       # [lh, lw] local CFG multiplier
-    local_var: torch.Tensor,       # [lh, lw] DDPM region
-    noise: NoiseSource,
+    local_cfg: torch.Tensor,       # [C, lh, lw] local CFG multipliers
+    local_var: torch.Tensor,       # [C, lh, lw] DDPM regions
+    noise: Sequence[NoiseSource],
     *,
     start_step: int,
     guidance_scale: float,
@@ -165,45 +192,58 @@ def sample_bggen_loop(
     local_perturbation: bool,
 ) -> torch.Tensor:
     """Background generation / object removal (reference
-    forward_sampling_background_gen): the reference stream at step i is the
-    inverted latent at the matching noise level (traj flipped), the UNet
-    runs on [u_g, r, c_g], local CFG combines and `ctrl_step` steps the
-    2-stream [g, r] stack.  Returns the generated latent [1, h, w, c]."""
+    forward_sampling_background_gen) of C cases at once: each case's
+    reference stream at step i is its inverted latent at the matching noise
+    level (traj flipped), one UNet call runs every case's [u_g, r, c_g],
+    local CFG combines and `ctrl_step` steps each case's [g, r] stack.
+    Returns the generated latents [C, 1, h, w, c]."""
     k = traj.shape[0] - 1
-    nstr = text_emb.shape[0]
+    cases, nstr = text_emb.shape[:2]
     ts = schedule.timesteps[start_step : start_step + k]
     refs = torch.flip(traj[1:], dims=[0])
     lat = traj[-1]
-    cfg_mask = local_cfg[None, :, :, None]
+    text = _flat(text_emb)
+    cfg_mask = local_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     for i in range(k):
         t = int(ts[i])
-        lat2 = torch.cat([lat, refs[i]], dim=0)
+        lat2 = torch.cat([lat, refs[i]], dim=1)
         state.context_guidance = float(cg[i])
         state.share_gate = float(gates[i])
-        eps = unet_apply(_cfg_model_in(lat2, nstr), t, text_emb, ecfg, state)
-        nu, nc = _cfg_split(eps, nstr)
-        scale = (nc - nu) * cfg_mask if local_text_edit else nc - nu
-        lat2, _ = ctrl_step(schedule, nu + guidance_scale * scale, t, lat2, var_mask, eta,
-                            _draw(noise, i, lat2), ddim_streams_from=1)
-        lat = lat2[:1]
+        eps = unet_apply(_flat(_cfg_model_in(lat2, nstr)), t, text, ecfg, state)
+        nu, nc = _cfg_split(eps.reshape(cases, nstr, *eps.shape[1:]), nstr)
+        lat2, _ = ctrl_step(schedule, _cfg_noise(nu, nc, cfg_mask, guidance_scale,
+                                                 local_text_edit),
+                            t, lat2, var_mask, eta, _draw_cases(noise, i, lat2),
+                            ddim_streams_from=1)
+        lat = lat2[:, :1]
     return lat
 
 
+def sample_bggen_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
+                      traj: torch.Tensor, text_emb: torch.Tensor, state: EditState,
+                      cg: np.ndarray, gates: np.ndarray, local_cfg: torch.Tensor,
+                      local_var: torch.Tensor, noise: NoiseSource, **kw) -> torch.Tensor:
+    """`sample_bggen_cases` of one case: traj [K+1, 1, h, w, c] -> the
+    generated latent [1, h, w, c]."""
+    return sample_bggen_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None], state,
+                              cg, gates, local_cfg[None], local_var[None], [noise], **kw)[0]
+
+
 @torch.no_grad()
-def sample_compose_loop(
+def sample_compose_cases(
     unet_apply: Callable,
     schedule: DDIMSchedule,
     ecfg: EditConfig,
-    traj: torch.Tensor,            # [K+1, N+1, h, w, c] inversion trajectory
-    text_emb: torch.Tensor,        # [N+2, 77, D] per-stream context
-    text_extra: torch.Tensor,      # [P, 77, D] region prompts of the cond stream
+    traj: torch.Tensor,            # [K+1, C, N+1, h, w, c] inversion trajectories
+    text_emb: torch.Tensor,        # [C, N+2, 77, D] per-stream context
+    text_extra: torch.Tensor,      # [C, P, 77, D] region prompts of the cond streams
     state: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
-    completion_cfg: torch.Tensor,
-    local_var: torch.Tensor,
-    noise: NoiseSource,
+    completion_cfg: torch.Tensor,  # [C, lh, lw]
+    local_var: torch.Tensor,       # [C, lh, lw]
+    noise: Sequence[NoiseSource],
     *,
     start_step: int,
     guidance_scale: float,
@@ -211,26 +251,152 @@ def sample_compose_loop(
     local_text_edit: bool,
     local_perturbation: bool,
 ) -> torch.Tensor:
-    """N-image composition (reference forward_sampling_compose): per step
-    the streams are [e, r_1..r_N, c_e], the sources pinned to their
-    inversion latents; CFG combines the first and last stream and
-    `ctrl_step` steps the edit latent.  Returns it, [1, h, w, c]."""
+    """N-image composition (reference forward_sampling_compose) of C cases
+    at once: per step each case's streams are [e, r_1..r_N, c_e], the
+    sources pinned to their inversion latents; one UNet call runs every
+    case, CFG combines each case's first and last stream and `ctrl_step`
+    steps its edit latent.  Returns them, [C, 1, h, w, c]."""
     k = traj.shape[0] - 1
+    cases, nstr = text_emb.shape[:2]
     ts = schedule.timesteps[start_step : start_step + k]
-    refs = torch.flip(traj[:k], dims=[0])[:, 1:]
-    lat = traj[-1][:1]
-    cfg_mask = completion_cfg[None, :, :, None]
+    refs = torch.flip(traj[:k], dims=[0])[:, :, 1:]
+    lat = traj[-1][:, :1]
+    text, extra = _flat(text_emb), _flat(text_extra)
+    cfg_mask = completion_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     for i in range(k):
         t = int(ts[i])
         state.context_guidance = float(cg[i])
         state.share_gate = float(gates[i])
-        eps = unet_apply(torch.cat([lat, refs[i], lat], dim=0), t, text_emb, ecfg, state,
-                         ctx_extra=text_extra).float()
-        nu, nc = eps[:1], eps[-1:]
-        scale = (nc - nu) * cfg_mask if local_text_edit else nc - nu
-        lat, _ = ctrl_step(schedule, nu + guidance_scale * scale, t, lat, var_mask, eta,
-                           _draw(noise, i, lat))
+        eps = unet_apply(_flat(torch.cat([lat, refs[i], lat], dim=1)), t, text, ecfg, state,
+                         ctx_extra=extra).float()
+        eps = eps.reshape(cases, nstr, *eps.shape[1:])
+        lat, _ = ctrl_step(schedule, _cfg_noise(eps[:, :1], eps[:, -1:], cfg_mask,
+                                                guidance_scale, local_text_edit),
+                           t, lat, var_mask, eta, _draw_cases(noise, i, lat))
+    return lat
+
+
+def sample_compose_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
+                        traj: torch.Tensor, text_emb: torch.Tensor, text_extra: torch.Tensor,
+                        state: EditState, cg: np.ndarray, gates: np.ndarray,
+                        completion_cfg: torch.Tensor, local_var: torch.Tensor,
+                        noise: NoiseSource, **kw) -> torch.Tensor:
+    """`sample_compose_cases` of one case: traj [K+1, N+1, h, w, c] -> the
+    edit latent [1, h, w, c]."""
+    return sample_compose_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None],
+                                text_extra[None], state, cg, gates, completion_cfg[None],
+                                local_var[None], [noise], **kw)[0]
+
+
+@torch.no_grad()
+def sample_edit_loop_shared(
+    unet_edit: Callable,
+    unet_capture: Callable,
+    schedule: DDIMSchedule,
+    ecfg: EditConfig,
+    ref_traj: torch.Tensor,        # [K+1, h, w, c] reference inversion trajectory
+    init_lat: torch.Tensor,        # [C, h, w, c] per-case coarse traj[-1]
+    text_pair: torch.Tensor,       # [C, 2, 77, D] per-case [uncond, cond]
+    text_ref: torch.Tensor,        # [1, 77, D] uncond context of the capture pass
+    states: EditState,             # mask pyramids [C, S]
+    cg: np.ndarray,
+    gates: np.ndarray,
+    completion_cfg: torch.Tensor,  # [C, lh, lw]
+    local_var: torch.Tensor,       # [C, lh, lw]
+    noise: Sequence[NoiseSource],
+    **kw,
+) -> torch.Tensor:
+    """Shared-reference regeneration of C cases that edit the same source
+    image.  In `sample_edit_cases` each case's reference stream is re-pinned
+    to the same inverted latent every step and its stepped output is
+    discarded: C copies of one computation.  Here it runs once per step as a
+    capture pass (`EditConfig.store_kv`) whose TCA-layer K/V every case's
+    2-stream [u_e, c_e] pass consumes (`EditConfig.shared_ref`).  The
+    capture pass is vanilla, so this equals `sample_edit_cases` run with
+    `ref_vanilla=True`.  Per-case draws keep their shape: `ctrl_step` steps
+    a 2-row [edit, ref] stack per case.  Returns [C, h, w, c]."""
+    k = ref_traj.shape[0] - 1
+    refs = torch.flip(ref_traj[:k], dims=[0])
+    return _shared_ref_scan(unet_edit, unet_capture, schedule, ecfg, refs, init_lat, text_pair,
+                            text_ref, states, cg, gates, completion_cfg, local_var, noise, **kw)
+
+
+@torch.no_grad()
+def sample_bggen_loop_shared(
+    unet_edit: Callable,
+    unet_capture: Callable,
+    schedule: DDIMSchedule,
+    ecfg: EditConfig,
+    ref_traj: torch.Tensor,        # [K+1, h, w, c] source inversion trajectory
+    text_pair: torch.Tensor,       # [C, 2, 77, D]
+    text_ref: torch.Tensor,        # [1, 77, D]
+    states: EditState,
+    cg: np.ndarray,
+    gates: np.ndarray,
+    local_cfg: torch.Tensor,       # [C, lh, lw]
+    local_var: torch.Tensor,       # [C, lh, lw]
+    noise: Sequence[NoiseSource],
+    **kw,
+) -> torch.Tensor:
+    """Shared-source background generation of C removal cases of one
+    source image: the source's inversion is every case's init and, at the
+    matching noise level, its reference; the reference runs once per step
+    as a capture pass and each case a 2-stream [u_g, c_g] pass consuming
+    it (ref_vanilla semantics, as `sample_edit_loop_shared`).  Returns
+    [C, h, w, c]."""
+    refs = torch.flip(ref_traj[1:], dims=[0])
+    init = ref_traj[-1][None].expand(text_pair.shape[0], *ref_traj.shape[1:])
+    return _shared_ref_scan(unet_edit, unet_capture, schedule, ecfg, refs, init, text_pair,
+                            text_ref, states, cg, gates, local_cfg, local_var, noise, **kw)
+
+
+def _shared_ref_scan(
+    unet_edit: Callable,
+    unet_capture: Callable,
+    schedule: DDIMSchedule,
+    ecfg: EditConfig,
+    refs: torch.Tensor,            # [K, h, w, c] per-step pinned reference latents
+    init_lat: torch.Tensor,        # [C, h, w, c]
+    text_pair: torch.Tensor,       # [C, 2, 77, D]
+    text_ref: torch.Tensor,        # [1, 77, D]
+    states: EditState,
+    cg: np.ndarray,
+    gates: np.ndarray,
+    completion_cfg: torch.Tensor,
+    local_var: torch.Tensor,
+    noise: Sequence[NoiseSource],
+    *,
+    start_step: int,
+    guidance_scale: float,
+    eta: float,
+    local_text_edit: bool,
+    local_perturbation: bool,
+) -> torch.Tensor:
+    """The denoise loop of both shared lanes: per step ONE batch-1 capture
+    pass of the reference, ONE UNet call over every case's [u, c], local
+    CFG, and `ctrl_step` on each case's 2-row [case, ref] stack."""
+    k = refs.shape[0]
+    cases = init_lat.shape[0]
+    ts = schedule.timesteps[start_step : start_step + k]
+    text = _flat(text_pair)
+    cfg_mask = completion_cfg[:, :, :, None]
+    var_mask = local_var if local_perturbation else torch.ones_like(local_var)
+    lat = init_lat
+    for i in range(k):
+        t, ref = int(ts[i]), refs[i]
+        states.context_guidance = float(cg[i])
+        states.share_gate = float(gates[i])
+        states.ref_kv = unet_capture(ref[None], t, text_ref)
+        eps = unet_edit(lat.repeat_interleave(2, dim=0), t, text, ecfg, states).float()
+        eps = eps.reshape(cases, 2, *eps.shape[1:])
+        pred = _cfg_noise(eps[:, 0], eps[:, 1], cfg_mask, guidance_scale, local_text_edit)
+        x2 = torch.stack([lat, ref.expand_as(lat)], dim=1)
+        n2 = torch.stack([pred, torch.zeros_like(pred)], dim=1)
+        new, _ = ctrl_step(schedule, n2, t, x2, var_mask, eta, _draw_cases(noise, i, x2),
+                           ddim_streams_from=1)
+        lat = new[:, 0]
+    states.ref_kv = None
     return lat
 
 
@@ -239,6 +405,13 @@ def _draw(noise: NoiseSource, i: int, lat: torch.Tensor) -> torch.Tensor:
     if isinstance(noise, torch.Generator):
         return torch.randn(lat.shape, generator=noise, device=lat.device, dtype=torch.float32)
     return noise[i]
+
+
+def _draw_cases(noise: Sequence[NoiseSource], i: int, lat: torch.Tensor) -> torch.Tensor:
+    """Step i's draws of every case, [C, ...] like `lat`: case c's from its
+    own source, shaped like lat[c], so a case draws the same alone or in a
+    batch."""
+    return torch.stack([_draw(src, i, x) for src, x in zip(noise, lat)])
 
 
 def sample_guided_loop(
@@ -389,6 +562,22 @@ class FreeFine:
             eps, feats = out
             return eps.permute(0, 2, 3, 1), [f.permute(0, 2, 3, 1) for f in feats]
         return out.permute(0, 2, 3, 1)
+
+    def make_unet_capture(self, ecfg: EditConfig) -> Callable:
+        """The shared-reference capture pass for `ecfg`'s TCA layers: a
+        function (lat [1, h, w, c], t, ctx [1, 77, D]) -> {block_index:
+        (k [S, E], v [S, E])}, one vanilla UNet pass (`store_kv`) returning
+        the K/V of each self-attention TCA would modulate (JAX's
+        `_extract_ref_kv` of a sown pass).  The whole UNet runs; its output
+        is unused."""
+        cap_cfg = dataclasses.replace(none_config(), store_kv=True, layer_range=ecfg.layer_range)
+
+        def capture(lat, t, ctx):
+            store = EditState(ref_kv={})
+            self.unet_apply(lat, t, ctx, cap_cfg, store)
+            return store.ref_kv
+
+        return capture
 
     @torch.no_grad()
     def encode_text(self, texts: Sequence[str]) -> torch.Tensor:
@@ -706,3 +895,556 @@ class FreeFine:
             local_perturbation=local_perturbation,
         )
         return self.latent_to_image(out)[0]
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-case editing
+# ---------------------------------------------------------------------------
+
+
+def _invert_cases(unet_plain: Callable, schedule: DDIMSchedule, lats: torch.Tensor,
+                  text: torch.Tensor, num_actual: int) -> torch.Tensor:
+    """DDIM inversion of every case's streams as one batch: lats, text
+    [C, streams, ...] -> trajectories [K+1, C, streams, h, w, c]."""
+    traj = ddim_invert_loop(unet_plain, schedule, _flat(lats), _flat(text), num_actual)
+    return traj.reshape(traj.shape[0], *lats.shape)
+
+
+def edit_case_fn(unet_plain: Callable, unet_edit: Callable, schedule: DDIMSchedule,
+                 ecfg: EditConfig, *, num_actual: int, **loop_kw) -> Callable:
+    """The edit compute of C cases (invert both streams of every case, then
+    regenerate), each step one UNet call over all cases: the port's form of
+    JAX's `jax.vmap(edit_case_fn)`.  The reference harness runs batch 1
+    only (its attention controller holds per-case mutable state); here the
+    state is data, so cases batch freely."""
+
+    def fn(lat2, text2, text_s, states, cg, gates, cfg_masks, var_masks, noise):
+        traj = _invert_cases(unet_plain, schedule, lat2, text2, num_actual)
+        return sample_edit_cases(unet_edit, schedule, ecfg, traj, text_s, states, cg, gates,
+                                 cfg_masks, var_masks, noise, **loop_kw)
+
+    return fn
+
+
+def edit_shared_fn(unet_plain: Callable, unet_edit: Callable, unet_capture: Callable,
+                   schedule: DDIMSchedule, ecfg: EditConfig, *, num_actual: int,
+                   **loop_kw) -> Callable:
+    """The shared-source edit compute of C cases of one source image:
+    invert the C coarse latents as one batch, the shared reference once,
+    then `sample_edit_loop_shared`.  Per-edit UNet cost against
+    `edit_case_fn`: inversion 1 + 1/C streams instead of 2, regeneration
+    2 + 1/C instead of 3."""
+
+    def fn(lat_coarse, lat_ref, text_u, text_pair, states, cg, gates, cfg_masks, var_masks,
+           noise):
+        cases = lat_coarse.shape[0]
+        traj_c = ddim_invert_loop(unet_plain, schedule, lat_coarse,
+                                  text_u[None].expand(cases, -1, -1), num_actual)
+        traj_r = ddim_invert_loop(unet_plain, schedule, lat_ref[None], text_u[None], num_actual)
+        return sample_edit_loop_shared(unet_edit, unet_capture, schedule, ecfg, traj_r[:, 0],
+                                       traj_c[-1], text_pair, text_u[None], states, cg, gates,
+                                       cfg_masks, var_masks, noise, **loop_kw)
+
+    return fn
+
+
+def bggen_case_fn(unet_plain: Callable, unet_edit: Callable, schedule: DDIMSchedule,
+                  ecfg: EditConfig, *, num_actual: int, **loop_kw) -> Callable:
+    """The removal compute of C cases (invert, then the bggen loop), each
+    step one UNet call over all cases."""
+
+    def fn(lat1, text1, text_s, states, cg, gates, cfg_masks, var_masks, noise):
+        traj = _invert_cases(unet_plain, schedule, lat1, text1, num_actual)
+        return sample_bggen_cases(unet_edit, schedule, ecfg, traj, text_s, states, cg, gates,
+                                  cfg_masks, var_masks, noise, **loop_kw)
+
+    return fn
+
+
+def bggen_shared_fn(unet_plain: Callable, unet_edit: Callable, unet_capture: Callable,
+                    schedule: DDIMSchedule, ecfg: EditConfig, *, num_actual: int,
+                    **loop_kw) -> Callable:
+    """The shared-source removal compute of C cases of one source image:
+    invert the source once (every case's init and reference), then
+    `sample_bggen_loop_shared`.  Per-edit UNet cost against
+    `bggen_case_fn`: inversion 1/C streams instead of 1, regeneration
+    2 + 1/C instead of 3."""
+
+    def fn(lat_ref, text_u, text_pair, states, cg, gates, cfg_masks, var_masks, noise):
+        traj_r = ddim_invert_loop(unet_plain, schedule, lat_ref[None], text_u[None], num_actual)
+        return sample_bggen_loop_shared(unet_edit, unet_capture, schedule, ecfg, traj_r[:, 0],
+                                        text_pair, text_u[None], states, cg, gates, cfg_masks,
+                                        var_masks, noise, **loop_kw)
+
+    return fn
+
+
+def compose_case_fn(unet_plain: Callable, unet_edit: Callable, schedule: DDIMSchedule,
+                    ecfg: EditConfig, *, num_actual: int, **loop_kw) -> Callable:
+    """The composition compute of C cases (invert every case's N+1
+    streams, then the compose loop), each step one UNet call over all
+    cases."""
+
+    def fn(lats, text_inv, text_emb, text_extra, states, cg, gates, cfg_masks, var_masks, noise):
+        traj = _invert_cases(unet_plain, schedule, lats, text_inv, num_actual)
+        return sample_compose_cases(unet_edit, schedule, ecfg, traj, text_emb, text_extra,
+                                    states, cg, gates, cfg_masks, var_masks, noise, **loop_kw)
+
+    return fn
+
+
+def _stack_states(states: Sequence[EditState]) -> EditState:
+    """Per-case states -> one state whose every pyramid entry gains a
+    leading case axis."""
+    fields = ("fg_retain", "fg_ref", "local_region", "src_masks", "tgt_masks")
+    return EditState(**{f: {s: torch.stack([getattr(st, f)[s] for st in states])
+                            for s in getattr(states[0], f)} for f in fields})
+
+
+def _stack_masks_np(masks, h: int, w: int) -> np.ndarray:
+    """Host side: raw masks (any dtype, [H, W] or [H, W, C]) -> one
+    [N, h, w] float32 stack, nearest-resized where a case is not at the
+    pipeline resolution."""
+    out = []
+    for m in masks:
+        a = np.asarray(m)
+        if a.ndim == 3:
+            a = a[..., 0]
+        a = a.astype(np.float32)
+        if a.shape != (h, w):
+            a = nearest_resize(torch.from_numpy(a), h, w).numpy()
+        out.append(a)
+    return np.stack(out)
+
+
+def edit_mask_states(cfg: PipelineConfig, device, cases, use_auto_draw: bool,
+                     reduce_inp_artifacts: bool):
+    """The batched edit lanes' mask prep, `prepare_various_mask` per case
+    (host-side loop): the case-stacked EditState and the completion-CFG and
+    local-variance masks [C, lh, lw]."""
+    h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
+
+    def t(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+
+    tgt = _stack_masks_np([c["target_mask"] for c in cases], h, w)
+    ori = _stack_masks_np([c["ori_mask"] for c in cases], h, w)
+    draws = [c.get("draw_mask") for c in cases]
+    has_draw = any(d is not None for d in draws)
+    if has_draw and not all(d is not None for d in draws):
+        raise ValueError("cannot batch cases with and without draw_mask together")
+    cons = _stack_masks_np([c.get("cons_area", np.zeros((h, w), np.float32)) for c in cases],
+                           h, w)
+    draw = _stack_masks_np(draws, h, w) if has_draw else [None] * len(cases)
+    states, cfg_masks, var_masks = [], [], []
+    for i in range(len(cases)):
+        em = mask_ops.prepare_various_mask(
+            t(tgt[i]), t(ori[i]), t(draw[i]), h, w, lh, lw, use_auto_draw=use_auto_draw,
+            cons_area=t(cons[i]), reduce_inp_artifacts=reduce_inp_artifacts,
+        )
+        states.append(EditState(fg_retain=build_mask_pyramid(em.fg_retain, lh, lw),
+                                fg_ref=build_mask_pyramid(em.fg_ref, lh, lw),
+                                local_region=build_mask_pyramid(em.fg_retain, lh, lw)))
+        cfg_masks.append(em.completion_cfg)
+        var_masks.append(em.local_var)
+    return _stack_states(states), torch.stack(cfg_masks), torch.stack(var_masks)
+
+
+def bggen_mask_states(cfg: PipelineConfig, device, cases):
+    """The batched removal lanes' mask prep, `prepare_mask_bggen` per case:
+    the case-stacked EditState and the local masks [C, lh, lw]."""
+    lh, lw = cfg.latent_height, cfg.latent_width
+    masks = _stack_masks_np([c["ori_mask"] for c in cases], cfg.height, cfg.width)
+    states, lvars = [], []
+    for m in masks:
+        full, lv = mask_ops.prepare_mask_bggen(torch.as_tensor(m, device=device), cfg.height,
+                                               cfg.width, lh, lw)
+        pyr = build_mask_pyramid(full, lh, lw)
+        states.append(EditState(fg_retain=pyr, fg_ref=pyr, local_region=pyr))
+        lvars.append(lv)
+    return _stack_states(states), torch.stack(lvars)
+
+
+def _case_rngs(seed, n: int, device) -> list:
+    """Per-case generators of the batched lanes.  A sequence of seeds gives
+    case i `torch.Generator(device).manual_seed(seed[i])`, the generator the
+    single-edit entry points seed with `seed=seed[i]`, so a case's draws,
+    and its output, are the same alone or in any batch.  A scalar seed
+    gives case i the seed of the i-th of n integers in [0, 2^63 - 1) drawn
+    by `torch.randint` from a CPU generator seeded with it."""
+    if isinstance(seed, (list, tuple, np.ndarray)):
+        if len(seed) != n:
+            raise ValueError(f"{len(seed)} seeds for {n} cases")
+        seeds = [int(s) for s in seed]
+    else:
+        seeds = torch.randint(2**63 - 1, (n,), generator=torch.Generator().manual_seed(int(seed)))
+        seeds = seeds.tolist()
+    return [torch.Generator(device=device).manual_seed(s) for s in seeds]
+
+
+def _one_source(cases, name: str) -> np.ndarray:
+    """The ori_img every case of a shared-source batch shares; raises on a
+    mixed-source batch."""
+    ori0 = np.asarray(cases[0]["ori_img"])
+    for c in cases[1:]:
+        if not np.array_equal(np.asarray(c["ori_img"]), ori0):
+            raise ValueError(f"{name} requires every case to share one ori_img; use the "
+                             "per-case lane for mixed-source batches")
+    return ori0
+
+
+def _shared_method(method_type: str) -> None:
+    if method_type not in ("tca", "mmsa", "mmsa_es"):
+        raise ValueError("the shared-source lanes support the tca/mmsa methods (the GeoBench "
+                         f"protocol); got {method_type}")
+
+
+class BatchedFreeFine:
+    """Multi-case batched editing on top of a `FreeFine` pipeline.
+
+    Runs C independent GeoBench-style cases per denoise step: each step is
+    one UNet call over every case's streams (C * 3 in the per-case lanes,
+    C * 2 plus one batch-1 capture pass in the shared-source lanes), which
+    amortises the launch overheads.  The VAE encode, the text encode and
+    the decode are one call per batch; the mask prep loops over the cases
+    on the host side of the device path.
+
+    Noise: `seed` a sequence gives case i the generator of
+    `FreeFine.generation(seed=seed[i])`; a scalar derives one generator per
+    case (`_case_rngs`).  `noise=` replaces the draws with a per-case list
+    of K per-step tensors ([2, lh, lw, 4]; composition [1, lh, lw, 4]).
+
+    Pass a `freefine_tpu_torch.utils.profiling.StageTimer` as `timer=` to
+    time the stages (prep_images, vae_encode, text_encode, mask_prep, edit,
+    decode); each stage then ends with a device synchronise on CUDA.
+    """
+
+    def __init__(self, pipe: FreeFine):
+        self.pipe = pipe
+
+    @contextlib.contextmanager
+    def _stage(self, timer, name: str):
+        if timer is None:
+            yield
+            return
+        with timer.stage(name):
+            yield
+            if self.pipe.device.type == "cuda":
+                torch.cuda.synchronize(self.pipe.device)
+
+    def _uncond_and_conds(self, texts):
+        """One text-encode call for [""] + the per-case prompts."""
+        embs = self.pipe.encode_text([""] + list(texts))
+        return embs[0], embs[1:]
+
+    def _noise(self, seed, noise, n: int) -> list:
+        if noise is None:
+            return _case_rngs(seed, n, self.pipe.device)
+        if len(noise) != n:
+            raise ValueError(f"noise for {len(noise)} cases, {n} cases given")
+        return list(noise)
+
+    def _edit_config(self, **kw) -> EditConfig:
+        return EditConfig(layer_range=self.pipe._layer_range, **kw)
+
+    def generation(
+        self,
+        cases,  # dicts with ori_img / ori_mask / coarse_input / target_mask /
+                # guidance_text (+ optional draw_mask / cons_area)
+        guidance_scale: float = 7.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 25,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        use_auto_draw: bool = True,
+        reduce_inp_artifacts: bool = True,
+        end_scale: float = 0.5,
+        seed=42,
+        timer=None,
+        noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    ):
+        """`FreeFine.generation` of C cases, per step one UNet call over
+        the C * 3 streams.  Returns the C edited uint8 images."""
+        if method_type not in METHOD_TYPES:
+            raise ValueError(method_type)
+        pipe = self.pipe
+        n = len(cases)
+        with self._stage(timer, "prep_images"):
+            coarse = np.stack([pipe._prep_image(c["coarse_input"]) for c in cases])
+            ori = np.stack([pipe._prep_image(c["ori_img"]) for c in cases])
+        with self._stage(timer, "vae_encode"):
+            lats = pipe.image_to_latent(np.concatenate([coarse, ori]))
+            lat2 = torch.stack([lats[:n], lats[n:]], dim=1)          # [C, 2, lh, lw, 4]
+        with self._stage(timer, "text_encode"):
+            uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
+            u = uncond[None].expand(n, -1, -1)
+            text2 = torch.stack([u, u], dim=1)                       # inversion [C, 2, 77, D]
+            text3 = torch.stack([u, u, conds], dim=1)                # deduped CFG [C, 3, 77, D]
+        with self._stage(timer, "mask_prep"):
+            states, cfg_masks, var_masks = edit_mask_states(
+                pipe.config, pipe.device, cases, use_auto_draw, reduce_inp_artifacts)
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = self._edit_config(mode="edit", method=method, local_cfg=local_text_edit)
+        fn = edit_case_fn(
+            pipe.unet_apply, pipe.unet_apply, pipe._schedule(num_step), ecfg,
+            num_actual=num_step - start_step, start_step=start_step,
+            guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
+            local_perturbation=local_perturbation,
+        )
+        with self._stage(timer, "edit"):
+            out = fn(lat2, text2, text3, states, cg, gates, cfg_masks, var_masks,
+                     self._noise(seed, noise, n))
+        with self._stage(timer, "decode"):
+            imgs = pipe.latent_to_image(out[:, 0])
+        return list(imgs)
+
+    def generation_shared_source(
+        self,
+        cases,  # as `generation`, ALL sharing one ori_img
+        guidance_scale: float = 7.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 25,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        use_auto_draw: bool = True,
+        reduce_inp_artifacts: bool = True,
+        end_scale: float = 0.5,
+        seed=42,
+        timer=None,
+        noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    ):
+        """`generation` for C cases that edit the same source image, sharing
+        one reference stream: the source is inverted once, and its per-step
+        K/V are captured once and broadcast, cutting per-edit UNet work
+        from 2 + 3 to (1 + 1/C) + (2 + 1/C) stream-passes.
+
+        The capture pass runs the reference stream vanilla, so this lane
+        has the intent (`EditConfig.ref_vanilla`) semantics: it equals
+        `generation` run with ref_vanilla=True case by case, and differs
+        from the default lane on the reference stream's even heads.  Use
+        `generation` for mixed sources or strict reference parity."""
+        _shared_method(method_type)
+        ori0 = _one_source(cases, "generation_shared_source")
+        pipe = self.pipe
+        n = len(cases)
+        with self._stage(timer, "prep_images"):
+            coarse = np.stack([pipe._prep_image(c["coarse_input"]) for c in cases])
+            ori = pipe._prep_image(ori0)
+        with self._stage(timer, "vae_encode"):
+            lats = pipe.image_to_latent(np.concatenate([coarse, ori[None]]))
+            lat_coarse, lat_ref = lats[:n], lats[n]
+        with self._stage(timer, "text_encode"):
+            uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
+            text_pair = torch.stack([uncond[None].expand(n, -1, -1), conds], dim=1)
+        with self._stage(timer, "mask_prep"):
+            states, cfg_masks, var_masks = edit_mask_states(
+                pipe.config, pipe.device, cases, use_auto_draw, reduce_inp_artifacts)
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = self._edit_config(mode="edit", method=method, local_cfg=local_text_edit,
+                                 shared_ref=True, ref_vanilla=True)
+        fn = edit_shared_fn(
+            pipe.unet_apply, pipe.unet_apply, pipe.make_unet_capture(ecfg),
+            pipe._schedule(num_step), ecfg, num_actual=num_step - start_step,
+            start_step=start_step, guidance_scale=guidance_scale, eta=eta,
+            local_text_edit=local_text_edit, local_perturbation=local_perturbation,
+        )
+        with self._stage(timer, "edit"):
+            out = fn(lat_coarse, lat_ref, uncond, text_pair, states, cg, gates, cfg_masks,
+                     var_masks, self._noise(seed, noise, n))
+        with self._stage(timer, "decode"):
+            imgs = pipe.latent_to_image(out)
+        return list(imgs)
+
+    def background_generation(
+        self,
+        cases,  # dicts with ori_img / ori_mask / guidance_text
+        guidance_scale: float = 3.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 1,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        end_scale: float = 0.5,
+        seed=42,
+        timer=None,
+        noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    ):
+        """`FreeFine.background_generation` of C cases, per step one UNet
+        call over the C * 3 streams."""
+        if method_type not in METHOD_TYPES:
+            raise ValueError(method_type)
+        pipe = self.pipe
+        n = len(cases)
+        with self._stage(timer, "prep_images"):
+            ori = np.stack([pipe._prep_image(c["ori_img"]) for c in cases])
+        with self._stage(timer, "vae_encode"):
+            lat1 = pipe.image_to_latent(ori)[:, None]                # [C, 1, lh, lw, 4]
+        with self._stage(timer, "text_encode"):
+            uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
+            u = uncond[None].expand(n, -1, -1)
+            text1 = u[:, None]
+            text3 = torch.stack([u, u, conds], dim=1)
+        with self._stage(timer, "mask_prep"):
+            states, lvars = bggen_mask_states(pipe.config, pipe.device, cases)
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = self._edit_config(mode="bggen", method=method, local_cfg=local_text_edit)
+        fn = bggen_case_fn(
+            pipe.unet_apply, pipe.unet_apply, pipe._schedule(num_step), ecfg,
+            num_actual=num_step - start_step, start_step=start_step,
+            guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
+            local_perturbation=local_perturbation,
+        )
+        with self._stage(timer, "edit"):
+            out = fn(lat1, text1, text3, states, cg, gates, lvars, lvars,
+                     self._noise(seed, noise, n))
+        with self._stage(timer, "decode"):
+            imgs = pipe.latent_to_image(out[:, 0])
+        return list(imgs)
+
+    def background_generation_shared_source(
+        self,
+        cases,  # dicts with ori_img / ori_mask / guidance_text, ALL one ori_img
+        guidance_scale: float = 3.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 1,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        end_scale: float = 0.5,
+        seed=42,
+        timer=None,
+        noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    ):
+        """`background_generation` for removal cases on the same source
+        image: the source is encoded and inverted once (every case's init
+        and per-step reference), and the reference runs once per step as a
+        shared capture pass.  Per-case UNet work drops from 1 + 3 to
+        2 + 2/C stream-passes.  ref_vanilla semantics, as
+        `generation_shared_source`."""
+        _shared_method(method_type)
+        ori0 = _one_source(cases, "background_generation_shared_source")
+        pipe = self.pipe
+        n = len(cases)
+        with self._stage(timer, "prep_images"):
+            ori = pipe._prep_image(ori0)
+        with self._stage(timer, "vae_encode"):
+            lat_ref = pipe.image_to_latent(ori[None])[0]
+        with self._stage(timer, "text_encode"):
+            uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
+            text_pair = torch.stack([uncond[None].expand(n, -1, -1), conds], dim=1)
+        with self._stage(timer, "mask_prep"):
+            states, lvars = bggen_mask_states(pipe.config, pipe.device, cases)
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = self._edit_config(mode="bggen", method=method, local_cfg=local_text_edit,
+                                 shared_ref=True, ref_vanilla=True)
+        fn = bggen_shared_fn(
+            pipe.unet_apply, pipe.unet_apply, pipe.make_unet_capture(ecfg),
+            pipe._schedule(num_step), ecfg, num_actual=num_step - start_step,
+            start_step=start_step, guidance_scale=guidance_scale, eta=eta,
+            local_text_edit=local_text_edit, local_perturbation=local_perturbation,
+        )
+        with self._stage(timer, "edit"):
+            out = fn(lat_ref, uncond, text_pair, states, cg, gates, lvars, lvars,
+                     self._noise(seed, noise, n))
+        with self._stage(timer, "decode"):
+            imgs = pipe.latent_to_image(out)
+        return list(imgs)
+
+    def cross_image_composition(
+        self,
+        cases,  # dicts with img_lists / ori_mask_lists / tgt_mask_lists /
+                # coarse_input / guidance_text_list; one source count and one
+                # prompt count for all
+        guidance_scale: float = 7.5,
+        eta: float = 1.0,
+        end_step: int = 10,
+        num_step: int = 50,
+        start_step: int = 25,
+        method_type: str = "tca",
+        local_text_edit: bool = True,
+        local_perturbation: bool = True,
+        end_scale: float = 0.5,
+        dil_completion: bool = False,
+        dil_factor: int = 15,
+        appearance_transfer: bool = False,
+        seed=42,
+        timer=None,
+        noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    ):
+        """`FreeFine.cross_image_composition` of C cases, per step one UNet
+        call over the C * (N + 2) streams."""
+        if method_type not in METHOD_TYPES:
+            raise ValueError(method_type)
+        pipe = self.pipe
+        cfg = pipe.config
+        h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
+        n = len(cases)
+        ns = len(cases[0]["img_lists"])
+        n_prompts = len(cases[0]["guidance_text_list"])
+        if any(len(c["img_lists"]) != ns or len(c["guidance_text_list"]) != n_prompts
+               for c in cases):
+            raise ValueError("batched composition cases must share the source and prompt counts")
+        with self._stage(timer, "prep_images"):
+            imgs = np.stack([pipe._prep_image(im) for c in cases
+                             for im in [c["coarse_input"], *c["img_lists"]]])
+        with self._stage(timer, "vae_encode"):
+            lats = pipe.image_to_latent(imgs).reshape(n, ns + 1, lh, lw, 4)
+        with self._stage(timer, "text_encode"):
+            uncond, conds = self._uncond_and_conds(
+                [p for c in cases for p in c["guidance_text_list"]])
+            conds = conds.reshape(n, n_prompts, *conds.shape[1:])
+            u = uncond[None, None].expand(n, 1, -1, -1)
+            # per-stream context [uncond, prompt_1..prompt_N (padded with uncond), uncond]
+            pad = u.expand(n, max(ns - n_prompts, 0), -1, -1)
+            text_emb = torch.cat([u, conds[:, :ns], pad, u], dim=1)  # [C, N+2, 77, D]
+            text_extra = torch.cat([conds, u], dim=1)                # [C, P, 77, D]
+            text_inv = u.expand(n, ns + 1, -1, -1)
+        with self._stage(timer, "mask_prep"):
+            def masks(ms):
+                return [torch.as_tensor(m, device=pipe.device) for m in _stack_masks_np(ms, h, w)]
+
+            states, cfg_masks, var_masks = [], [], []
+            for c in cases:
+                cm = mask_ops.prepare_composition_masks(
+                    masks(c["ori_mask_lists"]), masks(c["tgt_mask_lists"]),
+                    h, w, lh, lw, dil_completion=dil_completion, dil_factor=dil_factor,
+                    appearance_transfer=appearance_transfer,
+                )
+                if cm.tgt_masks.shape[0] < n_prompts + 1:
+                    raise ValueError(f"{n_prompts + 1} region prompts vs "
+                                     f"{cm.tgt_masks.shape[0]} target regions")
+                states.append(EditState(src_masks=build_mask_stack_pyramid(cm.src_masks, lh, lw),
+                                        tgt_masks=build_mask_stack_pyramid(cm.tgt_masks, lh, lw)))
+                cfg_masks.append(cm.completion_cfg)
+                var_masks.append(cm.local_var)
+            states = _stack_states(states)
+        method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
+                                             end_scale)
+        ecfg = self._edit_config(mode="compose", method=method, local_cfg=local_text_edit,
+                                 num_sources=ns, prompt_length=n_prompts + 1)
+        fn = compose_case_fn(
+            pipe.unet_apply, pipe.unet_apply, pipe._schedule(num_step), ecfg,
+            num_actual=num_step - start_step, start_step=start_step,
+            guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
+            local_perturbation=local_perturbation,
+        )
+        with self._stage(timer, "edit"):
+            out = fn(lats, text_inv, text_emb, text_extra, states, cg, gates,
+                     torch.stack(cfg_masks), torch.stack(var_masks), self._noise(seed, noise, n))
+        with self._stage(timer, "decode"):
+            imgs = pipe.latent_to_image(out[:, 0])
+        return list(imgs)

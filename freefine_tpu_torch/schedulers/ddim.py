@@ -117,9 +117,11 @@ def ctrl_step(
     sigma * noise inside `mask`; streams >= `ddim_streams_from` stay pure
     DDIM with the mask treated as ones.
 
-    model_output, x: [B, H, W, C] (NHWC, as the JAX package);
-    mask: [H, W] (1 = DDPM region); noise: [B, H, W, C] float32
-    standard normal draws (required when eta > 0).
+    model_output, x: [B, H, W, C] (NHWC, as the JAX package), streams on
+    the batch axis; mask: [H, W] (1 = DDPM region); noise: [B, H, W, C]
+    float32 standard normal draws (required when eta > 0).  Per case (the
+    batched lanes, `jax.vmap` of the step in JAX): x, model_output and
+    noise [N, B, H, W, C] with one mask per case [N, H, W].
     """
     dtype = x.dtype
     x32 = x.float()
@@ -133,14 +135,15 @@ def ctrl_step(
     pred_x0 = (x32 - _f32(np.sqrt(beta_t)) * eps) / _f32(np.sqrt(alpha_t))
     std_dev_t = np.float32(eta) * np.sqrt(schedule.variance(t))
 
-    mask_b = mask.float()[None, :, :, None].expand(x.shape)
+    lead = mask.ndim - 2  # the case axis, if any, before the streams
+    mask_b = mask.float()[(slice(None),) * lead + (None, Ellipsis, None)].expand(x.shape)
 
-    b = x.shape[0]
-    std = torch.full((b,) + (1,) * (x.ndim - 1), _f32(std_dev_t), device=x.device)
+    b = x.shape[lead]
+    stream_shape = (1,) * lead + (b,) + (1,) * (x.ndim - lead - 1)
+    std = torch.full(x.shape[:lead + 1] + (1,) * (x.ndim - lead - 1), _f32(std_dev_t),
+                     device=x.device)
     if ddim_streams_from is not None:
-        is_ref = (
-            torch.arange(b, device=x.device) >= ddim_streams_from
-        ).reshape((b,) + (1,) * (x.ndim - 1))
+        is_ref = (torch.arange(b, device=x.device) >= ddim_streams_from).reshape(stream_shape)
         std = torch.where(is_ref, torch.zeros_like(std), std)
         mask_b = torch.where(is_ref, torch.ones_like(mask_b), mask_b)
 

@@ -47,7 +47,7 @@ def main():
     cuda_build.build_all(["tca_flash", "tca_flash_bwd"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     ms = {}
-    for b, h, s, d, dtype in cs.TCA_SHAPES:
+    for b, h, s, d, dtype in cs.TCA_EDIT_SHAPES:
         q, ks, vs, km, vm, do = cs._inputs(gen, b, h, s, d, dtype, 6)
         masks = dict(cs.tca_layouts(s), parity=cs._tca_masks(gen, b, s, "parity"))
         for name, (fg, tq) in masks.items():
@@ -60,7 +60,7 @@ def main():
                 fn = getattr(FA, kern)
                 ms[f"{kern} {s} {name}"] = cs.graph_ms(lambda: fn(*res, heads=h))
         ms[f"tca_flash_fwd_lse {s}"] = cs.graph_ms(lambda: FA.tca_flash_fwd_lse(*ops, heads=h))
-    sizes = [shape[2] for shape in cs.TCA_SHAPES]
+    sizes = [shape[2] for shape in cs.TCA_EDIT_SHAPES]
     per_edit = {f"tca_flash {path}": n * sum(ms[f"tca_flash {s} {masks}"] for s in sizes)
                 for path, n, masks in ROW2_PATHS}
     per_edit["tca_flash_fwd_lse D"] = D_LAUNCHES * sum(ms[f"tca_flash_fwd_lse {s}"]

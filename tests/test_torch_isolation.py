@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of `freefine_tpu_torch` nor
-`chip_smoke.py` imports `jax`, `flax` or the JAX package, and importing the
-port leaves `jax` out of `sys.modules`."""
+"""The PyTorch port stands alone: no module of `freefine_tpu_torch` nor its
+scripts (`chip_smoke.py`, `bench_torch.py`, `scripts/tca_graph_times.py`,
+`scripts/gn_plan_sweep.py`) imports `jax`, `flax` or the JAX package, and
+importing the port leaves `jax` out of `sys.modules`."""
 
 import ast
 import os
@@ -18,7 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "freefine_tpu")
 
 
 def _sources():
-    files = sorted((ROOT / "freefine_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "freefine_tpu_torch").rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "bench_torch.py", "scripts/tca_graph_times.py",
+                                 "scripts/gn_plan_sweep.py")]
     assert len(files) > 10
     return files
 
@@ -53,6 +56,7 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import freefine_tpu_torch.pipeline, freefine_tpu_torch.weights\n"
         "import freefine_tpu_torch.ops.geometry, freefine_tpu_torch.ops.group_norm\n"
+        "import freefine_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'freefine_tpu')]\n"
         "print(','.join(bad))\n"
     )
