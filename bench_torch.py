@@ -29,8 +29,11 @@ Prints ONE JSON line with `bench.py`'s keys
    20 edits/min/chip build target of BASELINE.json, no measurement),
    "lane"}
 and the port's own: the median and the slowest call's seconds per edit,
-`torch.cuda.max_memory_allocated` in GiB, the `FREEFINE_FUSED_GN` value,
-and the card's name and power limit as nvidia-smi reports them.
+`torch.cuda.max_memory_allocated` in GiB, the GroupNorm route that
+`FREEFINE_FUSED_GN` resolves to on the device ("0" or "1"; unset, "auto"
+gives "1" on a card), and the card's name and power limit as nvidia-smi
+reports them.  Name the route (FREEFINE_FUSED_GN=0 or 1) to compare with
+numbers taken before "auto" became the default.
 """
 
 import argparse
@@ -102,6 +105,7 @@ def main():
     import torch
 
     from freefine_tpu_torch.config import sd15_pipeline_config, tiny_pipeline_config
+    from freefine_tpu_torch.ops.group_norm import fused_gn_route
     from freefine_tpu_torch.pipeline import BatchedFreeFine, FreeFine
 
     device = torch.device(args.device)
@@ -180,7 +184,7 @@ def main():
         "s_per_call": secs,
         "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
-        "fused_gn": os.environ.get("FREEFINE_FUSED_GN", "0"),
+        "fused_gn": fused_gn_route(device),
         "card": card_line() if device.type == "cuda" else None,
         "device": str(device),
         "weights_dtype": args.weights_dtype,

@@ -4,6 +4,10 @@ NVIDIA H100.
 
     python3 chip_smoke.py            # all phases, one card
 
+Every phase that runs the models names its GroupNorm route
+(FREEFINE_FUSED_GN "0" or "1"), except the checks of the default ("auto"):
+phase 3's and phase 9b's.
+
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
@@ -42,8 +46,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `BatchedFreeFine.generation` and `generation_shared_source` (2 cases,
      TCA; the per-case lane also at 3 cases, with the same launch counts)
      and, with FREEFINE_FUSED_GN=1, `background_generation_shared_source`;
-     and the latent gradient of one differentiated TCA UNet pass in modes
-     edit and bggen;
+     and, with FREEFINE_FUSED_GN=0, the latent gradient of one
+     differentiated TCA UNet pass in modes edit and bggen; with
+     FREEFINE_FUSED_GN unset (the default: the kernel on the card, the
+     two-pass math on the CPU), `guided_generation` and that gradient;
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -51,7 +57,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      counts, and the launches by call shape against the shapes of phase 2;
   5. the full-width SD-1.5 512^2 energy-guided edit: `guided_generation`
      with its defaults (50 steps, start 25, energy on the first 0.6 of the
-     25 regeneration steps, energy scale 2.0, TCA); one warm-up and two
+     25 regeneration steps, energy scale 2.0, TCA), FREEFINE_FUSED_GN=0;
+     one warm-up and two
      timed edits, the same checks; one more edit measures the forward of the
      differentiated pass that no gradient reads (up blocks 2-3, conv_out);
   6. the full-width SD-1.5 512^2 object removal: `background_generation`
@@ -63,9 +70,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   8. the differentiated SD-1.5 512^2 TCA edit pass: one regeneration UNet
      pass in mode "edit" over [u_e, r, c_e] at start step 35, built as
      `generation` builds it, the gradient of a fixed-cotangent loss on the
-     edit streams' eps taken back to the edit latent; one warm-up and three
-     timed passes, launches checked against the counts worked out from the
-     config;
+     edit streams' eps taken back to the edit latent, FREEFINE_FUSED_GN=0;
+     one warm-up and three timed passes, launches checked against the
+     counts worked out from the config;
   9. the full-width SD-1.5 512^2 batched lanes, `generation`'s protocol
      (50 steps, start 35, guidance 7.5, eta 1.0, TCA) over the cases
      `batch_cases` makes (one source image, a coarse edit each):
@@ -76,7 +83,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      against the counts worked out from the config (the per-case lane's do
      not depend on the batch), s per call, s/edit, edits/min and peak
      memory; case 0 of the per-case lane against `generation` of the same
-     case and seed (uint8 max and mean |diff|, reported);
+     case and seed (uint8 max and mean |diff|, reported); and C5's checks:
+     a batch of one against `generation` of its case and seed, bit for bit
+     (bf16, GN 1), and case 0 of a batch of 8 against `generation` with the
+     f32 config, TF32 off (max and mean |diff| of the final latents and
+     images, classified: rounding under 1e-2, a fault over 0.1; anything
+     but rounding fails);
+ 9b. the rest of the main path (`phase_rest`), SD-1.5 512^2, bf16, phase
+     4's pipe and edit: the checkpoint round trip (`save_pipeline` to a
+     temporary directory, `load_sd15` back onto the card, seconds and GB/s
+     each way, every tensor bit-equal, a `FreeFine(params=loaded)` edit
+     equal to phase 4's pipe's), an edit from a 768x1024 source, an edit
+     with `return_intermediates`, one `attention_maps` probe, and with
+     FREEFINE_FUSED_GN unset (the "auto" default) a G edit, two timed E
+     edits (`guided_generation`, phase 5's protocol) and one differentiated
+     TCA pass (phase 8's), each with its launches and the GroupNorm shapes
+     it launches among phase 2's;
  10. one call of `group_norm_silu` at every path shape under
      torch.profiler: one `gn::` kernel launch per call (after the timed
      edits, which a profiler session could slow; with --profile before
@@ -94,6 +116,7 @@ Exits with code 2 and prints no result when CUDA is not available.
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import os
 import shutil
@@ -1194,13 +1217,15 @@ def norm_calls(cfg, kind: str) -> list:
 
 # Batches of each pass of the paths that run the fused GroupNorm
 # (FREEFINE_FUSED_GN=1): generation (phase 4: inversion 2, regeneration 3,
-# one VAE encode and decode of 2 images), object removal (phase 6: 1 and 3;
-# one image), composition (phase 7: 3 and 4; 3 encodes and 1 decode of
+# one VAE encode of 2 images and one decode of the edit image; the guided
+# edit and the differentiated pass of phase 9b run these and the UNet at
+# batch 1, each image decoded alone as in generation), object
+# removal (phase 6: 1 and 3; one image), composition (phase 7: 3 and 4; 3 encodes and 1 decode of
 # one image each), and the batched lanes of phase 9 (S: inversions C and 1,
 # capture 1, edit 2C, encode C + 1, decode C; B: inversion 2C, regeneration
 # 3C, encode 2C, decode C).
 GN_PATH_BATCHES = {
-    "generation": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (2,)},
+    "generation": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (1,)},
     "bggen": {"unet": (1, 3), "vae_encode": (1,), "vae_decode": (1,)},
     "compose": {"unet": (3, 4), "vae_encode": (1,), "vae_decode": (1,)},
     "S": {"unet": (BATCH_SHARED, 1, 2 * BATCH_SHARED), "vae_encode": (BATCH_SHARED + 1,),
@@ -1614,15 +1639,19 @@ def _capture_latents(pipe, store):
 
 
 @contextlib.contextmanager
-def fused_gn(mode: str):
-    """FREEFINE_FUSED_GN set to `mode` inside the block, restored after."""
+def fused_gn(mode):
+    """FREEFINE_FUSED_GN set to `mode` (None: unset, the default "auto")
+    inside the block, restored after."""
     prev = os.environ.get("FREEFINE_FUSED_GN")
-    os.environ["FREEFINE_FUSED_GN"] = mode
+    if mode is None:
+        os.environ.pop("FREEFINE_FUSED_GN", None)
+    else:
+        os.environ["FREEFINE_FUSED_GN"] = mode
     try:
         yield
     finally:
         if prev is None:
-            os.environ.pop("FREEFINE_FUSED_GN")
+            os.environ.pop("FREEFINE_FUSED_GN", None)
         else:
             os.environ["FREEFINE_FUSED_GN"] = prev
 
@@ -1667,6 +1696,9 @@ def phase_tiny(record):
         "guided_generation": ("0", 2, 4, lambda p, **kw: p.guided_generation(
             img, mask, coarse_c, tm_c, "a photo", energy_fraction=0.5, cons_area=cons,
             **edit_kw, **kw)),
+        "guided_generation_gn_default": (None, 2, 4, lambda p, **kw: p.guided_generation(
+            img, mask, coarse_c, tm_c, "a photo", energy_fraction=0.5, cons_area=cons,
+            **edit_kw, **kw)),
         "background_generation": ("1", 2, 5, lambda p, **kw: p.background_generation(
             img, mask, "a wall", num_step=6, start_step=1, end_step=3, **kw)),
         "cross_image_composition": ("1", 1, 4, lambda p, **kw: p.cross_image_composition(
@@ -1688,14 +1720,16 @@ def phase_tiny(record):
         err = float((lats["cpu"] - lats["cuda"]).abs().max())
         img_err = int(np.abs(outs["cpu"].astype(int) - outs["cuda"].astype(int)).max())
         record["tiny"][entry] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
-                                     image_max_level_diff=img_err, fused_gn=mode,
+                                     image_max_level_diff=img_err, fused_gn=mode or "unset",
                                      finite=bool(torch.isfinite(lats["cuda"]).all()))
         log(f"  tiny {entry} CUDA vs CPU: latents max |diff| {err:.3g} (tol {TINY_TOL}), "
             f"image {img_err} levels")
         if not err <= TINY_TOL or img_err > 1 or not record["tiny"][entry]["finite"]:
             raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {record['tiny'][entry]}")
     tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw)
-    tiny_tca_grad(record, cpu, gpu, img, mask, coarse_c, tm_c)
+    for mode in ("0", None):
+        with fused_gn(mode):
+            tiny_tca_grad(record, cpu, gpu, img, mask, coarse_c, tm_c)
 
 
 def tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw):
@@ -1828,31 +1862,37 @@ def tca_grad_pass(pipe, inputs, w):
 def tiny_tca_grad(record, cpu, gpu, img, mask, coarse, tm):
     """Phase 3's gradient check: the latent gradient of one differentiated
     TCA UNet pass (modes edit and bggen) on CUDA against the CPU, the same
-    inputs (built on the CPU) and cotangent."""
+    inputs (built on the CPU) and cotangent, under the FREEFINE_FUSED_GN
+    the caller set (unset: recorded with the suffix "_gn_default")."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
 
     cfg = cpu.config
     w = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32))
+    sfx = "" if "FREEFINE_FUSED_GN" in os.environ else "_gn_default"
     for mode in ("edit", "bggen"):
         # phase 3's schedule (8 steps, start 4, end 1): context guidance 0.29,
         # so all three passes carry weight
         lat, t, emb, ecfg, state = tca_pass_inputs(cpu, (img, mask, coarse, tm), mode, 4, 8, 1)
         _, want = tca_grad_pass(cpu, (lat, t, emb, ecfg, state), w)
         FA.reset_launch_counts()
+        G.reset_launch_counts()
         _, got = tca_grad_pass(gpu, (lat.cuda(), t, emb.cuda(), ecfg, state), w.cuda())
         launched = {k: FA.LAUNCHES[k] for k in TCA_GRAD_KERNELS}
+        if sfx:  # the default fuses on the card
+            launched.update(G.LAUNCHES)
         err = float((got.cpu() - want).abs().max())
         ref = float(want.abs().max())
         rec = dict(grad_max_abs_err=err, grad_max_ref=ref, tol=TINY_TOL * ref,
                    finite=bool(torch.isfinite(got).all()), tca_vjp_launches=launched)
-        record["tiny"][f"tca_grad_{mode}"] = rec
-        log(f"  tiny TCA gradient ({mode}) CUDA vs CPU: max |diff| {err:.3g} "
+        record["tiny"][f"tca_grad_{mode}{sfx}"] = rec
+        log(f"  tiny TCA gradient ({mode}{sfx}) CUDA vs CPU: max |diff| {err:.3g} "
             f"(tol {TINY_TOL} x max|ref| {ref:.3g}), TCA VJP launches {launched}")
         if not (err <= TINY_TOL * ref and ref > 0 and rec["finite"]) or 0 in launched.values():
-            raise AssertionError(f"tiny TCA gradient ({mode}): {rec}")
+            raise AssertionError(f"tiny TCA gradient ({mode}{sfx}): {rec}")
 
 
 # Kernel names of a GroupNorm in a profile: the port's kernels (namespace
@@ -2337,36 +2377,390 @@ def phase_batched(record, pipe, store, timed_runs, profile):
         shapes_b = timed_edits(rec, "per_case_gn1", per_case, expect_b, timed_runs, store,
                                (h, w), BATCH_CASES)
         batch_img, batch_lat = store["out"][0], store["lat"][0].clone()
-        case = cases[0]
-        single = pipe.generation(case["ori_img"], case["ori_mask"], case["coarse_input"],
-                                 case["target_mask"], case["guidance_text"], use_auto_draw=True,
-                                 cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True,
-                                 seed=seeds[0], **kw)
-        diff = np.abs(single.astype(np.int32) - batch_img.astype(np.int32))
-        lat_diff = (store["lat"][0] - batch_lat).abs()
+        single = _single_edit(pipe, cases[0], seeds[0], kw)
+        rec["case0_vs_single"] = _gaps(store["lat"][0], batch_lat, single, batch_img)
         if profile:
             rec["shared_gn1_profile"] = profile_edit(shared, "profile_sd15_shared_gn1.txt")
             rec["per_case_gn1_profile"] = profile_edit(per_case, "profile_sd15_per_case_gn1.txt")
-    rec["case0_vs_single"] = dict(
-        max_level_diff=int(diff.max()), mean_level_diff=float(diff.mean()),
-        latent_max_abs_diff=float(lat_diff.max()), latent_mean_abs_diff=float(lat_diff.mean()),
-        latent_max_abs=float(batch_lat.abs().max()))
     rec["protocol"] = (
         f"SD-1.5 512^2, generation's protocol (50-step DDIM, start 35, guidance 7.5, eta 1.0, "
         f"TCA, use_auto_draw, reduce_inp_artifacts), bf16 random weights; shared-source lane at "
         f"batch {BATCH_SHARED} with FREEFINE_FUSED_GN 0 and 1 in turns, per-case lane at batch "
         f"{BATCH_CASES} with FREEFINE_FUSED_GN=1; case i: batch_cases(i), seed 42 + i")
+    gap = rec["case0_vs_single"]
     log(f"  per-case lane case 0 vs generation of the same case and seed: uint8 max |diff| "
-        f"{int(diff.max())}, mean {float(diff.mean()):.4f}; final latents max |diff| "
-        f"{float(lat_diff.max()):.4g}, mean {float(lat_diff.mean()):.4g} (max |latent| "
-        f"{float(batch_lat.abs().max()):.4g})")
+        f"{gap['image_max_level_diff']}, mean {gap['image_mean_level_diff']:.4f}; final latents "
+        f"max |diff| {gap['latent_max_abs_diff']:.4g}, mean {gap['latent_mean_abs_diff']:.4g} "
+        f"(max |latent| {gap['latent_max_abs']:.4g})")
+    rec["c5_one_case_bf16"] = c5_one_case(pipe, cases[0], seeds[0], kw, store)
+    rec["c5_eight_cases_f32"] = c5_f32(pipe, cases[:BATCH_CASES], seeds[:BATCH_CASES], kw)
     return shapes["1"], shapes_b
+
+
+def _gaps(lat_a, lat_b, img_a, img_b) -> dict:
+    """max and mean |diff| of two final latents and of two uint8 images."""
+    lat = (lat_a.float() - lat_b.float()).abs()
+    img = np.abs(img_a.astype(np.int32) - img_b.astype(np.int32))
+    return dict(latent_max_abs_diff=float(lat.max()), latent_mean_abs_diff=float(lat.mean()),
+                latent_max_abs=float(lat_b.abs().max()), image_max_level_diff=int(img.max()),
+                image_mean_level_diff=float(img.mean()))
+
+
+def _single_edit(pipe, case, seed, kw):
+    h, w = pipe.config.height, pipe.config.width
+    return pipe.generation(case["ori_img"], case["ori_mask"], case["coarse_input"],
+                           case["target_mask"], case["guidance_text"], use_auto_draw=True,
+                           cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True,
+                           seed=seed, **kw)
+
+
+def c5_one_case(pipe, case, seed, kw, store):
+    """C5, first check: `BatchedFreeFine.generation` of one case against
+    `generation` of the same case and seed, SD-1.5 bf16, the fused
+    GroupNorm (path B's route).  Each single-edit loop is its batched loop
+    with one case and the single edit encodes its text as a batch of one
+    does, so the final latents and the image must be bit for bit."""
+    import torch
+
+    from freefine_tpu_torch.pipeline import BatchedFreeFine
+
+    with fused_gn("1"):
+        batched = BatchedFreeFine(pipe).generation([case], seed=[seed], **kw)[0]
+        lat_b = store["lat"][0].clone()
+        single = _single_edit(pipe, case, seed, kw)
+        lat_s = store["lat"][0].clone()
+    rec = dict(_gaps(lat_s, lat_b, single, batched),
+               latents_bit_equal=bool(torch.equal(lat_s, lat_b)),
+               image_bit_equal=bool(np.array_equal(single, batched)))
+    log(f"  C5 one case, bf16: batch of one vs generation: final latents bit-equal "
+        f"{rec['latents_bit_equal']}, image bit-equal {rec['image_bit_equal']} ({rec})")
+    if not (rec["latents_bit_equal"] and rec["image_bit_equal"]):
+        raise AssertionError(f"C5: a batch of one differs from the single edit: {rec}")
+    return rec
+
+
+# C5's verdict on the f32 gap between case 0 of a batch of 8 and the single
+# edit (final latents, max |diff|): under the first, batch-dependent
+# rounding; above the second, a fault.
+C5_ROUNDING, C5_FAULT = 1e-2, 0.1
+
+
+def c5_f32(pipe, cases, seeds, kw):
+    """C5, second check: case 0 of `BatchedFreeFine.generation` over
+    `cases` against `generation` of the same case and seed, with the
+    SD-1.5 f32 config (`sd15_pipeline_config(dtype=torch.float32)`), the
+    same random weights cast to f32, TF32 off, the fused GroupNorm.
+    Reports max and mean |diff| of the final latents and the images and
+    the verdict (rounding below C5_ROUNDING, fault above C5_FAULT, open
+    between); C5 is closed as rounding, so any other verdict fails."""
+    import torch
+
+    from freefine_tpu_torch.config import sd15_pipeline_config
+    from freefine_tpu_torch.pipeline import BatchedFreeFine, FreeFine
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    pipe32 = FreeFine(sd15_pipeline_config(dtype=torch.float32), device="cuda",
+                      params={n: {k: v.float() for k, v in m.state_dict().items()}
+                              for n, m in pipe.components().items()})
+    store = {}
+    _capture_latents(pipe32, store)
+    try:
+        with fused_gn("1"):
+            t0 = time.perf_counter()
+            batched = BatchedFreeFine(pipe32).generation(cases, seed=seeds, **kw)[0]
+            torch.cuda.synchronize()
+            batched_s = time.perf_counter() - t0
+            lat_b = store["lat"][0].clone()
+            single = _single_edit(pipe32, cases[0], seeds[0], kw)
+            lat_s = store["lat"][0].clone()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del pipe32
+        gc.collect()  # the capture hook's closure makes a cycle with the f32 weights
+        torch.cuda.empty_cache()
+    rec = _gaps(lat_s, lat_b, single, batched)
+    gap = rec["latent_max_abs_diff"]
+    rec.update(cases=len(cases), batched_call_s=batched_s, rounding_below=C5_ROUNDING,
+               fault_above=C5_FAULT,
+               verdict=("rounding" if gap < C5_ROUNDING else "fault" if gap > C5_FAULT
+                        else "open"))
+    log(f"  C5 {len(cases)} cases, f32 (TF32 off): case 0 vs generation: final latents max "
+        f"|diff| {gap:.4g}, mean {rec['latent_mean_abs_diff']:.4g} (max |latent| "
+        f"{rec['latent_max_abs']:.4g}); image max {rec['image_max_level_diff']}, mean "
+        f"{rec['image_mean_level_diff']:.4f} levels; verdict {rec['verdict']} (batched call "
+        f"{batched_s:.1f} s)")
+    if rec["verdict"] != "rounding":
+        raise AssertionError(f"C5: case 0 of {len(cases)} in f32 differs from the single edit "
+                             f"by more than rounding (< {C5_ROUNDING}): {rec}")
+    return rec
+
+
+def probe_map_counts(cfg) -> dict:
+    """Maps per key of one `attention_maps` probe, worked out from the
+    config: every transformer block whose queries number at most 32 * 32
+    records one self and one cross map."""
+    u = cfg.unet
+    nb = len(u.block_out_channels)
+    counts = {}
+
+    def add(place, level, blocks):
+        if (cfg.latent_height >> level) * (cfg.latent_width >> level) <= 32 * 32 and blocks:
+            for kind in ("self", "cross"):
+                counts[f"{place}_{kind}"] = counts.get(f"{place}_{kind}", 0) + blocks
+
+    for i in range(nb):
+        if u.down_block_has_attn[i]:
+            add("down", i, u.transformer_depth[i] * u.layers_per_block)
+    add("mid", nb - 1, u.transformer_depth[nb - 1])
+    for i in range(nb):
+        if u.up_block_has_attn[i]:
+            add("up", nb - 1 - i, u.transformer_depth[nb - 1 - i] * (u.layers_per_block + 1))
+    return counts
+
+
+def _same_as_runs(key, out, refs) -> dict:
+    """`out` against two runs `refs` of the same edit: bit for bit with the
+    first, or, where the two runs themselves differ, within their gap."""
+    own = int(np.abs(refs[0].astype(np.int32) - refs[1].astype(np.int32)).max())
+    gap = int(np.abs(out.astype(np.int32) - refs[0].astype(np.int32)).max())
+    rec = dict(max_level_diff=gap, own_gap=own, bit_equal=bool(np.array_equal(out, refs[0])))
+    if own:
+        log(f"  {key}: two runs of the same edit differ by {own} levels; held within that gap")
+    if (own == 0 and not rec["bit_equal"]) or gap > own:
+        raise AssertionError(f"{key}: differs from the reference edit: {rec}")
+    return rec
+
+
+def phase_rest(record, pipe, case, store):
+    """Phase 9b, the rest of the main path at SD-1.5 512^2, bf16, with
+    phase 4's pipe and edit (`generation`'s protocol, the fused GroupNorm
+    named "1" unless said):
+      * checkpoint round trip: `save_pipeline` to a temporary directory,
+        `load_sd15` back onto the card (seconds and GB/s each way), every
+        tensor bit-equal, and a `FreeFine(params=loaded)` edit equal to
+        the phase-4 pipe's (bit for bit, or within two of its own runs'
+        gap); the directory is removed also when a check fails;
+      * an edit from a 768x1024 source (coarse input and masks at that
+        size): `_prep_image` on the card within 1 level of the CPU's, and
+        the launches of a G edit;
+      * `return_intermediates`: the image equal to the edit without it, 15
+        frames of 64x64x3 uint8, the launches of a G edit;
+      * one `attention_maps` probe at batch 3 at step 35 under phase 4's
+        edit config: eps bit for bit `unet_apply`'s, the map counts per
+        key worked out from the config (`probe_map_counts`), rows summing
+        to 1 within 1e-3, its ms and peak memory;
+      * the GroupNorm default: with FREEFINE_FUSED_GN unset, a G edit
+        launches `group_norm_silu` as under "1"; so do one warm-up and two
+        timed E edits (`guided_generation`, phase 5's protocol) and one
+        differentiated TCA pass (phase 8's), whose gradient must be finite
+        and non-zero; every GroupNorm shape each launches is one of
+        phase 2's."""
+    import tempfile
+    import types
+
+    import torch
+
+    from freefine_tpu_torch.ops import group_norm as G
+    from freefine_tpu_torch.ops.geometry import re_edit_2d
+    from freefine_tpu_torch.pipeline import FreeFine
+    from freefine_tpu_torch.weights import load_sd15, save_pipeline
+
+    cfg = pipe.config
+    h, w = cfg.height, cfg.width
+    num_step, start_step = 50, 35
+    k = num_step - start_step
+    kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
+              end_step=10, method_type="tca", use_auto_draw=True,
+              cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True, seed=42)
+    img, mask, coarse, tm = case
+    prompt = "a photo of a cat"
+    expect = _expected(cfg, pipe, k, k, fused=True)
+    rec = record["sd15_rest"] = {"card": record["card"]}
+
+    # checkpoint round trip
+    with fused_gn("1"):
+        refs = [pipe.generation(img, mask, coarse, tm, prompt, **kw) for _ in range(2)]
+    tmp = tempfile.mkdtemp(prefix="freefine_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = save_pipeline(pipe, tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = {n: {k_: v.to("cuda") for k_, v in sd.items()}
+                  for n, sd in load_sd15(pipe, tmp).items()}
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        unequal = [f"{n}.{k_}" for n, mod in pipe.components().items()
+                   for k_, v in mod.state_dict().items()
+                   if not (loaded[n][k_].dtype == v.dtype and torch.equal(loaded[n][k_], v))]
+        if unequal or any(set(loaded[n]) != set(m.state_dict()) for n, m in
+                          pipe.components().items()):
+            raise AssertionError(f"checkpoint round trip: {len(unequal)} tensors differ, e.g. "
+                                 f"{unequal[:5]}")
+        pipe2 = FreeFine(cfg, params=loaded, device="cuda")
+        del loaded
+        with fused_gn("1"):
+            out2 = pipe2.generation(img, mask, coarse, tm, prompt, **kw)
+        del pipe2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["checkpoint"] = dict(bytes=nbytes, write_s=write_s, read_s=read_s,
+                             write_gb_s=nbytes / write_s / 1e9, read_gb_s=nbytes / read_s / 1e9,
+                             edit=_same_as_runs("loaded pipe's edit", out2, refs))
+    log(f"  checkpoint: {nbytes / 1e9:.3f} GB written by save_pipeline in {write_s:.2f} s "
+        f"({nbytes / write_s / 1e9:.2f} GB/s, no fsync), read by load_sd15 onto the card in "
+        f"{read_s:.2f} s ({nbytes / read_s / 1e9:.2f} GB/s, from the page cache); every tensor "
+        f"bit-equal; loaded pipe's edit {rec['checkpoint']['edit']} [{record['card']}]")
+
+    # off-size input
+    big_h, big_w = 768, 1024
+    img_b, mask_b = _case(big_h, big_w, 3)
+    coarse_b, tm_b, _ = re_edit_2d(img_b, mask_b, dx=60, dy=-30, rotation=10, scale_x=1.1,
+                                   scale_y=1.1, device="cuda")
+    cpu_pipe = types.SimpleNamespace(config=cfg, device=torch.device("cpu"))
+    prep = max(int(np.abs(pipe._prep_image(a).astype(np.int32)
+                          - FreeFine._prep_image(cpu_pipe, a).astype(np.int32)).max())
+               for a in (img_b, coarse_b))
+    if prep > 1:
+        raise AssertionError(f"off-size _prep_image: CUDA and CPU differ by {prep} levels")
+    with fused_gn("1"):
+        secs, _ = edit_once("off-size G edit", lambda: pipe.generation(
+            img_b, mask_b, coarse_b, tm_b, prompt, **kw), expect, store, (h, w))
+    rec["off_size"] = dict(source=[big_h, big_w], prep_cuda_vs_cpu_max_level_diff=prep,
+                           seconds=secs, launches=expect)
+    log(f"  off-size {big_h}x{big_w} G edit: _prep_image CUDA vs CPU max {prep} levels, "
+        f"{secs:.3f} s, launches {expect}")
+
+    # return_intermediates
+    launches = {}
+    with fused_gn("1"):
+        from freefine_tpu_torch.ops import flash_attention as FA
+
+        FA.reset_launch_counts()
+        G.reset_launch_counts()
+        out, frames = pipe.generation(img, mask, coarse, tm, prompt, return_intermediates=True,
+                                      **kw)
+        launches = _launch_counts()[0]
+    if launches != expect:
+        raise AssertionError(f"return_intermediates: launches {launches} != G's {expect}")
+    if frames.shape != (k, cfg.latent_height, cfg.latent_width, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"return_intermediates: frames {frames.shape} {frames.dtype}")
+    rec["intermediates"] = dict(frames=list(frames.shape), launches=launches,
+                                image=_same_as_runs("return_intermediates image", out, refs))
+    log(f"  return_intermediates: {frames.shape[0]} frames {frames.shape[1:]} uint8, image "
+        f"{rec['intermediates']['image']}, launches as G's")
+
+    # attention_maps
+    lat, t, emb, ecfg, state = tca_pass_inputs(pipe, case, "edit", start_step)
+    x = torch.cat([lat[:1], lat[1:], lat[:1]])
+    with fused_gn("1"):
+        want = pipe.unet_apply(x, t, emb, ecfg, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        eps, maps = pipe.attention_maps(x, t, emb, ecfg, state)
+        torch.cuda.synchronize()
+        probe_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+    counts = {key: len(v) for key, v in maps.items()}
+    worst_row = max(float(np.abs(m.sum(-1) - 1.0).max()) for v in maps.values() for m in v)
+    shapes_ok = all(m.shape[0] == 3 and m.shape[1] <= 32 * 32
+                    and m.shape[2] == (m.shape[1] if key.endswith("self") else 77)
+                    for key, v in maps.items() for m in v)
+    rec["attention_maps"] = dict(map_counts=counts, expected=probe_map_counts(cfg),
+                                 eps_bit_equal=bool(torch.equal(eps, want)),
+                                 worst_row_sum_err=worst_row, ms=probe_ms, peak_memory_bytes=peak,
+                                 memory_before_bytes=base)
+    log(f"  attention_maps probe (batch 3, step {start_step}): {counts}, worst row-sum error "
+        f"{worst_row:.2e}, eps bit-equal {rec['attention_maps']['eps_bit_equal']}, "
+        f"{probe_ms:.1f} ms, peak {peak / 2**30:.2f} GiB (before {base / 2**30:.2f}) "
+        f"[{record['card']}]")
+    if (counts != probe_map_counts(cfg) or not rec["attention_maps"]["eps_bit_equal"]
+            or worst_row > 1e-3 or not shapes_ok):
+        raise AssertionError(f"attention_maps probe: {rec['attention_maps']}")
+
+    # the GroupNorm default
+    with fused_gn(None):
+        mode, route = G.fused_gn_mode(), G.fused_gn_route("cuda")
+        secs, _ = edit_once("G edit, FREEFINE_FUSED_GN unset", lambda: pipe.generation(
+            img, mask, coarse, tm, prompt, **kw), expect, store, (h, w))
+    rec["gn_default"] = dict(mode=mode, route_on_cuda=route, seconds=secs, launches=expect)
+    log(f"  FREEFINE_FUSED_GN unset: mode {mode!r}, route {route!r} on the card, G edit "
+        f"{secs:.3f} s, group_norm_silu launches {expect['group_norm_silu']}")
+    gn_default_e_d(record, pipe, case, store)
+
+
+def _gn_shapes_checked(key, shapes, cfg):
+    """Fail on a `group_norm_silu` shape that phase 2 did not hold."""
+    extra = {k[1:] for k in shapes if k[0] == "group_norm_silu"} - set(gn_shapes(cfg))
+    if extra:
+        raise AssertionError(f"{key}: GroupNorm shapes not checked in phase 2: {sorted(extra)}")
+
+
+def gn_default_e_d(record, pipe, case, store):
+    """Phase 9b's E and D under the default route (FREEFINE_FUSED_GN
+    unset): one warm-up and two timed `guided_generation` edits at phase
+    5's protocol, and one differentiated TCA pass at phase 8's, each with
+    its launches (`group_norm_silu` at every GroupNorm of every UNet pass
+    and VAE call) and GroupNorm shapes checked."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
+
+    cfg = pipe.config
+    h, w = cfg.height, cfg.width
+    img, mask, coarse, tm = case
+    num_step, start_step, fraction = 50, 25, 0.6
+    k = num_step - start_step
+    energy_steps = int(round(k * fraction))
+    kw = dict(energy_scale=2.0, energy_fraction=fraction, guidance_scale=7.5, eta=1.0,
+              num_step=num_step, start_step=start_step, end_step=10, method_type="tca",
+              seed=42)
+    expect = _expected(cfg, pipe, k, k, energy_steps, fused=True)
+    key = "sd15_guided_gn_default"
+    with fused_gn(None):
+        shapes = timed_edits(record, key, lambda: pipe.guided_generation(
+            img, mask, coarse, tm, "a photo of a cat", **kw), expect, 2, store, (h, w))
+    _gn_shapes_checked(key, shapes, cfg)
+    record[key]["protocol"] = record["sd15_guided"]["protocol"] + ", FREEFINE_FUSED_GN unset"
+
+    inputs = tca_pass_inputs(pipe, case, "edit", 35)
+    wt = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)).cuda()
+    expect = _expected_tca_grad(cfg, pipe)
+    expect["group_norm_silu"] = len(norm_calls(cfg, "unet"))
+    with fused_gn(None):
+        tca_grad_pass(pipe, inputs, wt)  # warm-up
+        FA.reset_launch_counts()
+        G.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grad = tca_grad_pass(pipe, inputs, wt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, shapes = _launch_counts()
+    if launches != expect:
+        raise AssertionError(f"TCA grad pass, GN default: launches {launches} != {expect}")
+    _gn_shapes_checked("TCA grad pass, GN default", shapes, cfg)
+    if not (torch.isfinite(grad).all() and grad.abs().max() > 0 and torch.isfinite(loss)):
+        raise AssertionError("TCA grad pass, GN default: the gradient is not finite and non-zero")
+    record["sd15_tca_grad_gn_default"] = dict(
+        seconds_per_pass=secs, launches=expect, grad_max_abs=float(grad.abs().max()),
+        protocol=record["sd15_tca_grad"]["protocol"].replace("FREEFINE_FUSED_GN off",
+                                                             "FREEFINE_FUSED_GN unset"))
+    log(f"  FREEFINE_FUSED_GN unset: TCA grad pass {secs:.3f} s, launches {expect} "
+        f"[{record['card']}]")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9 (kernel and tiny checks only)")
+                    help="skip phases 4 to 9b (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one SD-1.5 edit of each path (torch.profiler)")
@@ -2431,6 +2825,9 @@ def main():
             f"per case at batch {BATCH_CASES})")
         counts["S"], counts["B"] = phase_batched(record, pipe, store, args.timed_runs,
                                                  args.profile)
+        log("phase 9b: SD-1.5 512^2 checkpoint round trip, off-size input, intermediates, "
+            "attention probe, GroupNorm default")
+        phase_rest(record, pipe, case, store)
     if not args.profile:
         log("phase 10: group_norm_silu launches per call at every path shape (profiled last)")
         gn_launches_per_call(checked["group_norm_silu"][0])

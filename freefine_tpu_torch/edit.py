@@ -50,6 +50,14 @@ class EditConfig:
     store_kv      : the capture pass: each self-attention that TCA would
                     modulate (`TCA_SCOPE`, `layer_range`) writes its batch-1
                     (k, v) into `EditState.ref_kv`, keyed by block index.
+    store_attention : the attention-map instrument: every attention layer
+                    with at most 32 x 32 queries adds its head-averaged
+                    probabilities [B, Sq, Sk] to `EditState.intermediates`
+                    (`FreeFine.attention_maps`, `utils.attn_store`).  The
+                    layer's output is unchanged.
+    sow_token_attn : every cross-attention adds its maps of the tokens
+                    `EditState.token_select` selects [B*H, Sq, T] to
+                    `EditState.intermediates`.
     """
 
     mode: str = "none"
@@ -61,6 +69,8 @@ class EditConfig:
     shared_ref: bool = False
     ref_vanilla: bool = False
     store_kv: bool = False
+    store_attention: bool = False
+    sow_token_attn: bool = False
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -73,6 +83,10 @@ class EditConfig:
     @property
     def uses_share_attention(self) -> bool:
         return self.method in ("ssa", "sdsa")
+
+    @property
+    def uses_tca(self) -> bool:
+        return self.method in ("tca", "mmsa")
 
     def block_gated(self, block_index: int) -> bool:
         """Static layer gate (reference `cur_att_layer // 2 in layer_idx`)."""
@@ -99,6 +113,12 @@ class EditState:
     ref_kv       : shared-reference layout, {block_index: (k [S, E],
                    v [S, E])}: the reference stream's self-attention K/V at
                    each TCA-gated layer (the capture pass writes it).
+    token_select : [T, 77] one-hot rows (zero rows padding) selecting the
+                   tokens whose cross-attention maps `sow_token_attn` keeps.
+    intermediates : where the instruments write, the port's form of flax's
+                   "intermediates" collection: {(module path..., name):
+                   [tensor per call]} (name "attn_probs" or
+                   "token_attn_{place}").
 
     Case axis: the batched lanes stack C cases, and every mask pyramid
     entry gains a leading case axis ([C, S]; compose [C, N, S]).  The UNet
@@ -114,6 +134,8 @@ class EditState:
     context_guidance: float = 0.0
     share_gate: float = 1.0
     ref_kv: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None
+    token_select: Optional[torch.Tensor] = None
+    intermediates: Optional[Dict[tuple, list]] = None
 
 
 def attention_resolutions(latent_h: int, latent_w: int) -> Tuple[Tuple[int, int], ...]:

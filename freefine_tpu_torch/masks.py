@@ -232,3 +232,14 @@ def prepare_surrounding_mask(
         & (cidx[None, :] >= nx0) & (cidx[None, :] <= nx1)
     ).float()
     return region * (1.0 - binarize(cons_area)) * (1.0 - m)
+
+
+def get_constrain_areas(mask_list: Sequence[torch.Tensor], h: int, w: int) -> torch.Tensor:
+    """Union of instance masks to protect from edits (reference
+    src/utils/vis_utils.py:183-193): each mask `prepare_mask`ed to (h, w),
+    summed and binarised."""
+    out = torch.zeros((h, w), dtype=torch.float32,
+                      device=mask_list[0].device if len(mask_list) else None)
+    for m in mask_list:
+        out = out + prepare_mask(m, h, w)
+    return binarize(out)

@@ -47,9 +47,9 @@ def timestep_embedding(
 class GroupNorm32(nn.Module):
     """GroupNorm with float32 statistics, optional fused SiLU, output in the
     input dtype.  NCHW input.  Where `use_fused` selects it
-    (FREEFINE_FUSED_GN) the norm is the `group_norm_silu` kernel
-    (differentiable through `GroupNormSiLU`), else the two-pass
-    `group_norm_reference` math, as JAX's GroupNorm32 routes."""
+    (FREEFINE_FUSED_GN; by default on a CUDA tensor) the norm is the
+    `group_norm_silu` kernel (differentiable through `GroupNormSiLU`), else
+    the two-pass `group_norm_reference` math, as JAX's GroupNorm32 routes."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -60,7 +60,7 @@ class GroupNorm32(nn.Module):
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         kw = dict(num_groups=self.num_groups, eps=self.eps, apply_silu=silu)
-        if use_fused(x.shape, self.num_groups):
+        if use_fused(x.shape, self.num_groups, x.device):
             return group_norm_silu_diff(x, self.weight, self.bias, **kw)
         return group_norm_reference(x, self.weight, self.bias, **kw)
 
@@ -188,13 +188,17 @@ class EditAttention(nn.Module):
     cross-attention through `edit_cross_attention`.  Under
     `edit_cfg.store_kv` (the shared-reference capture pass, batch 1) each
     self-attention that TCA would modulate writes its (k, v) [S, E] into
-    `edit_state.ref_kv` under its block index."""
+    `edit_state.ref_kv` under its block index.  Under
+    `edit_cfg.store_attention` / `sow_token_attn` it adds its maps to
+    `edit_state.intermediates` under (`path`..., name); the UNet sets
+    `path` to the layer's module path."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, is_cross: bool, dtype,
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.heads, self.is_cross = heads, is_cross
+        self.path: tuple = ()
         self.to_q = nn.Linear(dim, dim, bias=False, **kw)
         self.to_k = nn.Linear(context_dim, dim, bias=False, **kw)
         self.to_v = nn.Linear(context_dim, dim, bias=False, **kw)
@@ -208,6 +212,13 @@ class EditAttention(nn.Module):
         if (edit_cfg.store_kv and not self.is_cross and place in TCA_SCOPE
                 and edit_cfg.block_gated(block_index)):
             edit_state.ref_kv[block_index] = (k[0], v[0])
+        if edit_cfg.store_attention and q.shape[1] <= 32 * 32:
+            edit_state.intermediates.setdefault(self.path + ("attn_probs",), []).append(
+                attn_ops.attention_probs(q, k, self.heads))
+        if (self.is_cross and edit_cfg.sow_token_attn and edit_state is not None
+                and edit_state.token_select is not None):
+            edit_state.intermediates.setdefault(self.path + (f"token_attn_{place}",), []).append(
+                attn_ops.token_attention_maps(q, k, self.heads, edit_state.token_select))
         if self.is_cross:
             k_extra = v_extra = None
             if context_extra is not None:  # compose region prompts [P, 77, D]

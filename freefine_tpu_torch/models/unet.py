@@ -19,6 +19,7 @@ from freefine_tpu_torch.config import UNetConfig
 from freefine_tpu_torch.edit import EditConfig, EditState, none_config
 from freefine_tpu_torch.models.layers import (
     Downsample2D,
+    EditAttention,
     GroupNorm32,
     ResnetBlock2D,
     SpatialTransformer,
@@ -91,6 +92,9 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = GroupNorm32(g, ch[0], 1e-5, dev)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1, dtype=dt, device=dev)
+        for name, mod in self.named_modules():
+            if isinstance(mod, EditAttention):
+                mod.path = tuple(name.split("."))
 
     def forward(
         self,

@@ -47,6 +47,31 @@ def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     return (key_mask[:, None, None, :] - 1.0) * -NEG_INF
 
 
+def _probs(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
+    """Softmax attention probabilities [B, H, Sq, Sk] in float32."""
+    qh, kh = split_heads(q, heads).float(), split_heads(k, heads).float()
+    scale = 1.0 / float(torch.sqrt(torch.tensor(float(qh.shape[-1]), dtype=torch.float32)))
+    return torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
+    """Head-averaged softmax attention probabilities [B, Sq, Sk] in float32:
+    what the attention-map instrument (`EditConfig.store_attention`)
+    records.  Averaged over heads, as in the JAX package (the reference
+    keeps [B*H, Sq, Sk])."""
+    return _probs(q, k, heads).mean(dim=1)
+
+
+def token_attention_maps(q: torch.Tensor, k: torch.Tensor, heads: int,
+                         token_select: torch.Tensor) -> torch.Tensor:
+    """Head-resolved cross-attention probabilities reduced to selected
+    tokens: q [B, Sq, E], k [B, Sk, E], token_select [T, Sk] (one-hot rows,
+    zero rows padding) -> [B*H, Sq, T] float32 (`EditConfig.sow_token_attn`)."""
+    sel = torch.einsum("bhqk,tk->bhqt", _probs(q, k, heads), token_select.float())
+    b, h, s, t = sel.shape
+    return sel.reshape(b * h, s, t)
+
+
 def sdpa(q, k, v, heads: int, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled dot-product attention with float32 logits and softmax; the
     probabilities are cast to v's dtype before the P.V product (f32 sum).

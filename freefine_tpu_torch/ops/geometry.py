@@ -149,3 +149,76 @@ def re_edit_2d(
     trans_hole = np.where(tmask_b, timg_u8, image_with_hole)
     final = np.where(tmask_b, timg_u8, np.asarray(inp_cur))
     return final, (tmask_b[:, :, 0].astype(np.uint8) * 255), trans_hole
+
+
+def flip_object(
+    src_img: np.ndarray,
+    src_mask: np.ndarray,
+    horizontal: bool = True,
+    inp_cur: Optional[np.ndarray] = None,
+    *,
+    device: str | torch.device = "cuda",
+):
+    """Mirror the object about its bbox center, horizontally or vertically,
+    and paste it over `inp_cur` (defaults to the source).  Returns
+    (final_image, target_mask_u8_255) as numpy."""
+    src_img = np.asarray(src_img)
+    src_mask = np.asarray(src_mask)
+    if src_mask.ndim == 3:
+        src_mask = src_mask[:, :, 0]
+    if inp_cur is None:
+        inp_cur = src_img
+    cx, cy = mask_bbox_center(src_mask)
+    if horizontal:
+        m = np.array([[-1.0, 0.0, 2 * cx], [0.0, 1.0, 0.0]])
+    else:
+        m = np.array([[1.0, 0.0, 0.0], [0.0, -1.0, 2 * cy]])
+    inv = invert_affine(m)
+    dev = torch.device(device)
+    timg = np.clip(warp_affine(torch.as_tensor(src_img, device=dev), inv).cpu().numpy(),
+                   0, 255).astype(np.uint8)
+    tmask = warp_affine(torch.as_tensor((src_mask > 0).astype(np.uint8), device=dev), inv,
+                        method="nearest").cpu().numpy()
+    tb = (tmask > 0)[:, :, None]
+    final = np.where(tb, timg, np.asarray(inp_cur))
+    return final, tb[:, :, 0].astype(np.uint8) * 255
+
+
+def lanczos3_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
+    """The [in_size, out_size] float32 weights with which
+    `jax.image.resize(..., method="lanczos3")` (antialiased, its default)
+    resamples one axis: output i samples the input at
+    (i + 0.5) / scale - 0.5, scale = out_size / in_size, through the
+    Lanczos kernel of radius 3, 3 sin(pi x) sin(pi x / 3) / (pi x)^2 (1
+    below 1e-3, 0 beyond 3), stretched by max(1 / scale, 1) when shrinking;
+    each column is divided by its sum (zero where that sum is about 0), and
+    a column whose sample lies outside [-0.5, in_size - 0.5] is zero."""
+    inv_scale = torch.tensor(in_size / out_size, dtype=torch.float32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0).to(device)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) \
+        * inv_scale.to(device) - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32, device=device)[:, None])
+    x = x.abs() / kernel_scale
+    pi = torch.tensor(np.pi, dtype=torch.float32)
+    y = 3.0 * torch.sin(pi * x) * torch.sin(pi * x / 3.0)
+    k = torch.where(x > 1e-3, y / torch.where(x != 0, pi**2 * x**2, torch.ones_like(x)),
+                    torch.ones_like(x))
+    k = torch.where(x > 3.0, torch.zeros_like(k), k)
+    total = k.sum(dim=0, keepdim=True)
+    k = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    k / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(k))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], k, torch.zeros_like(k))
+
+
+def resize_lanczos3(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[H, W, C] -> float32 [height, width, C], `jax.image.resize`'s
+    antialiased lanczos3 (`lanczos3_weights`) on the axes whose size
+    changes, on img's device; the channel axis is never resized."""
+    x = img.float()
+    if x.shape[0] != height:
+        x = torch.einsum("hwc,hy->ywc", x, lanczos3_weights(x.shape[0], height, x.device))
+    if x.shape[1] != width:
+        x = torch.einsum("hwc,wx->hxc", x, lanczos3_weights(x.shape[1], width, x.device))
+    return x

@@ -16,14 +16,15 @@ the two-pass reference math and the autograd function.
     as JAX's `_fused_gn_bwd` (:153) does; there is no backward kernel, as in
     JAX.  `group_norm_silu_diff` takes it only under differentiation.
 
-Routing (`use_fused`, read at call time): FREEFINE_FUSED_GN "1" on, any
-other value (the default "0") off.  JAX's "auto" (on the TPU) has no
-counterpart: the route is chosen by the user, not by the device.  JAX also keeps the plain math where the NHWC slab would not fit its
-kernel's VMEM tile or H is not a multiple of 8 (`_tile_bytes`,
-`_ROW_CHUNK`); those rules describe the TPU tile, not the function, so the
-port fuses every 4-D norm whose channels split into the groups, the 512^2
-VAE slabs included (ROADMAP C: a route deviation that changes rounding
-only).
+Routing (`use_fused`, read at call time): FREEFINE_FUSED_GN "1" on, "0"
+off, "auto" (the default) on for a tensor on a CUDA device and off
+elsewhere, as JAX's "auto" fuses on the TPU only; any other value raises.
+On the CPU "auto" is the "0" route.  JAX also keeps the plain math where
+the NHWC slab would not fit its kernel's VMEM tile or H is not a multiple
+of 8 (`_tile_bytes`, `_ROW_CHUNK`); those rules describe the TPU tile,
+not the function, so the port fuses every 4-D norm whose channels split
+into the groups, the 512^2 VAE slabs included (ROADMAP C: a route
+deviation that changes rounding only).
 
 Dispatch: a tensor on the CPU goes to the plain twin; a CUDA tensor
 launches the kernel or raises.  The kernel works on the channels-last
@@ -81,10 +82,31 @@ def reset_launch_counts() -> None:
     LAUNCH_SHAPES.clear()
 
 
-def use_fused(shape: Sequence[int], num_groups: int = 32) -> bool:
-    """Whether a norm over an NCHW activation of `shape` takes
+FUSED_GN_MODES = ("0", "1", "auto")
+
+
+def fused_gn_mode() -> str:
+    """FREEFINE_FUSED_GN: "0", "1" or "auto" (unset: "auto"); any other
+    value raises."""
+    mode = os.environ.get("FREEFINE_FUSED_GN", "auto")
+    if mode not in FUSED_GN_MODES:
+        raise ValueError(f"FREEFINE_FUSED_GN={mode!r}: expected one of {FUSED_GN_MODES}")
+    return mode
+
+
+def fused_gn_route(device) -> str:
+    """The route FREEFINE_FUSED_GN resolves to for a tensor on `device`:
+    "1" (the kernel) or "0" (the two-pass math)."""
+    mode = fused_gn_mode()
+    if mode == "auto":
+        return "1" if torch.device(device).type == "cuda" else "0"
+    return mode
+
+
+def use_fused(shape: Sequence[int], num_groups: int = 32, device="cpu") -> bool:
+    """Whether a norm over an NCHW activation of `shape` on `device` takes
     `group_norm_silu` (FREEFINE_FUSED_GN, read at every call)."""
-    return (os.environ.get("FREEFINE_FUSED_GN", "0") == "1" and len(shape) == 4
+    return (fused_gn_route(device) == "1" and len(shape) == 4
             and shape[1] % num_groups == 0)
 
 

@@ -43,8 +43,11 @@ from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
 from freefine_tpu_torch.models.tokenizer import load_tokenizer
 from freefine_tpu_torch.models.unet import UNet2DCondition
 from freefine_tpu_torch.models.vae import AutoencoderKL, from_uint8, to_uint8
+from freefine_tpu_torch.ops.geometry import resize_lanczos3
 from freefine_tpu_torch.ops.guidance import energy_guidance
 from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, ctrl_step, inv_step, method_and_gates
+from freefine_tpu_torch.utils.attn_store import collect_maps
+from freefine_tpu_torch.utils.vis import latent_to_preview
 from freefine_tpu_torch.weights import random_weights
 
 METHOD_TYPES = ("tca", "mmsa", "mmsa_es", "ssa", "sdsa")
@@ -134,13 +137,15 @@ def sample_edit_cases(
     eta: float,
     local_text_edit: bool,
     local_perturbation: bool,
-) -> torch.Tensor:
+    return_intermediates: bool = False,
+):
     """Geometric-edit regeneration (reference forward_sampling) of C cases
     at once: per step each case's reference stream is pinned to its
     inversion latent, ONE UNet call runs every case's [u_e, r, c_e], local
     CFG combines the streams and the hybrid `ctrl_step` steps each case's
     2-stream stack with its own draw.  Returns the final latents
-    [C, 2, h, w, c]."""
+    [C, 2, h, w, c], or with return_intermediates (final, each step's edit
+    stream after its `ctrl_step` [K, C, h, w, c])."""
     k = traj.shape[0] - 1
     cases, nstr = text_emb.shape[:2]
     ts = schedule.timesteps[start_step : start_step + k]
@@ -149,6 +154,7 @@ def sample_edit_cases(
     text = _flat(text_emb)
     cfg_mask = completion_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
+    inter = []
     for i in range(k):
         t = int(ts[i])
         lat[:, 1:] = refs[i]
@@ -158,7 +164,17 @@ def sample_edit_cases(
         nu, nc = _cfg_split(eps.reshape(cases, nstr, *eps.shape[1:]), nstr)
         lat, _ = ctrl_step(schedule, _cfg_noise(nu, nc, cfg_mask, guidance_scale, local_text_edit),
                            t, lat, var_mask, eta, _draw_cases(noise, i, lat), ddim_streams_from=1)
-    return lat
+        if return_intermediates:
+            inter.append(lat[:, 0])
+    return (lat, torch.stack(inter)) if return_intermediates else lat
+
+
+def _one_case(out, return_intermediates: bool):
+    """A `*_cases` loop's result for its one case: the final latents, or
+    (final, per-step latents [K, h, w, c])."""
+    if return_intermediates:
+        return out[0][0], out[1][:, 0]
+    return out[0]
 
 
 def sample_edit_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
@@ -166,9 +182,12 @@ def sample_edit_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditCon
                      gates: np.ndarray, completion_cfg: torch.Tensor, local_var: torch.Tensor,
                      noise: NoiseSource, **kw) -> torch.Tensor:
     """`sample_edit_cases` of one case: traj [K+1, 2, h, w, c], text_emb
-    [3, 77, D], masks [lh, lw] -> the final 2-stream latents [2, h, w, c]."""
-    return sample_edit_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None], state,
-                             cg, gates, completion_cfg[None], local_var[None], [noise], **kw)[0]
+    [3, 77, D], masks [lh, lw] -> the final 2-stream latents [2, h, w, c]
+    (with return_intermediates, and the edit stream after each step
+    [K, h, w, c])."""
+    return _one_case(sample_edit_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None],
+                                       state, cg, gates, completion_cfg[None], local_var[None],
+                                       [noise], **kw), kw.get("return_intermediates", False))
 
 
 @torch.no_grad()
@@ -190,13 +209,15 @@ def sample_bggen_cases(
     eta: float,
     local_text_edit: bool,
     local_perturbation: bool,
-) -> torch.Tensor:
+    return_intermediates: bool = False,
+):
     """Background generation / object removal (reference
     forward_sampling_background_gen) of C cases at once: each case's
     reference stream at step i is its inverted latent at the matching noise
     level (traj flipped), one UNet call runs every case's [u_g, r, c_g],
     local CFG combines and `ctrl_step` steps each case's [g, r] stack.
-    Returns the generated latents [C, 1, h, w, c]."""
+    Returns the generated latents [C, 1, h, w, c], or with
+    return_intermediates (final, each step's generated stream [K, C, h, w, c])."""
     k = traj.shape[0] - 1
     cases, nstr = text_emb.shape[:2]
     ts = schedule.timesteps[start_step : start_step + k]
@@ -205,6 +226,7 @@ def sample_bggen_cases(
     text = _flat(text_emb)
     cfg_mask = local_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
+    inter = []
     for i in range(k):
         t = int(ts[i])
         lat2 = torch.cat([lat, refs[i]], dim=1)
@@ -217,7 +239,9 @@ def sample_bggen_cases(
                             t, lat2, var_mask, eta, _draw_cases(noise, i, lat2),
                             ddim_streams_from=1)
         lat = lat2[:, :1]
-    return lat
+        if return_intermediates:
+            inter.append(lat2[:, 0])
+    return (lat, torch.stack(inter)) if return_intermediates else lat
 
 
 def sample_bggen_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
@@ -225,9 +249,12 @@ def sample_bggen_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditCo
                       cg: np.ndarray, gates: np.ndarray, local_cfg: torch.Tensor,
                       local_var: torch.Tensor, noise: NoiseSource, **kw) -> torch.Tensor:
     """`sample_bggen_cases` of one case: traj [K+1, 1, h, w, c] -> the
-    generated latent [1, h, w, c]."""
-    return sample_bggen_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None], state,
-                              cg, gates, local_cfg[None], local_var[None], [noise], **kw)[0]
+    generated latent [1, h, w, c] (with return_intermediates, and the
+    generated stream after each step [K, h, w, c])."""
+    return _one_case(sample_bggen_cases(unet_apply, schedule, ecfg, traj[:, None],
+                                        text_emb[None], state, cg, gates, local_cfg[None],
+                                        local_var[None], [noise], **kw),
+                     kw.get("return_intermediates", False))
 
 
 @torch.no_grad()
@@ -250,12 +277,14 @@ def sample_compose_cases(
     eta: float,
     local_text_edit: bool,
     local_perturbation: bool,
-) -> torch.Tensor:
+    return_intermediates: bool = False,
+):
     """N-image composition (reference forward_sampling_compose) of C cases
     at once: per step each case's streams are [e, r_1..r_N, c_e], the
     sources pinned to their inversion latents; one UNet call runs every
     case, CFG combines each case's first and last stream and `ctrl_step`
-    steps its edit latent.  Returns them, [C, 1, h, w, c]."""
+    steps its edit latent.  Returns them, [C, 1, h, w, c], or with
+    return_intermediates (final, each step's edit latent [K, C, h, w, c])."""
     k = traj.shape[0] - 1
     cases, nstr = text_emb.shape[:2]
     ts = schedule.timesteps[start_step : start_step + k]
@@ -264,6 +293,7 @@ def sample_compose_cases(
     text, extra = _flat(text_emb), _flat(text_extra)
     cfg_mask = completion_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
+    inter = []
     for i in range(k):
         t = int(ts[i])
         state.context_guidance = float(cg[i])
@@ -274,7 +304,9 @@ def sample_compose_cases(
         lat, _ = ctrl_step(schedule, _cfg_noise(eps[:, :1], eps[:, -1:], cfg_mask,
                                                 guidance_scale, local_text_edit),
                            t, lat, var_mask, eta, _draw_cases(noise, i, lat))
-    return lat
+        if return_intermediates:
+            inter.append(lat[:, 0])
+    return (lat, torch.stack(inter)) if return_intermediates else lat
 
 
 def sample_compose_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
@@ -283,10 +315,12 @@ def sample_compose_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: Edit
                         completion_cfg: torch.Tensor, local_var: torch.Tensor,
                         noise: NoiseSource, **kw) -> torch.Tensor:
     """`sample_compose_cases` of one case: traj [K+1, N+1, h, w, c] -> the
-    edit latent [1, h, w, c]."""
-    return sample_compose_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None],
-                                text_extra[None], state, cg, gates, completion_cfg[None],
-                                local_var[None], [noise], **kw)[0]
+    edit latent [1, h, w, c] (with return_intermediates, and the edit
+    latent after each step [K, h, w, c])."""
+    return _one_case(sample_compose_cases(unet_apply, schedule, ecfg, traj[:, None],
+                                          text_emb[None], text_extra[None], state, cg, gates,
+                                          completion_cfg[None], local_var[None], [noise], **kw),
+                     kw.get("return_intermediates", False))
 
 
 @torch.no_grad()
@@ -580,6 +614,26 @@ class FreeFine:
         return capture
 
     @torch.no_grad()
+    def attention_maps(self, sample: torch.Tensor, t, text_emb: torch.Tensor,
+                       ecfg: Optional[EditConfig] = None, state: Optional[EditState] = None):
+        """One UNet forward (`unet_apply`, NHWC) with the attention-map
+        instrument on, the reference's AttentionStore probe.  Returns (eps,
+        {"{place}_{self|cross}": [head-averaged maps [B, Sq, Sk] of the
+        layers with Sq <= 32*32, in layer order]}).  The maps are read from
+        q and k beside the layer's own route: eps is what `unet_apply`
+        returns without the probe.  Without a state every layer runs its
+        plain attention, as the dispatch does for a missing state.  For
+        step-averaged maps over a loop, feed each step's
+        `EditState.intermediates` to `utils.attn_store.AttentionStore`."""
+        ecfg = dataclasses.replace(ecfg or EditConfig(), store_attention=True)
+        if state is None:
+            ecfg = dataclasses.replace(ecfg, mode="none", method=None)
+            state = EditState()
+        state = dataclasses.replace(state, intermediates={})
+        eps = self.unet_apply(sample, t, text_emb, ecfg, state)
+        return eps, collect_maps(state.intermediates)
+
+    @torch.no_grad()
     def encode_text(self, texts: Sequence[str]) -> torch.Tensor:
         ids = torch.as_tensor(self.tokenizer.batch_encode(list(texts)), dtype=torch.long,
                               device=self.device)
@@ -599,16 +653,21 @@ class FreeFine:
         """Scaled latents [B, lh, lw, 4] -> uint8 images [B, H, W, 3]."""
         return to_uint8(self.vae.decode(latents)).cpu().numpy()
 
-    def invert(self, latents: torch.Tensor, num_step: int, start_step: int) -> torch.Tensor:
+    def invert(self, latents: torch.Tensor, num_step: int, start_step: int,
+               uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """DDIM-invert for (num_step - start_step) steps; returns the
-        trajectory [K+1, B, h, w, c]."""
-        emb = self._inversion_text_embeddings(latents.shape[0])
+        trajectory [K+1, B, h, w, c].  `uncond` [77, D] is the "" context an
+        entry point has already encoded (else it is encoded here)."""
+        emb = self._inversion_text_embeddings(latents.shape[0], uncond)
         return ddim_invert_loop(self.unet_apply, self._schedule(num_step), latents, emb,
                                 num_step - start_step)
 
-    def _inversion_text_embeddings(self, batch: int) -> torch.Tensor:
+    def _inversion_text_embeddings(self, batch: int,
+                                   uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-stream unconditional context for DDIM inversion."""
-        return self.encode_text([""]).expand(batch, -1, -1)
+        if uncond is None:
+            uncond = self.encode_text([""])[0]
+        return uncond.expand(batch, -1, -1)
 
     def _stream_text_embeddings(self, texts: Sequence[str]) -> torch.Tensor:
         """Per-stream context of the compose loop (the hook the SDXL
@@ -625,16 +684,18 @@ class FreeFine:
         return torch.stack([embs[0], embs[0], embs[1]])
 
     def _prep_image(self, img: np.ndarray) -> np.ndarray:
-        """To [H, W, 3] uint8 at the pipeline resolution."""
+        """To [H, W, 3] uint8 at the pipeline resolution: an image of
+        another size is resized as JAX's `jax.image.resize(..., "lanczos3")`
+        resizes it (`resize_lanczos3`, on the pipeline's device), then
+        rounded and clipped to [0, 255]."""
         cfg = self.config
         a = np.asarray(img)
         if a.ndim == 2:
             a = np.stack([a] * 3, -1)
         if a.shape[:2] != (cfg.height, cfg.width):
-            raise NotImplementedError(
-                f"input {a.shape[:2]} is not at the pipeline resolution "
-                f"{(cfg.height, cfg.width)}: the lanczos3 resize is not ported yet (ROADMAP A7)"
-            )
+            t = resize_lanczos3(torch.as_tensor(np.ascontiguousarray(a), device=self.device),
+                                cfg.height, cfg.width)
+            a = torch.clamp(torch.round(t), 0, 255).to(torch.uint8).cpu().numpy()
         return a
 
     def generation(
@@ -663,13 +724,15 @@ class FreeFine:
         noise: Optional[Sequence[torch.Tensor]] = None,
     ):
         """Geometric edit refinement (reference FreeFine_generation).
-        Returns the edited uint8 image [H, W, 3] (and the reconstructed
-        reference image when return_ori).  `noise` optionally replaces the
-        seeded per-step draws with K tensors [2, lh, lw, 4]."""
+        Returns the edited uint8 image [H, W, 3], and after it the
+        reconstructed reference image (decoded on its own) when return_ori
+        and the per-step latent previews [K, lh, lw, 3] uint8
+        (`utils.vis.latent_to_preview` of the edit stream after each step)
+        when return_intermediates; a tuple when more than the image is
+        asked for.  `noise` optionally replaces the seeded per-step draws
+        with K tensors [2, lh, lw, 4]."""
         if method_type not in METHOD_TYPES:
             raise ValueError(method_type)
-        if return_intermediates:
-            raise NotImplementedError("return_intermediates is not ported yet (ROADMAP A7)")
         cfg = self.config
         lh, lw = cfg.latent_height, cfg.latent_width
         dev = self.device
@@ -677,7 +740,11 @@ class FreeFine:
         coarse = self._prep_image(coarse_input)
         ori = self._prep_image(ori_img)
         lat2 = self.image_to_latent(np.stack([coarse, ori]))
-        traj = self.invert(lat2, num_step, start_step)
+        # one text-encoder call for the inversion's "" and the edit's
+        # [u, u, c], as `BatchedFreeFine.generation` encodes a batch of one:
+        # a case gives the same latents alone and as a batch of one
+        text_emb = self._edit_text_embeddings(guidance_text)
+        traj = self.invert(lat2, num_step, start_step, uncond=text_emb[0])
 
         def t(x):
             return None if x is None else torch.as_tensor(np.asarray(x), device=dev)
@@ -696,17 +763,24 @@ class FreeFine:
                                              end_scale)
         ecfg = EditConfig(mode="edit", method=method, local_cfg=local_text_edit,
                           layer_range=self._layer_range)
-        text_emb = self._edit_text_embeddings(guidance_text)
         if noise is None:
             noise = torch.Generator(device=dev).manual_seed(seed)
-        lat = sample_edit_loop(
+        out = sample_edit_loop(
             self.unet_apply, self._schedule(num_step), ecfg, traj, text_emb, state, cg, gates,
             em.completion_cfg, em.local_var, noise, start_step=start_step,
             guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
-            local_perturbation=local_perturbation,
+            local_perturbation=local_perturbation, return_intermediates=return_intermediates,
         )
-        imgs = self.latent_to_image(lat)
-        return (imgs[0], imgs[1]) if return_ori else imgs[0]
+        lat = out[0] if return_intermediates else out
+        # decode only the images returned, each as a batch of one: the edit
+        # image is then the one a batch of one decodes (the VAE's rounding
+        # depends on its batch), and no unused reference image is decoded
+        rets = [self.latent_to_image(lat[:1])[0]]
+        if return_ori:
+            rets.append(self.latent_to_image(lat[1:])[0])
+        if return_intermediates:
+            rets.append(latent_to_preview(out[1]))
+        return rets[0] if len(rets) == 1 else tuple(rets)
 
     def guided_generation(
         self,
@@ -744,7 +818,8 @@ class FreeFine:
         coarse = self._prep_image(coarse_input)
         ori = self._prep_image(ori_img)
         lat2 = self.image_to_latent(np.stack([coarse, ori]))
-        traj = self.invert(lat2, num_step, start_step)
+        text_emb = self._edit_text_embeddings(guidance_text)
+        traj = self.invert(lat2, num_step, start_step, uncond=text_emb[0])
 
         if cons_area is None:
             cons_area = np.zeros((cfg.height, cfg.width), np.float32)
@@ -762,7 +837,6 @@ class FreeFine:
                                              end_scale)
         ecfg = EditConfig(mode="edit", method=method, local_cfg=True,
                           layer_range=self._layer_range)
-        text_emb = self._edit_text_embeddings(guidance_text)
         energy_until = int(round((num_step - start_step) * energy_fraction))
         if noise is None:
             noise = torch.Generator(device=dev).manual_seed(seed)
@@ -772,7 +846,7 @@ class FreeFine:
             noise, start_step=start_step, guidance_scale=guidance_scale, eta=eta,
             energy_scale=energy_scale, energy_until=energy_until,
         )
-        return self.latent_to_image(lat)[0]
+        return self.latent_to_image(lat[:1])[0]  # the edit stream alone, as `generation`
 
     def background_generation(
         self,
@@ -803,7 +877,8 @@ class FreeFine:
         dev = self.device
 
         lat = self.image_to_latent(self._prep_image(ori_img))
-        traj = self.invert(lat, num_step, start_step)
+        text_emb = self._edit_text_embeddings(guidance_text)
+        traj = self.invert(lat, num_step, start_step, uncond=text_emb[0])
         mask_full, local_var = mask_ops.prepare_mask_bggen(
             torch.as_tensor(np.asarray(ori_mask), device=dev), cfg.height, cfg.width, lh, lw)
         pyr = build_mask_pyramid(mask_full, lh, lw)
@@ -812,7 +887,6 @@ class FreeFine:
                                              end_scale)
         ecfg = EditConfig(mode="bggen", method=method, local_cfg=local_text_edit,
                           layer_range=self._layer_range)
-        text_emb = self._edit_text_embeddings(guidance_text)
         if noise is None:
             noise = torch.Generator(device=dev).manual_seed(seed)
         out = sample_bggen_loop(

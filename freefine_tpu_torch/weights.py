@@ -13,13 +13,24 @@ adds:
   * `random_weights(model, seed)` — the random-weight scheme of the
     throughput bench: norm weights 1, other 1-D leaves 0, matrices
     N(0, 0.02) drawn in float32 from a seeded `torch.Generator` and stored
-    in the module's dtype.
+    in the module's dtype;
+  * checkpoint I/O without the `safetensors` package: `read_safetensors` /
+    `write_safetensors` (the format itself: an 8-byte little-endian header
+    length, a JSON header of {name: {dtype, shape, data_offsets}} plus an
+    optional `__metadata__`, one byte buffer; reads are `torch.frombuffer`
+    views of a copy-on-write `np.memmap`, so a file is not copied twice),
+    `load_sd15` (a diffusers checkpoint directory), `load_sd15_single_file`
+    (an LDM single-file checkpoint), `cast_params_for_inference`, and
+    `save_pipeline` / `load_pipeline_params` (the diffusers layout, written
+    by the port's own writer).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -145,3 +156,346 @@ def random_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                                dtype=torch.float32)
             p.copy_(draw * 0.02)
     return model
+
+
+# ---------------------------------------------------------------------------
+# safetensors, read and written by the port itself
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+    "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """One .safetensors file -> {name: CPU tensor} (its `__metadata__`
+    skipped).  The tensors are views of one copy-on-write memory map of the
+    file: nothing is read until a tensor is used, and writing to a tensor
+    never reaches the file."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    size = os.path.getsize(path)
+    buf = np.memmap(path, dtype=np.uint8, mode="c") if size > 8 + n else None
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name} has unsupported dtype {info['dtype']}")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - begin != count * itemsize or 8 + n + end > size:
+            raise ValueError(f"{path}: tensor {name} has offsets {begin}..{end} for "
+                             f"{count} x {info['dtype']}")
+        if count == 0:
+            out[name] = torch.empty(shape, dtype=dtype)
+        else:
+            out[name] = torch.frombuffer(buf, dtype=dtype, count=count,
+                                         offset=8 + n + begin).reshape(shape)
+    return out
+
+
+def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> int:
+    """Write {name: tensor} as one .safetensors file; returns its bytes.
+    Tensors go in order of falling element size, then name (the order the
+    `safetensors` package writes, which keeps every tensor aligned to its
+    element size), and the header is padded with spaces to 8 bytes."""
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: Dict[str, object] = {}
+    offset = 0
+    for name in order:
+        t = tensors[name]
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"tensor {name}: dtype {t.dtype} has no safetensors name")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name in order:
+            t = tensors[name].detach()
+            if t.numel():
+                f.write(t.cpu().contiguous().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + offset
+
+
+def read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every *.safetensors file under `path`, in sorted order, as one dict
+    (the shards of one model)."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors under {path}")
+    out: Dict[str, torch.Tensor] = {}
+    for f in files:
+        out.update(read_safetensors(os.path.join(path, f)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints -> the port's state dicts
+# ---------------------------------------------------------------------------
+
+# Folder and weight file of each component in the diffusers layout.
+_DIFFUSERS_FILES = {"unet": ("unet", "diffusion_pytorch_model.safetensors"),
+                    "vae": ("vae", "diffusion_pytorch_model.safetensors"),
+                    "text": ("text_encoder", "model.safetensors")}
+
+# Legacy diffusers VAE attention names (1x1-conv projections).
+_VAE_ATTN_ALIASES = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+
+
+def _templates(pipe) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"unet", "vae", "text"} -> the model's state dict (shapes and dtypes)
+    of a `FreeFine` pipe or, for a `PipelineConfig`, of modules built on the
+    meta device (no weights allocated)."""
+    if hasattr(pipe, "components"):
+        return {name: mod.state_dict() for name, mod in pipe.components().items()}
+    from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
+    from freefine_tpu_torch.models.unet import UNet2DCondition
+    from freefine_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"):
+        mods = {"unet": UNet2DCondition(pipe.unet), "vae": AutoencoderKL(pipe.vae),
+                "text": CLIPTextEncoder(pipe.text)}
+    return {name: mod.state_dict() for name, mod in mods.items()}
+
+
+def _convert(tensors: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
+             dtype: Optional[torch.dtype] = None, strict_dtype: bool = False):
+    """Checkpoint tensors -> a state dict with `want`'s keys, each cast to
+    `dtype` or to the model's own dtype (JAX's `dtype or leaf.dtype`).
+    Tensors the model does not have are ignored; a missing one or a shape
+    mismatch raises.  The legacy VAE attention names are aliases, and its
+    [O, I, 1, 1] projections become [O, I].  strict_dtype: a stored dtype
+    other than the model's raises instead of being cast."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, ref in want.items():
+        mod, _, leaf = key.rpartition(".")
+        cand = [key] + [f"{mod[: -len(new)]}{old}.{leaf}"
+                        for new, old in _VAE_ATTN_ALIASES.items() if mod.endswith(new)]
+        found = next((c for c in cand if c in tensors), None)
+        if found is None:
+            raise KeyError(f"missing checkpoint tensor {key} (tried {cand})")
+        t = tensors[found]
+        if tuple(t.shape) != tuple(ref.shape):
+            if t.ndim == 4 and tuple(t.shape[2:]) == (1, 1) and tuple(t.shape[:2]) == \
+                    tuple(ref.shape):
+                t = t.reshape(t.shape[:2])
+            else:
+                raise ValueError(f"shape mismatch for {found}: checkpoint {tuple(t.shape)} vs "
+                                 f"model {tuple(ref.shape)}")
+        if strict_dtype and t.dtype != ref.dtype:
+            raise TypeError(f"dtype mismatch for {found}: checkpoint {t.dtype} vs model "
+                            f"{ref.dtype}")
+        out[key] = t.to(dtype or ref.dtype)
+    return out
+
+
+def _convert_all(pipe, tensors: Mapping[str, Mapping[str, torch.Tensor]], dtype=None,
+                 strict_dtype: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+    want = _templates(pipe)
+    return {name: _convert(tensors[name], want[name], dtype, strict_dtype) for name in want}
+
+
+def load_sd15(pipe, checkpoint_dir: str, dtype: Optional[torch.dtype] = None) -> dict:
+    """A diffusers SD-1.5 checkpoint directory
+    (`{unet,vae,text_encoder}/*.safetensors`, each folder's files one state
+    dict) -> the port's {"unet", "vae", "text"} state dicts, ready for
+    `FreeFine(params=...)`.  `pipe` is a `FreeFine` or a `PipelineConfig`
+    (its modules give the keys, shapes and dtypes).  Read by the port's own
+    reader: the `safetensors` package is not needed."""
+    return _convert_all(pipe, {
+        name: read_safetensors_dir(os.path.join(checkpoint_dir, folder))
+        for name, (folder, _) in _DIFFUSERS_FILES.items()}, dtype)
+
+
+def cast_params_for_inference(params, dtype: torch.dtype = torch.bfloat16):
+    """The serving cast: float32 tensors of ndim >= 2 (matmul and conv
+    weights) to `dtype`; 1-D tensors (norms, biases) and tensors of any
+    other dtype kept.  `params` is a nest of dicts of tensors."""
+    if isinstance(params, Mapping):
+        return {k: cast_params_for_inference(v, dtype) for k, v in params.items()}
+    if params.ndim >= 2 and params.dtype == torch.float32:
+        return params.to(dtype)
+    return params
+
+
+def save_pipeline(pipe, path: str) -> int:
+    """Write the pipe's weights as a diffusers checkpoint directory
+    (`unet/` and `vae/diffusion_pytorch_model.safetensors`,
+    `text_encoder/model.safetensors`), which `load_sd15` and
+    `load_pipeline_params` read back.  Returns the bytes written."""
+    total = 0
+    for name, mod in pipe.components().items():
+        folder, fname = _DIFFUSERS_FILES[name]
+        os.makedirs(os.path.join(path, folder), exist_ok=True)
+        total += write_safetensors(mod.state_dict(), os.path.join(path, folder, fname))
+    return total
+
+
+def load_pipeline_params(pipe, path: str) -> dict:
+    """Read a directory `save_pipeline` wrote, check every tensor's shape
+    and dtype against the pipe's modules, and load it into them.  Returns
+    the state dicts."""
+    params = _convert_all(pipe, {
+        name: read_safetensors_dir(os.path.join(path, folder))
+        for name, (folder, _) in _DIFFUSERS_FILES.items()}, strict_dtype=True)
+    for name, mod in pipe.components().items():
+        mod.load_state_dict(params[name])
+    return params
+
+
+# -- single-file LDM checkpoints (v1-5-pruned.safetensors style) ----------------
+
+_LDM_UNET_PREFIX = "model.diffusion_model."
+_LDM_VAE_PREFIX = "first_stage_model."
+_LDM_TEXT_PREFIX = "cond_stage_model.transformer."
+
+
+def _ldm_unet_to_diffusers(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Rename LDM UNet keys (model.diffusion_model.*) to diffusers naming.
+
+    SD-1.5 structure: input_blocks 0..11 (conv_in at 0; per level 2 res[+attn]
+    then a downsample block), middle_block (res, attn, res), output_blocks
+    0..11 (3 per level, upsample conv appended on the last of each level but
+    the final), time_embed -> time_embedding.
+    """
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(dst, src):
+        out[dst] = sd[_LDM_UNET_PREFIX + src]
+
+    def copy_res(dst_prefix, src_prefix):
+        ren = {
+            "in_layers.0": "norm1", "in_layers.2": "conv1",
+            "emb_layers.1": "time_emb_proj",
+            "out_layers.0": "norm2", "out_layers.3": "conv2",
+            "skip_connection": "conv_shortcut",
+        }
+        for s, d in ren.items():
+            for leaf in ("weight", "bias"):
+                k = f"{_LDM_UNET_PREFIX}{src_prefix}.{s}.{leaf}"
+                if k in sd:
+                    out[f"{dst_prefix}.{d}.{leaf}"] = sd[k]
+
+    def copy_attn(dst_prefix, src_prefix):
+        for k in list(sd):
+            if k.startswith(f"{_LDM_UNET_PREFIX}{src_prefix}."):
+                suffix = k[len(f"{_LDM_UNET_PREFIX}{src_prefix}.") :]
+                out[f"{dst_prefix}.{suffix}"] = sd[k]
+
+    for leaf in ("weight", "bias"):
+        put(f"conv_in.{leaf}", f"input_blocks.0.0.{leaf}")
+        put(f"time_embedding.linear_1.{leaf}", f"time_embed.0.{leaf}")
+        put(f"time_embedding.linear_2.{leaf}", f"time_embed.2.{leaf}")
+        put(f"conv_norm_out.{leaf}", f"out.0.{leaf}")
+        put(f"conv_out.{leaf}", f"out.2.{leaf}")
+
+    # down: input_blocks i = 1..11; every 3rd (3, 6, 9) ends with a downsample
+    for i in range(1, 12):
+        level, j = (i - 1) // 3, (i - 1) % 3
+        if j == 2:  # downsampler
+            for leaf in ("weight", "bias"):
+                k = f"{_LDM_UNET_PREFIX}input_blocks.{i}.0.op.{leaf}"
+                if k in sd:
+                    out[f"down_blocks.{level}.downsamplers.0.conv.{leaf}"] = sd[k]
+            continue
+        copy_res(f"down_blocks.{level}.resnets.{j}", f"input_blocks.{i}.0")
+        copy_attn(f"down_blocks.{level}.attentions.{j}", f"input_blocks.{i}.1")
+
+    copy_res("mid_block.resnets.0", "middle_block.0")
+    copy_attn("mid_block.attentions.0", "middle_block.1")
+    copy_res("mid_block.resnets.1", "middle_block.2")
+
+    # up: output_blocks i = 0..11, 3 per level; upsampler on i = 2, 5, 8
+    for i in range(12):
+        level, j = i // 3, i % 3
+        copy_res(f"up_blocks.{level}.resnets.{j}", f"output_blocks.{i}.0")
+        # attention is module 1 unless this block only has an upsampler
+        if f"{_LDM_UNET_PREFIX}output_blocks.{i}.1.transformer_blocks.0.attn1.to_q.weight" in sd:
+            copy_attn(f"up_blocks.{level}.attentions.{j}", f"output_blocks.{i}.1")
+        for mod in (1, 2):
+            k = f"{_LDM_UNET_PREFIX}output_blocks.{i}.{mod}.conv.weight"
+            if k in sd:
+                out[f"up_blocks.{level}.upsamplers.0.conv.weight"] = sd[k]
+                out[f"up_blocks.{level}.upsamplers.0.conv.bias"] = sd[
+                    f"{_LDM_UNET_PREFIX}output_blocks.{i}.{mod}.conv.bias"
+                ]
+    return out
+
+
+def _ldm_vae_to_diffusers(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """first_stage_model.* -> diffusers AutoencoderKL naming."""
+    out: Dict[str, torch.Tensor] = {}
+    ren_res = {"norm1": "norm1", "conv1": "conv1", "norm2": "norm2",
+               "conv2": "conv2", "nin_shortcut": "conv_shortcut"}
+    for k in list(sd):
+        if not k.startswith(_LDM_VAE_PREFIX):
+            continue
+        s = k[len(_LDM_VAE_PREFIX):]
+        d = None
+        if s.startswith("encoder.down."):
+            parts = s.split(".")
+            lvl, kind = parts[2], parts[3]
+            if kind == "block":
+                sub = ren_res[parts[5]]
+                d = f"encoder.down_blocks.{lvl}.resnets.{parts[4]}.{sub}.{parts[6]}"
+            elif kind == "downsample":
+                d = f"encoder.down_blocks.{lvl}.downsamplers.0.conv.{parts[5]}"
+        elif s.startswith("decoder.up."):
+            parts = s.split(".")
+            lvl = 3 - int(parts[2])  # LDM numbers decoder ups bottom-up
+            kind = parts[3]
+            if kind == "block":
+                sub = ren_res[parts[5]]
+                d = f"decoder.up_blocks.{lvl}.resnets.{parts[4]}.{sub}.{parts[6]}"
+            elif kind == "upsample":
+                d = f"decoder.up_blocks.{lvl}.upsamplers.0.conv.{parts[5]}"
+        elif ".mid.block_" in s:
+            side, rest = s.split(".", 1)
+            n = "0" if "block_1" in rest else "1"
+            sub = ren_res[rest.split(".")[2]]
+            d = f"{side}.mid_block.resnets.{n}.{sub}.{rest.split('.')[3]}"
+        elif ".mid.attn_1." in s:
+            side = s.split(".", 1)[0]
+            name = s.split(".")[3]
+            leaf = s.split(".")[4]
+            attn_ren = {"norm": "group_norm", "q": "to_q", "k": "to_k",
+                        "v": "to_v", "proj_out": "to_out.0"}
+            d = f"{side}.mid_block.attentions.0.{attn_ren[name]}.{leaf}"
+        elif s.startswith(("encoder.norm_out", "decoder.norm_out")):
+            d = s.replace("norm_out", "conv_norm_out")
+        elif s.startswith(("encoder.conv_in", "encoder.conv_out",
+                           "decoder.conv_in", "decoder.conv_out",
+                           "quant_conv", "post_quant_conv")):
+            d = s
+        if d is not None:
+            out[d] = sd[k]
+    return out
+
+
+def load_sd15_single_file(pipe, ckpt_path: str, dtype: Optional[torch.dtype] = None) -> dict:
+    """A single-file LDM checkpoint (v1-5-pruned.safetensors / sd-v1-5.ckpt
+    layout) -> the port's {"unet", "vae", "text"} state dicts.  A
+    .safetensors file goes through the port's own reader; any other file
+    through `torch.load(weights_only=True)` (with an optional "state_dict"
+    key)."""
+    if ckpt_path.endswith(".safetensors"):
+        sd = read_safetensors(ckpt_path)
+    else:
+        raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        sd = raw.get("state_dict", raw)
+    text = {k[len(_LDM_TEXT_PREFIX):]: v for k, v in sd.items()
+            if k.startswith(_LDM_TEXT_PREFIX)}
+    return _convert_all(pipe, {"unet": _ldm_unet_to_diffusers(sd),
+                               "vae": _ldm_vae_to_diffusers(sd), "text": text}, dtype)

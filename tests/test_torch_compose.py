@@ -30,6 +30,7 @@ from freefine_tpu_torch.edit import EditConfig, EditState, build_mask_stack_pyra
 from freefine_tpu_torch.ops import attention as A
 from freefine_tpu_torch.pipeline import FreeFine
 from test_torch_bggen import _capture, jax_noise
+from test_torch_pipeline import capture_decodes
 from test_torch_weights import jax_params, tiny_modules
 
 torch.set_num_threads(2)
@@ -206,10 +207,13 @@ def test_generation_style_aligned_matches_jax(pipes, method):
     seed = 15
     kw = dict(num_step=num_step, start_step=start, end_step=1, seed=seed, method_type=method,
               use_auto_draw=True, cons_area=np.zeros((h, w), np.uint8))
-    jstore, tstore = {}, {}
+    jstore = {}
     _capture(jpipe, jstore, np.asarray)
-    _capture(tpipe, tstore, lambda x: x.numpy())
-    want = jpipe.generation(img, mask, coarse, tm, "a cat", **kw)
+    decoded = capture_decodes(tpipe, lambda x: x.numpy())
+    want, want_ori = jpipe.generation(img, mask, coarse, tm, "a cat", return_ori=True, **kw)
     noise = jax_noise(seed, num_step - start, (2, cfg.latent_height, cfg.latent_width, 4))
-    got = tpipe.generation(img, mask, coarse, tm, "a cat", noise=noise, **kw)
-    _check(cfg, tstore, jstore, got, want)
+    got, got_ori = tpipe.generation(img, mask, coarse, tm, "a cat", noise=noise, return_ori=True,
+                                    **kw)
+    # both streams' final latents: the edit image's decode, then the reference's
+    _check(cfg, {"lat": np.concatenate(decoded)}, jstore, got, want)
+    assert np.abs(got_ori.astype(int) - want_ori.astype(int)).max() <= 1

@@ -150,18 +150,31 @@ def test_unet_forward_fused_matches_jax():
 def test_gating(monkeypatch):
     """'1' is on wherever the channels split into the groups, including the
     512^2 x 128 VAE slab that JAX keeps on the plain math (its VMEM tile
-    rule; the port's documented route deviation); '0', the default and any
-    other value (JAX's 'auto' among them) are off."""
+    rule; the port's documented route deviation), on any device; '0' is
+    off; 'auto', the default, fuses a tensor on a CUDA device only (JAX's
+    'auto' fuses on the TPU only); any other value raises."""
+    cuda = torch.device("cuda")
     vae_slab = (1, 128, 512, 512)
     assert G.use_fused(vae_slab, 32)
     assert not JG.use_fused((1, 512, 512, 128), 32)  # JAX: the slab does not fit its tile
     assert G.use_fused((2, 320, 64, 64), 32) and G.use_fused((1, 64, 1, 1), 8)
+    assert G.use_fused((2, 320, 64, 64), 32, cuda)
     assert not G.use_fused((2, 30, 8, 8), 32) and not G.use_fused((2, 64, 8), 8)
-    for mode in ("0", "auto"):
-        monkeypatch.setenv("FREEFINE_FUSED_GN", mode)
-        assert not G.use_fused(vae_slab, 32) and not G.use_fused((2, 320, 64, 64), 32)
-    monkeypatch.delenv("FREEFINE_FUSED_GN")
-    assert not G.use_fused((2, 320, 64, 64), 32)  # default '0'
+    monkeypatch.setenv("FREEFINE_FUSED_GN", "0")
+    for dev in ("cpu", cuda):
+        assert not G.use_fused(vae_slab, 32, dev) and not G.use_fused((2, 320, 64, 64), 32, dev)
+    monkeypatch.setenv("FREEFINE_FUSED_GN", "auto")
+    assert not G.use_fused(vae_slab, 32, "cpu") and not G.use_fused((2, 320, 64, 64), 32)
+    assert G.use_fused(vae_slab, 32, cuda) and G.use_fused((2, 320, 64, 64), 32, "cuda:0")
+    assert not G.use_fused((2, 30, 8, 8), 32, cuda)
+    assert (G.fused_gn_route("cpu"), G.fused_gn_route(cuda)) == ("0", "1")
+    monkeypatch.delenv("FREEFINE_FUSED_GN")  # unset: 'auto'
+    assert G.fused_gn_mode() == "auto"
+    assert not G.use_fused((2, 320, 64, 64), 32, "cpu") and G.use_fused((2, 320, 64, 64), 32, cuda)
+    for bad in ("", "on", "true", "2", "AUTO"):
+        monkeypatch.setenv("FREEFINE_FUSED_GN", bad)
+        with pytest.raises(ValueError, match="FREEFINE_FUSED_GN"):
+            G.use_fused((2, 320, 64, 64), 32)
 
 
 def test_raw_kernel_refuses_grad_mode(monkeypatch):

@@ -75,7 +75,9 @@ def test_guided_generation_matches_jax(pipes):
     got = tpipe.guided_generation(img, mask, coarse, tm, "a cat", noise=noise, **kw)
     assert got.shape == (h, w, 3) and got.dtype == np.uint8
     assert np.isfinite(tstore["lat"]).all()
-    np.testing.assert_allclose(tstore["lat"], jstore["lat"], atol=2e-3, rtol=0)
+    # the port decodes the edit stream alone; JAX decodes [edit, reference]
+    assert tstore["lat"].shape == jstore["lat"][:1].shape
+    np.testing.assert_allclose(tstore["lat"], jstore["lat"][:1], atol=2e-3, rtol=0)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
     # the energy is live: without it the latents move by far more than the tolerance
     guided = tstore["lat"]

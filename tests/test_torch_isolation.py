@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of `freefine_tpu_torch` nor its
 scripts (`chip_smoke.py`, `bench_torch.py`, `scripts/tca_graph_times.py`,
 `scripts/gn_plan_sweep.py`) imports `jax`, `flax` or the JAX package, and
-importing the port leaves `jax` out of `sys.modules`."""
+importing the port leaves `jax` out of `sys.modules`.  The card's machine
+has neither `safetensors` nor PIL: no port module imports `safetensors`,
+and PIL is imported only inside `utils.vis.save_intermediate_gif`."""
 
 import ast
 import os
@@ -56,11 +58,45 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import freefine_tpu_torch.pipeline, freefine_tpu_torch.weights\n"
         "import freefine_tpu_torch.ops.geometry, freefine_tpu_torch.ops.group_norm\n"
-        "import freefine_tpu_torch.utils.profiling\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'freefine_tpu')]\n"
+        "import freefine_tpu_torch.utils.profiling, freefine_tpu_torch.utils.vis\n"
+        "import freefine_tpu_torch.utils.attn_store, freefine_tpu_torch.masks\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL')]\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == ""
+
+
+def _imports_with_scope(path: Path):
+    """(imported module, names of the enclosing functions) of every import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, scope + (child.name,))
+            elif isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name, scope
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module, scope
+            else:
+                yield from walk(child, scope)
+
+    yield from walk(tree, ())
+
+
+def test_no_safetensors_and_pil_only_inside_the_gif_writer():
+    files = sorted((ROOT / "freefine_tpu_torch").rglob("*.py"))
+    pil = []
+    for path in files:
+        for name, scope in _imports_with_scope(path):
+            root = name.split(".")[0]
+            assert root != "safetensors", f"{path.relative_to(ROOT)} imports {name}"
+            if root == "PIL":
+                pil.append((str(path.relative_to(ROOT)), scope))
+    assert pil and all(p == ("freefine_tpu_torch/utils/vis.py", ("save_intermediate_gif",))
+                       for p in pil), pil

@@ -66,6 +66,21 @@ def _capture(pipe, store, to_np):
     pipe.latent_to_image = cap
 
 
+def capture_decodes(pipe, to_np) -> list:
+    """Record the latents of every `latent_to_image` call, in order (the
+    port's `generation` decodes the edit image and, with return_ori, the
+    reference image in calls of their own)."""
+    seen = []
+    orig = pipe.latent_to_image
+
+    def cap(lat):
+        seen.append(to_np(lat))
+        return orig(lat)
+
+    pipe.latent_to_image = cap
+    return seen
+
+
 @pytest.mark.parametrize("auto_draw", [True, False])
 def test_generation_matches_jax(pipes, auto_draw):
     cfg, jpipe, tpipe = pipes
@@ -76,15 +91,18 @@ def test_generation_matches_jax(pipes, auto_draw):
               use_auto_draw=auto_draw, cons_area=np.zeros((h, w), np.uint8),
               reduce_inp_artifacts=auto_draw,
               draw_mask=None if auto_draw else np.asarray(tm))
-    jstore, tstore = {}, {}
+    jstore = {}
     _capture(jpipe, jstore, lambda x: np.asarray(x))
-    _capture(tpipe, tstore, lambda x: x.numpy())
-    want = jpipe.generation(img, mask, coarse, tm, "a cat", **kw)
+    decoded = capture_decodes(tpipe, lambda x: x.numpy())
+    want, want_ori = jpipe.generation(img, mask, coarse, tm, "a cat", return_ori=True, **kw)
     noise = _jax_noise(seed, (2, cfg.latent_height, cfg.latent_width, 4))
-    got = tpipe.generation(img, mask, coarse, tm, "a cat", noise=noise, **kw)
+    got, got_ori = tpipe.generation(img, mask, coarse, tm, "a cat", noise=noise, return_ori=True,
+                                    **kw)
     assert got.shape == (h, w, 3) and got.dtype == np.uint8
-    np.testing.assert_allclose(tstore["lat"], jstore["lat"], atol=2e-3, rtol=0)
+    # both streams' final latents: the edit image's decode, then the reference's
+    np.testing.assert_allclose(np.concatenate(decoded), jstore["lat"], atol=2e-3, rtol=0)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert np.abs(got_ori.astype(int) - want_ori.astype(int)).max() <= 1
 
 
 def test_seeded_generation_is_deterministic(pipes):
@@ -127,12 +145,9 @@ def test_legacy_four_stream_layout_equals_deduped(pipes):
 
 
 def test_unported_options_raise(pipes):
-    cfg, _, tpipe = pipes
-    img, mask, coarse, tm = _case(cfg)
-    with pytest.raises(NotImplementedError):
-        tpipe.generation(img, mask, coarse, tm, "a cat", return_intermediates=True)
-    with pytest.raises(NotImplementedError):
-        tpipe.generation(img[:32], mask[:32], coarse[:32], tm[:32], "a cat")
+    """Mesh serving is not ported.  return_intermediates and off-size
+    inputs are (tests/test_torch_main_path_rest.py)."""
+    _, _, tpipe = pipes
     with pytest.raises(NotImplementedError):
         tpipe.use_mesh("data=1,model=1")
 
