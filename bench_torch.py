@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Throughput benchmark of the PyTorch port: edits/min at 512^2, 50-step
-DDIM, on one CUDA card (the port of `bench.py`'s SD-1.5 lanes).
+DDIM, on one CUDA card (the port of `bench.py`'s SD-1.5 lanes), and with
+`--sdxl` on the SDXL backbone at 1024^2.
 
 The protocol is the reference's 2D GeoBench inference envelope: SD-1.5,
 512^2, num_step 50, start_step 35 (15 inversion UNet passes, 15
@@ -12,14 +13,19 @@ eta 1.0, TCA, end_step 10.  Weights are random (`init_random=True`, seed
     python3 bench_torch.py --no-shared --batch 8   # per-case lane, batch 8
     python3 bench_torch.py --batch 1           # FreeFine.generation
     python3 bench_torch.py --tiny --device cpu --steps 2 --repeats 1   # smoke
+    python3 bench_torch.py --sdxl              # SDXLFreeFine.generation, 1024^2
+    python3 bench_torch.py --tiny --sdxl --device cpu --steps 2 --repeats 1
 
 Lanes, as in `bench.py`: with no flags, the shared-source lane
 (`BatchedFreeFine.generation_shared_source`) at batch 16: cases share one
 source image, whose reference stream is inverted and run once per step
 for the whole batch.  An explicit `--batch N` selects the per-case lane
 (`BatchedFreeFine.generation`), `--shared` the shared one; batch 1 calls
-`FreeFine.generation`.  `--profile` times the stages of the batched lane
-(`StageTimer`; the breakdown goes to stderr).
+`FreeFine.generation`.  `--sdxl` runs `SDXLFreeFine` (`sdxl_pipeline_config`,
+1024^2; the tiny SDXL config with `--tiny`) with the same protocol, per
+case at batch 1 unless `--batch` / `--shared` ask for a batched lane.
+`--profile` times the stages of the batched lane (`StageTimer`; the
+breakdown goes to stderr).
 
 Timing: one warm-up call, then `--repeats` timed calls, each closed by a
 device synchronise; s/edit = a call's seconds / batch.
@@ -28,8 +34,9 @@ Prints ONE JSON line with `bench.py`'s keys
   {"metric", "value" (edits/min), "unit", "vs_baseline" (value / 20.0, the
    20 edits/min/chip build target of BASELINE.json, no measurement),
    "lane"}
-and the port's own: the median and the slowest call's seconds per edit,
-`torch.cuda.max_memory_allocated` in GiB, the GroupNorm route that
+and the port's own: the backbone ("sd15" or "sdxl"), the median and the
+slowest call's seconds per edit, `torch.cuda.max_memory_allocated` in
+GiB, the GroupNorm route that
 `FREEFINE_FUSED_GN` resolves to on the device ("0" or "1"; unset, "auto"
 gives "1" on a card), and the card's name and power limit as nvidia-smi
 reports them.  Name the route (FREEFINE_FUSED_GN=0 or 1) to compare with
@@ -46,8 +53,8 @@ import time
 
 import numpy as np
 
-NOT_PORTED = {"sdxl": "the SDXL backbone (ROADMAP A11)", "dit": "the DiT backbone (ROADMAP A11)",
-              "mesh": "mesh serving (ROADMAP A15)", "sp": "sequence-parallel serving (ROADMAP A15)"}
+NOT_PORTED = {"dit": "the DiT backbone (ROADMAP A11)", "mesh": "mesh serving (ROADMAP A15)",
+              "sp": "sequence-parallel serving (ROADMAP A15)"}
 
 
 def card_line():
@@ -78,7 +85,9 @@ def main():
                          "layout)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default); cpu only for a --tiny smoke run")
-    for flag in ("sdxl", "dit", "sp"):
+    ap.add_argument("--sdxl", action="store_true",
+                    help="the SDXL backbone (SDXLFreeFine, 1024^2; per case, batch 1 by default)")
+    for flag in ("dit", "sp"):
         ap.add_argument(f"--{flag}", action="store_true", help=f"not ported: {NOT_PORTED[flag]}")
     ap.add_argument("--mesh", type=str, default=None, help=f"not ported: {NOT_PORTED['mesh']}")
     args = ap.parse_args()
@@ -89,7 +98,7 @@ def main():
     if args.device != "cuda" and not args.tiny:
         ap.error("--device cpu is for the --tiny smoke run only")
 
-    flagship = not (args.tiny or args.profile)
+    flagship = not (args.tiny or args.profile or args.sdxl)
     batch_defaulted = args.batch is None
     if batch_defaulted:
         args.batch = 16 if (flagship and args.shared is not False) else 1
@@ -104,16 +113,20 @@ def main():
 
     import torch
 
-    from freefine_tpu_torch.config import sd15_pipeline_config, tiny_pipeline_config
+    from freefine_tpu_torch import config as C
     from freefine_tpu_torch.ops.group_norm import fused_gn_route
     from freefine_tpu_torch.pipeline import BatchedFreeFine, FreeFine
+    from freefine_tpu_torch.sdxl import SDXLFreeFine
 
     device = torch.device(args.device)
-    if args.tiny:
-        cfg = tiny_pipeline_config()
+    dtype = torch.float32 if args.weights_dtype == "f32" else None
+    if args.sdxl:
+        cls = SDXLFreeFine
+        cfg = C.tiny_sdxl_pipeline_config() if args.tiny else C.sdxl_pipeline_config(dtype=dtype)
     else:
-        cfg = sd15_pipeline_config(dtype=torch.float32 if args.weights_dtype == "f32" else None)
-    pipe = FreeFine(cfg, init_random=True, seed=0, device=device)
+        cls = FreeFine
+        cfg = C.tiny_pipeline_config() if args.tiny else C.sd15_pipeline_config(dtype=dtype)
+    pipe = cls(cfg, init_random=True, seed=0, device=device)
 
     h, w = cfg.height, cfg.width
     rng = np.random.default_rng(42)
@@ -171,7 +184,8 @@ def main():
     per_edit = [s / args.batch for s in secs]
     epm = 60.0 / statistics.median(per_edit)
 
-    metric = "edits/min (tiny smoke)" if args.tiny else f"edits/min/chip @512^2 {num_step}-step"
+    metric = ("edits/min (tiny smoke)" if args.tiny else
+              f"edits/min/chip @{h}^2 {num_step}-step" + (" SDXL" if args.sdxl else ""))
     lane = ("shared-source" if args.shared else "per-case") + f" batch {args.batch}"
     result = {
         "metric": metric,
@@ -179,6 +193,7 @@ def main():
         "unit": "edits/min",
         "vs_baseline": round(epm / 20.0, 3),
         "lane": lane,
+        "backbone": "sdxl" if args.sdxl else "sd15",
         "median_s_per_edit": statistics.median(per_edit),
         "max_s_per_edit": max(per_edit),
         "s_per_call": secs,

@@ -16,7 +16,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and for each `gn::` instantiation the routes, cluster sizes and shared
      memory of its plans at the GroupNorm shapes;
   2. hold each kernel against its plain PyTorch twin on the card at every
-     shape of the SD-1.5 512^2 paths (bf16, and f32 at the VAE shape), plus
+     shape of the SD-1.5 512^2 paths (bf16, and f32 at the VAE shape) and
+     of the SDXL 1024^2 edit of phase G-XL (heads of 64: `flash_sdpa` at
+     S 4096 / 10 heads and S 1024 / 20 heads, batch 2 and 3, and the VAE's
+     f32 S 16384 / d 512 head at batch 2 and 1; `tca_flash` at both
+     resolutions at the SDXL edit's masks; `group_norm_silu` at every
+     SDXL UNet and 1024^2 VAE shape), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one CTA's positions, dropped must fail); `group_norm_silu`
@@ -49,7 +54,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and, with FREEFINE_FUSED_GN=0, the latent gradient of one
      differentiated TCA UNet pass in modes edit and bggen; with
      FREEFINE_FUSED_GN unset (the default: the kernel on the card, the
-     two-pass math on the CPU), `guided_generation` and that gradient;
+     two-pass math on the CPU), `guided_generation` and that gradient; and
+     `SDXLFreeFine` on the tiny SDXL config the same way (FREEFINE_FUSED_GN
+     unset): `generation`, `guided_generation`, `background_generation`,
+     `cross_image_composition` and the batched `generation` and
+     `generation_shared_source` at 2 cases;
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -99,6 +108,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits (`guided_generation`, phase 5's protocol) and one differentiated
      TCA pass (phase 8's), each with its launches and the GroupNorm shapes
      it launches among phase 2's;
+ G-XL. the full-width SDXL edit (`phase_sdxl`): `SDXLFreeFine` at
+     `sdxl_pipeline_config()` (1024^2, bf16, full depth: UNet depths
+     (1, 2, 10), dual text towers, added conditioning; random weights made
+     on the card), `re_edit_2d`, then `generation` with phase 4's protocol
+     and FREEFINE_FUSED_GN unset; one warm-up and two timed edits, s/edit
+     and peak memory beside the card's line, launches checked against the
+     counts worked out from the config (1712 `flash_sdpa`, 390
+     `tca_flash`, 1432 `group_norm_silu`) and every launch shape among
+     phase 2's (path XL of the `kernels` line);
  10. one call of `group_norm_silu` at every path shape under
      torch.profiler: one `gn::` kernel launch per call (after the timed
      edits, which a profiler session could slow; with --profile before
@@ -106,8 +124,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9; path D is one differentiated pass, paths S and B one batched
-     call), the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+     4 to 9 and G-XL; path D is one differentiated pass, paths S and B one
+     batched call, path XL one SDXL edit), the nvidia-smi line, and last
+     `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
 Exits with code 2 and prints no result when CUDA is not available.
@@ -311,7 +330,7 @@ def ptxas_report(libs) -> list:
     return rows
 
 
-def gn_report(cfg, ptxas) -> list:
+def gn_report(ptxas) -> list:
     """Each `gn::` instantiation (dtype; staged in shared memory by TMA,
     16-byte vectors: the resident and streamed routes; or one element per
     thread from global memory: the plain route) over the plans of the path
@@ -326,7 +345,7 @@ def gn_report(cfg, ptxas) -> list:
 
     lib = cuda_build.library("group_norm")
     inst = {}
-    for b, c, h, w, g, _, dtype, _ in gn_shapes(cfg) + GN_EXTRA:
+    for b, c, h, w, g, _, dtype, _ in path_gn_shapes() + GN_EXTRA:
         x = torch.empty((b, c, h, w), dtype=getattr(torch, dtype), device="cuda")
         plan = G.launch_plan(x.contiguous(memory_format=torch.channels_last), g)
         active = lib.group_norm_active_clusters(G._DTYPE_CODE[x.dtype], plan["vec"],
@@ -393,6 +412,14 @@ FLASH_SHAPES = [
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
 ] + [(4, 8, 4096, 40, "bfloat16", True), (4, 8, 1024, 80, "bfloat16", True)] + [
     (b, 1, 4096, 512, "float32", False) for b in sorted({2, 1, *LANE_VAE_BATCHES}, reverse=True)]
+# The full-width SDXL edit (phase G-XL, `generation`'s protocol at 1024^2):
+# heads of 64 everywhere, inversion batch 2 and regeneration batch 3 at
+# S 4096 (10 heads) and S 1024 (20 heads); the VAE mid-block's float32 head
+# of 512 at S 16384 (one encode of 2 images, one decode of 1).
+XL_FLASH_SHAPES = [(b, h, s, 64, "bfloat16", False) for b in (2, 3)
+                   for s, h in ((4096, 10), (1024, 20))] + [
+    (b, 1, 16384, 512, "float32", False) for b in (2, 1)]
+FLASH_SHAPES += XL_FLASH_SHAPES
 # check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
 # fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
 # (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
@@ -409,6 +436,10 @@ TCA_EDIT_SHAPES = [(6, 4, 1024, 80, "bfloat16"), (6, 4, 4096, 40, "bfloat16")]
 TCA_SHAPES = TCA_EDIT_SHAPES + [(b, 4, s, d, "bfloat16")
                                 for b in (4 * BATCH_SHARED, 6 * BATCH_CASES)
                                 for s, d in ((1024, 80), (4096, 40))]
+# phase G-XL's TCA layers after the parity split (batch 2 * 3 streams):
+# S 4096 at 5 heads and S 1024 at 10, held at the SDXL edit's masks ("xl")
+XL_TCA_SHAPES = [(6, 5, 4096, 64, "bfloat16", "xl"), (6, 10, 1024, 64, "bfloat16", "xl")]
+TCA_SHAPES += XL_TCA_SHAPES
 TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
              (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
 # The differentiated pass of energy guidance: batch 1, every self-attention
@@ -581,11 +612,11 @@ def check_flash(gen, shape, timed: bool):
 # `guided_generation` and the differentiated edit pass D the edit layout,
 # `background_generation` the bggen one, the batched lanes their own.
 TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit",
-                   "S": "shared", "B": "cases"}
+                   "S": "shared", "B": "cases", "XL": "edit"}
 
 
 @functools.lru_cache(maxsize=None)
-def tca_layouts(seq: int, batch: int = 6, device: str = "cuda"):
+def tca_layouts(seq: int, batch: int = 6, device: str = "cuda", xl: bool = False):
     """The fg and tq rows [batch, seq] the SD-1.5 paths pass to `tca_flash`
     (even-head block then odd-head block), built as the entry points build
     their states and `_tca_edit` / `_tca_bggen` their rows.  Batch 2 * 3
@@ -594,16 +625,17 @@ def tca_layouts(seq: int, batch: int = 6, device: str = "cuda"):
     odd one) and "bggen" (fg = 1 - object on the even block, tq = 1
     everywhere).  Batch 2 * 2 * BATCH_SHARED: "shared", the shared lane's
     [u_e, c_e] per case of phase 9's cases; batch 2 * 3 * BATCH_CASES:
-    "cases", the per-case lane's [u_e, r, c_e] per case."""
+    "cases", the per-case lane's [u_e, r, c_e] per case.  With xl, the
+    "edit" layout of phase G-XL's SDXL 1024^2 case alone."""
     import torch
 
     from freefine_tpu_torch import masks as mask_ops
-    from freefine_tpu_torch.config import sd15_pipeline_config
+    from freefine_tpu_torch.config import sd15_pipeline_config, sdxl_pipeline_config
     from freefine_tpu_torch.edit import build_mask_pyramid
     from freefine_tpu_torch.ops.attention import _parity_rows as parity_rows
     from freefine_tpu_torch.pipeline import edit_mask_states
 
-    cfg = sd15_pipeline_config()
+    cfg = sdxl_pipeline_config() if xl else sd15_pipeline_config()
     h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
     if batch != 6:
         name, cases, streams = {4 * BATCH_SHARED: ("shared", BATCH_SHARED, 2),
@@ -619,8 +651,10 @@ def tca_layouts(seq: int, batch: int = 6, device: str = "cuda"):
                                        reduce_inp_artifacts=True)
     fg_ref = build_mask_pyramid(em.fg_ref, lh, lw)[seq]
     tgt = (build_mask_pyramid(em.fg_retain, lh, lw)[seq] > 0).float()
-    obj = build_mask_pyramid(mask_ops.prepare_mask_bggen(t(mask), h, w, lh, lw)[0], lh, lw)[seq]
     streams = 3
+    if xl:
+        return {"edit": (parity_rows(fg_ref, streams), parity_rows(tgt, streams))}
+    obj = build_mask_pyramid(mask_ops.prepare_mask_bggen(t(mask), h, w, lh, lw)[0], lh, lw)[seq]
     return {"edit": (parity_rows(fg_ref, streams), parity_rows(tgt, streams)),
             "bggen": (parity_rows(1.0 - obj, streams), torch.ones(2 * streams, seq,
                                                                    device=device))}
@@ -683,7 +717,7 @@ def check_tca(gen, shape, timed: bool):
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    b, h, s, d, dtype = shape
+    b, h, s, d, dtype, *xl = shape
     q, ks, vs, km, vm = _inputs(gen, b, h, s, d, dtype, 5)
     cg = 0.7
     rows = 3 * 4.0 * h * s * s
@@ -693,7 +727,7 @@ def check_tca(gen, shape, timed: bool):
 
     layouts = {"parity": _tca_masks(gen, b, s, "parity")}
     if timed:
-        layouts.update(tca_layouts(s, b, gen.device.type))
+        layouts.update(tca_layouts(s, b, gen.device.type, bool(xl)))
     else:
         layouts["blocks"] = _tca_masks(gen, b, s, "blocks")
     row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
@@ -1235,17 +1269,29 @@ GN_PATH_BATCHES = {
 }
 
 
-def gn_shapes(cfg) -> list:
+# Phase G-XL's passes (the SDXL config): generation's, at 1024^2.
+GN_XL_PATH_BATCHES = {"XL": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (1,)}}
+
+
+def gn_shapes(cfg, paths=GN_PATH_BATCHES) -> list:
     """(batch, channels, height, width, groups, eps, dtype, silu) of every
-    `group_norm_silu` call on the SD-1.5 paths (each channels-last, as the
-    convolutions pass it on)."""
+    `group_norm_silu` call of `paths` (by default the SD-1.5 paths) on
+    `cfg` (each channels-last, as the convolutions pass it on)."""
     out = set()
-    for passes in GN_PATH_BATCHES.values():
+    for passes in paths.values():
         for kind, batches in passes.items():
             dtype = str(cfg.unet.dtype if kind == "unet" else cfg.vae.dtype).split(".")[-1]
             out |= {(b, c, h, w, g, eps, dtype, silu) for b in batches
                     for c, h, w, g, eps, silu in norm_calls(cfg, kind)}
     return sorted(out)
+
+
+def path_gn_shapes() -> list:
+    """`gn_shapes` of every path: SD-1.5's and phase G-XL's (SDXL)."""
+    from freefine_tpu_torch.config import sd15_pipeline_config, sdxl_pipeline_config
+
+    return sorted(set(gn_shapes(sd15_pipeline_config()))
+                  | set(gn_shapes(sdxl_pipeline_config(), GN_XL_PATH_BATCHES)))
 
 
 # check-only: the eps / SiLU pairings no path runs at full width, float32
@@ -1485,9 +1531,9 @@ def _log_row(name, r, timed):
         log(msg)
 
 
-def phase_kernels(record, sd15_cfg):
-    """Every kernel at every path shape (timed) and every extra case:
-    {name: (rows, checks)}."""
+def phase_kernels(record):
+    """Every kernel at every path shape (timed; SD-1.5's and phase
+    G-XL's) and every extra case: {name: (rows, checks)}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1498,7 +1544,7 @@ def phase_kernels(record, sd15_cfg):
             continue
         done.add(fn)
         if shapes is None:
-            shapes = gn_shapes(sd15_cfg)
+            shapes = path_gn_shapes()
         for timed, group in ((True, shapes), (False, extra)):
             for shape in group:
                 rows = fn(gen, shape, timed)
@@ -1520,10 +1566,11 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
     `generation` with the fused GroupNorm, phase 5 `guided`, phase 6
     `bggen`, phase 7 `compose`, phase 8 `D`, one differentiated TCA pass,
     phase 9 `S` and `B`, one call of each batched lane with the fused
-    GroupNorm) the per-edit times weight each timed shape by the launches
-    counted at that shape in one edit of that path (`counts_by_path`: {path: launch
-    shapes of one edit}); the top-level launches and times are one edit of
-    each path together.  Without the edits (--skip-sd15) they are null."""
+    GroupNorm, phase G-XL `XL`, one SDXL edit) the per-edit times weight each
+    timed shape by the launches counted at that shape in one edit of that path
+    (`counts_by_path`: {path: launch shapes of one edit}); the top-level
+    launches and times are one edit of each path together. Without the edits
+    (--skip-sd15) they are null."""
     timed = {r["key"]: r for r in rows}
     paths = None
     if counts_by_path is not None:
@@ -1573,7 +1620,8 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
                           else "F.scaled_dot_product_attention"),
         f32_route_ms=total("f32_route_ms") if "f32_route_ms" in rows[0] else None,
         per=("one edit of each path (D: one differentiated pass; S and B: one batched call of "
-             f"{BATCH_SHARED} and {BATCH_CASES} edits) together; per path under `paths`"),
+             f"{BATCH_SHARED} and {BATCH_CASES} edits; XL: one SDXL 1024^2 edit) together; per "
+             "path under `paths`"),
         paths=paths, shapes=rows, checks=checks,
     )
 
@@ -1656,23 +1704,29 @@ def fused_gn(mode):
             os.environ["FREEFINE_FUSED_GN"] = prev
 
 
-def phase_tiny(record):
+def phase_tiny(record, xl=False):
     """The entry points on the tiny config, CUDA against the CPU with the
     same weights and noise: `generation` (fused GroupNorm off and on),
     `guided_generation`, and with the fused GroupNorm
-    `background_generation` and `cross_image_composition` of 2 sources."""
+    `background_generation` and `cross_image_composition` of 2 sources.
+    With xl, `SDXLFreeFine` on the tiny SDXL config: the four entry points
+    and the batched `generation` and `generation_shared_source` lanes, with
+    FREEFINE_FUSED_GN unset (the kernel on the card, the two-pass math on
+    the CPU), into record["tiny_xl"]."""
     import torch
 
-    from freefine_tpu_torch.config import tiny_pipeline_config
+    from freefine_tpu_torch.config import tiny_pipeline_config, tiny_sdxl_pipeline_config
     from freefine_tpu_torch.ops.geometry import re_edit_2d
     from freefine_tpu_torch.pipeline import FreeFine
+    from freefine_tpu_torch.sdxl import SDXLFreeFine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = tiny_pipeline_config()
-    cpu = FreeFine(cfg, init_random=True, seed=0, device="cpu")
-    gpu = FreeFine(cfg, params={n: m.state_dict() for n, m in cpu.components().items()},
-                   device="cuda")
+    cfg, cls = (tiny_sdxl_pipeline_config(), SDXLFreeFine) if xl else (tiny_pipeline_config(),
+                                                                       FreeFine)
+    cpu = cls(cfg, init_random=True, seed=0, device="cpu")
+    gpu = cls(cfg, params={n: m.state_dict() for n, m in cpu.components().items()},
+              device="cuda")
     h, w = cfg.height, cfg.width
     img, mask = _case(h, w, 1)
     coarse_c, tm_c, _ = re_edit_2d(img, mask, dx=10, rotation=15, device="cpu")
@@ -1705,10 +1759,14 @@ def phase_tiny(record):
             [img, src2], [mask, mask2], [tm_c, mask2], coarse_c, ["a cat", "a dog"],
             dil_factor=5, **edit_kw, **kw)),
     }
+    if xl:
+        runs = {entry: (None, *run[1:]) for entry, run in runs.items()
+                if entry in ("generation", "guided_generation", "background_generation",
+                             "cross_image_composition")}
     stores = {name: {} for name in ("cpu", "cuda")}
     for name, pipe in (("cpu", cpu), ("cuda", gpu)):
         _capture_latents(pipe, stores[name])
-    record["tiny"] = {}
+    out = record["tiny_xl" if xl else "tiny"] = {}
     for entry, (mode, rows, k, call) in runs.items():
         noise = [rng.standard_normal((rows, cfg.latent_height, cfg.latent_width, 4))
                  .astype(np.float32) for _ in range(k)]
@@ -1719,26 +1777,30 @@ def phase_tiny(record):
                 lats[name] = stores[name]["lat"]
         err = float((lats["cpu"] - lats["cuda"]).abs().max())
         img_err = int(np.abs(outs["cpu"].astype(int) - outs["cuda"].astype(int)).max())
-        record["tiny"][entry] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
-                                     image_max_level_diff=img_err, fused_gn=mode or "unset",
-                                     finite=bool(torch.isfinite(lats["cuda"]).all()))
-        log(f"  tiny {entry} CUDA vs CPU: latents max |diff| {err:.3g} (tol {TINY_TOL}), "
-            f"image {img_err} levels")
-        if not err <= TINY_TOL or img_err > 1 or not record["tiny"][entry]["finite"]:
-            raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {record['tiny'][entry]}")
-    tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw)
+        out[entry] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
+                          image_max_level_diff=img_err, fused_gn=mode or "unset",
+                          finite=bool(torch.isfinite(lats["cuda"]).all()))
+        log(f"  tiny{' SDXL' if xl else ''} {entry} CUDA vs CPU: latents max |diff| {err:.3g} "
+            f"(tol {TINY_TOL}), image {img_err} levels")
+        if not err <= TINY_TOL or img_err > 1 or not out[entry]["finite"]:
+            raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {out[entry]}")
+    tiny_batched(out, cpu, gpu, stores, img, mask, edit_kw, xl)
+    if xl:
+        return
     for mode in ("0", None):
         with fused_gn(mode):
             tiny_tca_grad(record, cpu, gpu, img, mask, coarse_c, tm_c)
 
 
-def tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw):
+def tiny_batched(results, cpu, gpu, stores, img, mask, edit_kw, xl=False):
     """Phase 3's batched lanes: `BatchedFreeFine.generation` and
     `generation_shared_source` (2 cases, TCA) and, with the fused
     GroupNorm, `background_generation_shared_source` (2 removal cases), on
     CUDA against the CPU with the same weights and per-case noise; launches
     of the CUDA call against the counts worked out from the config, and the
-    per-case lane at 3 cases launching exactly what it launches at 2."""
+    per-case lane at 3 cases launching exactly what it launches at 2.  With
+    xl (SDXL), the two edit lanes, FREEFINE_FUSED_GN unset.  Into
+    `results`."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
@@ -1766,6 +1828,9 @@ def tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw):
             BatchedFreeFine(p).background_generation_shared_source(
                 [removals[i] for i in range(len(c))], **bg_kw, **kw)),
     }
+    if xl:
+        runs = {entry: (None, *run[1:]) for entry, run in runs.items()
+                if entry != "batched_background_generation_shared_source"}
     rng = np.random.default_rng(3)
     for entry, (mode, k, k_inv, call) in runs.items():
         noise = [[rng.standard_normal((2, lh, lw, 4)).astype(np.float32) for _ in range(k)]
@@ -1787,11 +1852,12 @@ def tiny_batched(record, cpu, gpu, stores, img, mask, edit_kw):
         img_err = max(int(np.abs(a.astype(int) - b.astype(int)).max())
                       for a, b in zip(outs["cpu"], outs["cuda"]))
         expect = _expected(cfg, gpu, k_inv, k, fused=mode == "1")
-        rec = record["tiny"][entry] = dict(
+        rec = results[entry] = dict(
             latent_max_abs_err=err, latent_tol=TINY_TOL, image_max_level_diff=img_err,
             fused_gn=mode, cases=2, finite=bool(torch.isfinite(lats["cuda"]).all()),
             launches=launched[2], launches_at_3_cases=launched.get(3))
-        log(f"  tiny {entry} (2 cases) CUDA vs CPU: latents max |diff| {err:.3g} "
+        log(f"  tiny{' SDXL' if xl else ''} {entry} (2 cases) CUDA vs CPU: latents max |diff| "
+            f"{err:.3g} "
             f"(tol {TINY_TOL}), images {img_err} levels; launches by cases "
             f"{ {n: {k: v for k, v in c.items() if v} for n, c in launched.items()} }")
         if not err <= TINY_TOL or img_err > 1 or not rec["finite"]:
@@ -1880,7 +1946,8 @@ def tiny_tca_grad(record, cpu, gpu, img, mask, coarse, tm):
         _, want = tca_grad_pass(cpu, (lat, t, emb, ecfg, state), w)
         FA.reset_launch_counts()
         G.reset_launch_counts()
-        _, got = tca_grad_pass(gpu, (lat.cuda(), t, emb.cuda(), ecfg, state), w.cuda())
+        _, got = tca_grad_pass(gpu, (lat.cuda(), t, emb.map(lambda a: a.cuda()), ecfg, state),
+                               w.cuda())
         launched = {k: FA.LAUNCHES[k] for k in TCA_GRAD_KERNELS}
         if sfx:  # the default fuses on the card
             launched.update(G.LAUNCHES)
@@ -2694,9 +2761,9 @@ def phase_rest(record, pipe, case, store):
     gn_default_e_d(record, pipe, case, store)
 
 
-def _gn_shapes_checked(key, shapes, cfg):
+def _gn_shapes_checked(key, shapes):
     """Fail on a `group_norm_silu` shape that phase 2 did not hold."""
-    extra = {k[1:] for k in shapes if k[0] == "group_norm_silu"} - set(gn_shapes(cfg))
+    extra = {k[1:] for k in shapes if k[0] == "group_norm_silu"} - set(path_gn_shapes())
     if extra:
         raise AssertionError(f"{key}: GroupNorm shapes not checked in phase 2: {sorted(extra)}")
 
@@ -2726,7 +2793,7 @@ def gn_default_e_d(record, pipe, case, store):
     with fused_gn(None):
         shapes = timed_edits(record, key, lambda: pipe.guided_generation(
             img, mask, coarse, tm, "a photo of a cat", **kw), expect, 2, store, (h, w))
-    _gn_shapes_checked(key, shapes, cfg)
+    _gn_shapes_checked(key, shapes)
     record[key]["protocol"] = record["sd15_guided"]["protocol"] + ", FREEFINE_FUSED_GN unset"
 
     inputs = tca_pass_inputs(pipe, case, "edit", 35)
@@ -2746,7 +2813,7 @@ def gn_default_e_d(record, pipe, case, store):
         launches, shapes = _launch_counts()
     if launches != expect:
         raise AssertionError(f"TCA grad pass, GN default: launches {launches} != {expect}")
-    _gn_shapes_checked("TCA grad pass, GN default", shapes, cfg)
+    _gn_shapes_checked("TCA grad pass, GN default", shapes)
     if not (torch.isfinite(grad).all() and grad.abs().max() > 0 and torch.isfinite(loss)):
         raise AssertionError("TCA grad pass, GN default: the gradient is not finite and non-zero")
     record["sd15_tca_grad_gn_default"] = dict(
@@ -2757,13 +2824,68 @@ def gn_default_e_d(record, pipe, case, store):
         f"[{record['card']}]")
 
 
+def phase_sdxl(record, timed_runs, profile):
+    """Phase G-XL: the full-width SDXL edit.  `SDXLFreeFine` at
+    `sdxl_pipeline_config()` (1024^2, bf16, full depth, random weights
+    from seed 0 made on the card), `re_edit_2d` on a 1024^2 case, then
+    `generation` with `generation`'s protocol (50 DDIM steps, start 35,
+    guidance 7.5, eta 1.0, TCA) and FREEFINE_FUSED_GN unset (the default:
+    the kernel on the card).  One warm-up and `timed_runs` timed edits,
+    each with its launches checked against the counts worked out from the
+    config (`_expected`); s/edit and peak memory beside the card's line;
+    with `profile`, one more edit under torch.profiler.  Returns the launches of one edit by call shape (each must be a shape
+    phase 2 held: `summarize` fails otherwise)."""
+    import torch
+
+    from freefine_tpu_torch.config import sdxl_pipeline_config
+    from freefine_tpu_torch.sdxl import SDXLFreeFine
+
+    cfg = sdxl_pipeline_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = SDXLFreeFine(cfg, init_random=True, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.max_memory_allocated()
+    store = {}
+    _capture_latents(pipe, store)
+    img, mask, coarse, tm = edit_case(cfg)
+    h, w = cfg.height, cfg.width
+    num_step, start_step = 50, 35
+    k = num_step - start_step
+    kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
+              end_step=10, method_type="tca", use_auto_draw=True,
+              cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True, seed=42)
+    expect = _expected(cfg, pipe, k, k, fused=True)
+    log(f"  SDXL pipe built on the card in {setup_s:.1f} s ({weights_bytes / 2**30:.2f} GiB "
+        f"peak); layer range {pipe._layer_range}; expected launches per edit {expect}")
+    def run():
+        return pipe.generation(img, mask, coarse, tm, "a photo of a cat", **kw)
+
+    with fused_gn(None):
+        shapes = timed_edits(record, "sdxl", run, expect, timed_runs, store, (h, w))
+        if profile:
+            record["sdxl_profile"] = profile_edit(run, "profile_sdxl.txt")
+    _gn_shapes_checked("sdxl", shapes)
+    record["sdxl"].update(
+        setup_s=setup_s, setup_peak_memory_bytes=weights_bytes, layer_range=pipe._layer_range,
+        parameters={name: sum(p.numel() for p in mod.parameters())
+                    for name, mod in pipe.components().items()},
+        protocol=("SDXL 1024^2 (sdxl_pipeline_config), 50-step DDIM, start 35, guidance 7.5, "
+                  "eta 1.0, TCA, bf16 random weights, batch 1, FREEFINE_FUSED_GN unset"))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b (kernel and tiny checks only)")
+                    help="skip phases 4 to 9b and G-XL (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one SD-1.5 edit of each path (torch.profiler)")
+                    help="also profile one edit of each path (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -2792,14 +2914,13 @@ def main():
     record["tca_bwd_smem"] = bwd_smem_report(
         "tca_flash_bwd", ("tca_flash_bwd_dq", "tca_flash_bwd_dkv"))
 
-    from freefine_tpu_torch.config import sd15_pipeline_config
-
-    record["gn_instantiations"] = gn_report(sd15_pipeline_config(), record["ptxas"])
+    record["gn_instantiations"] = gn_report(record["ptxas"])
 
     log("phase 2: kernels against their twins")
-    checked = phase_kernels(record, sd15_pipeline_config())
+    checked = phase_kernels(record)
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
+    phase_tiny(record, xl=True)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -2828,6 +2949,11 @@ def main():
         log("phase 9b: SD-1.5 512^2 checkpoint round trip, off-size input, intermediates, "
             "attention probe, GroupNorm default")
         phase_rest(record, pipe, case, store)
+        del pipe, case, store
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase G-XL: SDXL 1024^2 edit (SDXLFreeFine.generation)")
+        counts["XL"] = phase_sdxl(record, args.timed_runs, args.profile)
     if not args.profile:
         log("phase 10: group_norm_silu launches per call at every path shape (profiled last)")
         gn_launches_per_call(checked["group_norm_silu"][0])

@@ -1,8 +1,9 @@
 """Static configuration dataclasses for the PyTorch port.
 
 Same fields and defaults as `freefine_tpu.config` (SD-1.5 in bfloat16),
-with `torch.dtype` in place of the jnp dtypes.  Only the configurations the
-port runs are carried: SD-1.5 and the miniature test config.
+with `torch.dtype` in place of the jnp dtypes.  The configurations the port
+runs are carried: SD-1.5, SDXL-base (dual text towers, added
+conditioning), SD-2.1, and their miniature test configs.
 """
 
 from __future__ import annotations
@@ -22,15 +23,29 @@ class UNetConfig:
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
+    # head count at every level, unless head_dim is set: then a level's
+    # heads are block_out_channels[level] // head_dim (SDXL, SD-2.x)
     num_attention_heads: int = 8
+    head_dim: Optional[int] = None
+    # Linear (True) or 1x1-conv (False) transformer proj_in / proj_out
+    use_linear_projection: bool = False
     cross_attention_dim: int = 768
     down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
     up_block_has_attn: Tuple[bool, ...] = (False, True, True, True)
     transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
+    # SDXL added conditioning (pooled text ++ time ids) folded into the
+    # timestep embedding; None disables
+    addition_embed_dim: Optional[int] = None
     norm_num_groups: int = 32
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
     dtype: torch.dtype = torch.bfloat16
+
+    def heads(self, level: int) -> int:
+        """Attention heads of the transformers at block level `level`."""
+        if self.head_dim is None:
+            return self.num_attention_heads
+        return self.block_out_channels[level] // self.head_dim
 
     @property
     def attn_layer_layout(self) -> Tuple[int, int]:
@@ -75,7 +90,32 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_length: int = 77
+    # MLP activation: "quick_gelu" (OpenAI CLIP, SD-1.5) or "gelu" (exact,
+    # the OpenCLIP-derived SD-2.x tower)
+    activation: str = "quick_gelu"
+    # hidden_states[-2] (SDXL's first tower): the last layer and the final
+    # LayerNorm are not built
+    penultimate: bool = False
     dtype: torch.dtype = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class OpenCLIPTextConfig:
+    """OpenCLIP text tower (SDXL's text_encoder_2 at `open_clip_text_bigg`)."""
+
+    vocab_size: int = 49408
+    width: int = 1024
+    heads: int = 16
+    layers: int = 24
+    context_length: int = 77
+    projection_dim: int = 1024
+    dtype: torch.dtype = torch.float32
+
+
+def open_clip_text_bigg(dtype: Optional[torch.dtype] = None) -> OpenCLIPTextConfig:
+    """OpenCLIP ViT-bigG-14's text tower: 32 layers of width 1280."""
+    return OpenCLIPTextConfig(width=1280, heads=20, layers=32, projection_dim=1280,
+                              dtype=dtype or torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +139,8 @@ class PipelineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     height: int = 512
     width: int = 512
+    # SDXL's second text tower (None: one tower)
+    text2: Optional[OpenCLIPTextConfig] = None
 
     @property
     def latent_height(self) -> int:
@@ -150,3 +192,80 @@ def sd15_pipeline_config(
         height=height,
         width=width,
     )
+
+
+def sdxl_unet_config(dtype: Optional[torch.dtype] = None) -> UNetConfig:
+    """SDXL-base's UNet: 3 levels, transformer depths (1, 2, 10), heads of
+    64 (5, 10, 20 per level), 2048-d context, linear projections, 2816-d
+    added conditioning."""
+    return UNetConfig(
+        sample_size=128,
+        block_out_channels=(320, 640, 1280),
+        layers_per_block=2,
+        head_dim=64,
+        cross_attention_dim=2048,
+        down_block_has_attn=(False, True, True),
+        up_block_has_attn=(True, True, False),
+        transformer_depth=(1, 2, 10),
+        addition_embed_dim=2816,
+        use_linear_projection=True,
+        dtype=dtype or torch.bfloat16,
+    )
+
+
+def sdxl_pipeline_config(height: int = 1024, width: int = 1024,
+                         dtype: Optional[torch.dtype] = None) -> PipelineConfig:
+    """SDXL-base: the SDXL UNet, the SDXL VAE (scaling 0.13025), CLIP-L's
+    penultimate hidden states and the OpenCLIP-bigG second tower."""
+    dtype = dtype or torch.bfloat16
+    return PipelineConfig(
+        unet=sdxl_unet_config(dtype),
+        vae=VAEConfig(scaling_factor=0.13025, dtype=dtype),
+        text=CLIPTextConfig(penultimate=True, dtype=dtype),
+        text2=open_clip_text_bigg(dtype),
+        height=height,
+        width=width,
+    )
+
+
+def tiny_sdxl_pipeline_config(height: int = 64, width: int = 64) -> PipelineConfig:
+    """Miniature SDXL topology for CPU tests: 3 levels, depths (1, 2, 2),
+    dual towers (16 + 32 = 48-d context), added conditioning."""
+    unet = UNetConfig(
+        sample_size=height // 8,
+        block_out_channels=(32, 64, 128),
+        num_attention_heads=2,
+        cross_attention_dim=48,
+        down_block_has_attn=(False, True, True),
+        up_block_has_attn=(True, True, False),
+        transformer_depth=(1, 2, 2),
+        addition_embed_dim=32 + 6 * 256,
+        use_linear_projection=True,
+        norm_num_groups=8,
+        dtype=torch.float32,
+    )
+    vae = VAEConfig(block_out_channels=(16, 16, 32, 32), layers_per_block=1, norm_num_groups=8,
+                    scaling_factor=0.13025, dtype=torch.float32)
+    text = CLIPTextConfig(vocab_size=1000, hidden_size=16, intermediate_size=32, num_layers=2,
+                          num_heads=2, penultimate=True, dtype=torch.float32)
+    text2 = OpenCLIPTextConfig(vocab_size=1000, width=32, heads=2, layers=2, projection_dim=32,
+                               dtype=torch.float32)
+    return PipelineConfig(unet=unet, vae=vae, text=text, text2=text2, height=height, width=width)
+
+
+def sd21_pipeline_config(height: int = 768, width: int = 768,
+                         dtype: Optional[torch.dtype] = None) -> PipelineConfig:
+    """Stable Diffusion 2.1: SD-1.5's block layout with heads of 64 (5, 10,
+    20, 20), linear projections, 1024-d context from a 23-layer gelu text
+    tower."""
+    dtype = dtype or torch.bfloat16
+    return PipelineConfig(
+        unet=UNetConfig(sample_size=height // 8, cross_attention_dim=1024, head_dim=64,
+                        use_linear_projection=True, dtype=dtype),
+        vae=VAEConfig(dtype=dtype),
+        text=CLIPTextConfig(hidden_size=1024, intermediate_size=4096, num_layers=23,
+                            num_heads=16, activation="gelu", dtype=dtype),
+        height=height,
+        width=width,
+    )
+

@@ -72,7 +72,9 @@
 // the partial S of 16 rows over a quarter of the head dim, the partials are
 // summed in the softmax (rounded as `masked_logit` rounds, -1e30 running
 // max), and each warp then accumulates P V for 16 rows and a quarter of
-// the output columns.
+// the output columns: each tile's products from zero on the tensor cores,
+// added to the output by FFMA (the tensor cores' sums round toward zero,
+// a bias that carrying the output through them would grow with Sk).
 //
 // Measured times against the bound: PERF.md.
 #include "attention_common.cuh"
@@ -578,24 +580,33 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_wait<1>();  // V of this tile landed; the next K may still be in flight
     __syncthreads();
-    {  // O = O * corr + P V over this warp's output columns
+    {  // O = O * corr + P V over this warp's output columns.  The tile's
+       // P V is summed on the tensor cores from zero (12 products) and
+       // added to O by one FFMA: mma.sync rounds its f32 sums toward zero,
+       // so carrying O itself through every product would shrink it by
+       // about 2^-24 a product, a bias that grows with the keys (2e-4 of
+       // |O| at S 16384); an FFMA rounds to nearest.
       const float c0 = corr_s[16 * rgrp + g], c1 = corr_s[16 * rgrp + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        acc[nt][0] *= c0; acc[nt][1] *= c0; acc[nt][2] *= c1; acc[nt][3] *= c1;
-      }
       const float* pw = ps + (16 * rgrp + g) * kLdS + t;
       const float* vw = vs + t * kLdV + cgrp * kSlice + g;
+      uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 8) {
-        uint32_t ah[4], al[4];
-        split(pw[kk], ah[0], al[0]);
-        split(pw[kk + 8 * kLdS], ah[1], al[1]);
-        split(pw[kk + 4], ah[2], al[2]);
-        split(pw[kk + 8 * kLdS + 4], ah[3], al[3]);
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        split(pw[8 * kk], ph[kk][0], pl[kk][0]);
+        split(pw[8 * kk + 8 * kLdS], ph[kk][1], pl[kk][1]);
+        split(pw[8 * kk + 4], ph[kk][2], pl[kk][2]);
+        split(pw[8 * kk + 8 * kLdS + 4], ph[kk][3], pl[kk][3]);
+      }
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-          mma3(acc[nt], ah, al, vw[kk * kLdV + nt * 8], vw[(kk + 4) * kLdV + nt * 8]);
+      for (int nt = 0; nt < kNT; ++nt) {
+        float tile[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kBK / 8; ++kk)
+          mma3(tile, ph[kk], pl[kk], vw[8 * kk * kLdV + nt * 8], vw[(8 * kk + 4) * kLdV + nt * 8]);
+        acc[nt][0] = fmaf(acc[nt][0], c0, tile[0]);
+        acc[nt][1] = fmaf(acc[nt][1], c0, tile[1]);
+        acc[nt][2] = fmaf(acc[nt][2], c1, tile[2]);
+        acc[nt][3] = fmaf(acc[nt][3], c1, tile[3]);
       }
     }
     __syncthreads();  // V and P consumed

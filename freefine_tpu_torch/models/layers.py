@@ -254,26 +254,35 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """Transformer2DModel with 1x1-conv projections: GN -> proj_in ->
-    depth x block -> proj_out + skip.  Block d gets block_index + d."""
+    """Transformer2DModel: GN -> proj_in -> depth x block -> proj_out +
+    skip.  The projections are 1x1 convolutions (SD-1.5) or, with
+    use_linear (SDXL, SD-2.x), Linear layers on the tokens.  Block d gets
+    block_index + d."""
 
     def __init__(self, ch: int, context_dim: int, heads: int, groups: int, depth: int,
-                 dtype, device=None):
+                 dtype, device=None, use_linear: bool = False):
         super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.use_linear = use_linear
         self.norm = GroupNorm32(groups, ch, 1e-6, device)
-        self.proj_in = nn.Conv2d(ch, ch, 1, dtype=dtype, device=device)
+        self.proj_in = nn.Linear(ch, ch, **kw) if use_linear else nn.Conv2d(ch, ch, 1, **kw)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(ch, context_dim, heads, dtype, device) for _ in range(depth)
         ])
-        self.proj_out = nn.Conv2d(ch, ch, 1, dtype=dtype, device=device)
+        self.proj_out = nn.Linear(ch, ch, **kw) if use_linear else nn.Conv2d(ch, ch, 1, **kw)
 
     def forward(self, x, context, *, edit_cfg, edit_state, block_index, place,
                 context_extra=None):
         b, c, hh, ww = x.shape
-        h = self.proj_in(self.norm(x))
-        h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        h = self.norm(x)
+        if self.use_linear:
+            h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+        else:
+            h = self.proj_in(h).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         for d, blk in enumerate(self.transformer_blocks):
             h = blk(h, context, edit_cfg=edit_cfg, edit_state=edit_state,
                     block_index=block_index + d, place=place, context_extra=context_extra)
+        if self.use_linear:
+            return self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.proj_out(h) + x

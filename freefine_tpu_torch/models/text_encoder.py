@@ -9,6 +9,7 @@ package: it is not one of the ported kernels.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from freefine_tpu_torch.config import CLIPTextConfig
@@ -43,15 +44,22 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    """fc1 -> QuickGELU (x * sigmoid(1.702 x), OpenAI CLIP) -> fc2."""
+    """fc1 -> QuickGELU (x * sigmoid(1.702 x), OpenAI CLIP) or, with
+    activation "gelu", exact GELU (the SD-2.x tower) -> fc2."""
 
-    def __init__(self, dim: int, intermediate: int, dtype, device=None):
+    def __init__(self, dim: int, intermediate: int, dtype, device=None,
+                 activation: str = "quick_gelu"):
         super().__init__()
+        if activation not in ("quick_gelu", "gelu"):
+            raise ValueError(f"unknown CLIP MLP activation {activation!r}")
+        self.activation = activation
         self.fc1 = nn.Linear(dim, intermediate, dtype=dtype, device=device)
         self.fc2 = nn.Linear(intermediate, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
+        if self.activation == "gelu":
+            return self.fc2(F.gelu(h))
         return self.fc2(h * torch.sigmoid(1.702 * h))
 
 
@@ -60,12 +68,19 @@ class CLIPEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, cfg.dtype, device)
         self.layer_norm1 = LayerNorm32(cfg.hidden_size, device=device)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.dtype, device)
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.dtype, device,
+                           cfg.activation)
         self.layer_norm2 = LayerNorm32(cfg.hidden_size, device=device)
 
     def forward(self, x, causal_mask):
         x = x + self.self_attn(self.layer_norm1(x), causal_mask)
         return x + self.mlp(self.layer_norm2(x))
+
+
+def causal_mask(s: int, device) -> torch.Tensor:
+    """[1, 1, s, s] float32: -1e9 above the diagonal, 0 elsewhere."""
+    return torch.triu(torch.full((s, s), -1e9, dtype=torch.float32, device=device),
+                      diagonal=1)[None, None]
 
 
 class CLIPTextTransformer(nn.Module):
@@ -79,15 +94,23 @@ class CLIPTextTransformer(nn.Module):
             cfg.max_length, cfg.hidden_size, dtype=cfg.dtype, device=device
         )
         self.encoder = nn.Module()
-        self.encoder.layers = nn.ModuleList(
-            [CLIPEncoderLayer(cfg, device) for _ in range(cfg.num_layers)]
-        )
-        self.final_layer_norm = LayerNorm32(cfg.hidden_size, device=device)
+        n = cfg.num_layers - 1 if cfg.penultimate else cfg.num_layers
+        self.encoder.layers = nn.ModuleList([CLIPEncoderLayer(cfg, device) for _ in range(n)])
+        if not cfg.penultimate:
+            self.final_layer_norm = LayerNorm32(cfg.hidden_size, device=device)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token plus position embeddings [B, S, hidden]."""
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        return self.embeddings.token_embedding(input_ids) + self.embeddings.position_embedding(pos)
 
 
 class CLIPTextEncoder(nn.Module):
     """[B, 77] token ids -> last hidden state [B, 77, hidden] after the
-    final LayerNorm (the SD-1.5 conditioning)."""
+    final LayerNorm (the SD-1.5 conditioning) or, with the config's
+    `penultimate` (SDXL), hidden_states[-2]: the last layer and the final
+    LayerNorm are neither built nor run, as the JAX tree holds neither, and
+    a checkpoint's tensors for them are ignored."""
 
     def __init__(self, config: CLIPTextConfig, device=None):
         super().__init__()
@@ -96,12 +119,8 @@ class CLIPTextEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         tm = self.text_model
-        b, s = input_ids.shape
-        pos = torch.arange(s, device=input_ids.device)[None, :]
-        x = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding(pos)
-        causal = torch.triu(
-            torch.full((s, s), -1e9, dtype=torch.float32, device=input_ids.device), diagonal=1
-        )[None, None]
+        x = tm.embed(input_ids)
+        causal = causal_mask(input_ids.shape[1], input_ids.device)
         for layer in tm.encoder.layers:
             x = layer(x, causal)
-        return tm.final_layer_norm(x)
+        return x if self.config.penultimate else tm.final_layer_norm(x)

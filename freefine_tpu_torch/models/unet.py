@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from freefine_tpu_torch.config import UNetConfig
@@ -39,12 +40,18 @@ class UNet2DCondition(nn.Module):
         g = cfg.norm_num_groups
 
         def transformer(c, level):
-            return SpatialTransformer(c, cfg.cross_attention_dim, cfg.num_attention_heads, g,
-                                      cfg.transformer_depth[level], dt, dev)
+            return SpatialTransformer(c, cfg.cross_attention_dim, cfg.heads(level), g,
+                                      cfg.transformer_depth[level], dt, dev,
+                                      use_linear=cfg.use_linear_projection)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1, dtype=dt, device=dev)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch, cfg.flip_sin_to_cos,
                                                 cfg.freq_shift, dt, dev)
+        if cfg.addition_embed_dim is not None:  # SDXL: add_embedding over added_cond
+            self.add_embedding = nn.Module()
+            self.add_embedding.linear_1 = nn.Linear(cfg.addition_embed_dim, temb_ch, dtype=dt,
+                                                    device=dev)
+            self.add_embedding.linear_2 = nn.Linear(temb_ch, temb_ch, dtype=dt, device=dev)
         skip_ch = [ch[0]]
         prev = ch[0]
         self.down_blocks = nn.ModuleList()
@@ -106,10 +113,13 @@ class UNet2DCondition(nn.Module):
         edit_state: Optional[EditState] = None,
         return_features: bool = False,
         context_extra: Optional[torch.Tensor] = None,
+        added_cond: Optional[torch.Tensor] = None,
     ):
         """sample [B, C, H, W]; timestep int, 0-d or [B]; context [B, 77, D];
         context_extra optional [P, 77, D] compose region prompts (their K/V
-        feed the conditional edit stream's cross-attention).
+        feed the conditional edit stream's cross-attention); added_cond
+        [B, addition_embed_dim] the SDXL added conditioning (pooled text ++
+        time ids), required where the config has addition_embed_dim.
         Returns the noise prediction [B, C_out, H, W] in the model dtype;
         with return_features, (eps, [mid, up_0, .., up_{n-1}]): the mid-block
         output and each up block's output after its upsampler (NCHW), the
@@ -124,6 +134,11 @@ class UNet2DCondition(nn.Module):
         if t.ndim == 0:
             t = t.expand(sample.shape[0])
         temb = self.time_embedding(t)
+        if cfg.addition_embed_dim is not None:
+            if added_cond is None:
+                raise ValueError("this UNet config needs added_cond (SDXL added conditioning)")
+            a = self.add_embedding
+            temb = temb + a.linear_2(F.silu(a.linear_1(added_cond.to(dt))))
         nb = len(cfg.block_out_channels)
         attn_index = 0
         ekw = dict(edit_cfg=edit_cfg, edit_state=edit_state, context_extra=context_extra)

@@ -8,6 +8,11 @@ plain Python over eager PyTorch modules.  Public functions keep the JAX
 layouts: `generation` takes and returns NHWC uint8 images, the latent
 functions take and return NHWC float32 latents.
 
+Conditioning: every loop and entry point carries the text conditioning as
+a `conditioning.Cond` (the context and, for SDXL, the added conditioning
+with the same leading axes); a loop also takes a bare context tensor, and
+`FreeFine.unet_apply` splits the two at the UNet call.
+
 Noise: every sampling loop draws one standard-normal tensor per step from
 a `torch.Generator` seeded by `seed`, or takes an explicit per-step noise
 sequence (the tests replay JAX's `split` -> `normal` chain through it).
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from freefine_tpu_torch import masks as mask_ops
+from freefine_tpu_torch.conditioning import Cond
 from freefine_tpu_torch.config import PipelineConfig, sd15_pipeline_config
 from freefine_tpu_torch.edit import (
     DEFAULT_LAYER_RANGE,
@@ -72,10 +78,11 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 @torch.no_grad()
 def ddim_invert_loop(
     unet_apply: Callable, schedule: DDIMSchedule, latents: torch.Tensor,
-    text_emb: torch.Tensor, num_actual: int,
+    text_emb, num_actual: int,
 ) -> torch.Tensor:
-    """DDIM inversion (guidance 1.0).  latents [B, h, w, c] -> trajectory
-    [num_actual+1, B, h, w, c]: [0] the clean latent, [-1] the most noised."""
+    """DDIM inversion (guidance 1.0).  latents [B, h, w, c], text_emb the
+    per-row conditioning [B, ...] -> trajectory [num_actual+1, B, h, w, c]:
+    [0] the clean latent, [-1] the most noised."""
     ts = schedule.timesteps[::-1][:num_actual]
     traj = [latents]
     lat = latents
@@ -124,7 +131,7 @@ def sample_edit_cases(
     schedule: DDIMSchedule,
     ecfg: EditConfig,
     traj: torch.Tensor,            # [K+1, C, 2, h, w, c] inversion trajectories
-    text_emb: torch.Tensor,        # [C, 3, 77, D] [u, u_ref, edit] (or legacy [C, 4])
+    text_emb,                      # [C, 3, ...] [u, u_ref, edit] (or legacy [C, 4])
     state: EditState,              # mask pyramids [C, S] ([S] for one case)
     cg: np.ndarray,                # [K] context guidance schedule
     gates: np.ndarray,             # [K] share gates
@@ -147,11 +154,12 @@ def sample_edit_cases(
     [C, 2, h, w, c], or with return_intermediates (final, each step's edit
     stream after its `ctrl_step` [K, C, h, w, c])."""
     k = traj.shape[0] - 1
-    cases, nstr = text_emb.shape[:2]
+    text = Cond.of(text_emb)
+    cases, nstr = text.lead
     ts = schedule.timesteps[start_step : start_step + k]
     refs = torch.flip(traj[:k], dims=[0])[:, :, 1:]
     lat = traj[-1].clone()
-    text = _flat(text_emb)
+    text = text.reshape(-1)
     cfg_mask = completion_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     inter = []
@@ -178,14 +186,15 @@ def _one_case(out, return_intermediates: bool):
 
 
 def sample_edit_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
-                     traj: torch.Tensor, text_emb: torch.Tensor, state: EditState, cg: np.ndarray,
+                     traj: torch.Tensor, text_emb, state: EditState, cg: np.ndarray,
                      gates: np.ndarray, completion_cfg: torch.Tensor, local_var: torch.Tensor,
                      noise: NoiseSource, **kw) -> torch.Tensor:
     """`sample_edit_cases` of one case: traj [K+1, 2, h, w, c], text_emb
-    [3, 77, D], masks [lh, lw] -> the final 2-stream latents [2, h, w, c]
+    [3, ...], masks [lh, lw] -> the final 2-stream latents [2, h, w, c]
     (with return_intermediates, and the edit stream after each step
     [K, h, w, c])."""
-    return _one_case(sample_edit_cases(unet_apply, schedule, ecfg, traj[:, None], text_emb[None],
+    return _one_case(sample_edit_cases(unet_apply, schedule, ecfg, traj[:, None],
+                                       Cond.of(text_emb)[None],
                                        state, cg, gates, completion_cfg[None], local_var[None],
                                        [noise], **kw), kw.get("return_intermediates", False))
 
@@ -196,7 +205,7 @@ def sample_bggen_cases(
     schedule: DDIMSchedule,
     ecfg: EditConfig,
     traj: torch.Tensor,            # [K+1, C, 1, h, w, c] inversion trajectories
-    text_emb: torch.Tensor,        # [C, 3, 77, D] [u, u_ref, cond] (or legacy [C, 4])
+    text_emb,                      # [C, 3, ...] [u, u_ref, cond] (or legacy [C, 4])
     state: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
@@ -219,11 +228,12 @@ def sample_bggen_cases(
     Returns the generated latents [C, 1, h, w, c], or with
     return_intermediates (final, each step's generated stream [K, C, h, w, c])."""
     k = traj.shape[0] - 1
-    cases, nstr = text_emb.shape[:2]
+    text = Cond.of(text_emb)
+    cases, nstr = text.lead
     ts = schedule.timesteps[start_step : start_step + k]
     refs = torch.flip(traj[1:], dims=[0])
     lat = traj[-1]
-    text = _flat(text_emb)
+    text = text.reshape(-1)
     cfg_mask = local_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     inter = []
@@ -245,14 +255,14 @@ def sample_bggen_cases(
 
 
 def sample_bggen_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
-                      traj: torch.Tensor, text_emb: torch.Tensor, state: EditState,
+                      traj: torch.Tensor, text_emb, state: EditState,
                       cg: np.ndarray, gates: np.ndarray, local_cfg: torch.Tensor,
                       local_var: torch.Tensor, noise: NoiseSource, **kw) -> torch.Tensor:
     """`sample_bggen_cases` of one case: traj [K+1, 1, h, w, c] -> the
     generated latent [1, h, w, c] (with return_intermediates, and the
     generated stream after each step [K, h, w, c])."""
     return _one_case(sample_bggen_cases(unet_apply, schedule, ecfg, traj[:, None],
-                                        text_emb[None], state, cg, gates, local_cfg[None],
+                                        Cond.of(text_emb)[None], state, cg, gates, local_cfg[None],
                                         local_var[None], [noise], **kw),
                      kw.get("return_intermediates", False))
 
@@ -263,8 +273,8 @@ def sample_compose_cases(
     schedule: DDIMSchedule,
     ecfg: EditConfig,
     traj: torch.Tensor,            # [K+1, C, N+1, h, w, c] inversion trajectories
-    text_emb: torch.Tensor,        # [C, N+2, 77, D] per-stream context
-    text_extra: torch.Tensor,      # [C, P, 77, D] region prompts of the cond streams
+    text_emb,                      # [C, N+2, ...] per-stream conditioning
+    text_extra,                    # [C, P, 77, D] region prompts of the cond streams
     state: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
@@ -286,11 +296,12 @@ def sample_compose_cases(
     steps its edit latent.  Returns them, [C, 1, h, w, c], or with
     return_intermediates (final, each step's edit latent [K, C, h, w, c])."""
     k = traj.shape[0] - 1
-    cases, nstr = text_emb.shape[:2]
+    text = Cond.of(text_emb)
+    cases, nstr = text.lead
     ts = schedule.timesteps[start_step : start_step + k]
     refs = torch.flip(traj[:k], dims=[0])[:, :, 1:]
     lat = traj[-1][:, :1]
-    text, extra = _flat(text_emb), _flat(text_extra)
+    text, extra = text.reshape(-1), Cond.of(text_extra).reshape(-1)
     cfg_mask = completion_cfg[:, None, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     inter = []
@@ -310,15 +321,16 @@ def sample_compose_cases(
 
 
 def sample_compose_loop(unet_apply: Callable, schedule: DDIMSchedule, ecfg: EditConfig,
-                        traj: torch.Tensor, text_emb: torch.Tensor, text_extra: torch.Tensor,
-                        state: EditState, cg: np.ndarray, gates: np.ndarray,
+                        traj: torch.Tensor, text_emb, text_extra, state: EditState,
+                        cg: np.ndarray, gates: np.ndarray,
                         completion_cfg: torch.Tensor, local_var: torch.Tensor,
                         noise: NoiseSource, **kw) -> torch.Tensor:
     """`sample_compose_cases` of one case: traj [K+1, N+1, h, w, c] -> the
     edit latent [1, h, w, c] (with return_intermediates, and the edit
     latent after each step [K, h, w, c])."""
     return _one_case(sample_compose_cases(unet_apply, schedule, ecfg, traj[:, None],
-                                          text_emb[None], text_extra[None], state, cg, gates,
+                                          Cond.of(text_emb)[None], Cond.of(text_extra)[None],
+                                          state, cg, gates,
                                           completion_cfg[None], local_var[None], [noise], **kw),
                      kw.get("return_intermediates", False))
 
@@ -331,8 +343,8 @@ def sample_edit_loop_shared(
     ecfg: EditConfig,
     ref_traj: torch.Tensor,        # [K+1, h, w, c] reference inversion trajectory
     init_lat: torch.Tensor,        # [C, h, w, c] per-case coarse traj[-1]
-    text_pair: torch.Tensor,       # [C, 2, 77, D] per-case [uncond, cond]
-    text_ref: torch.Tensor,        # [1, 77, D] uncond context of the capture pass
+    text_pair,                     # [C, 2, ...] per-case [uncond, cond]
+    text_ref,                      # [1, ...] uncond conditioning of the capture pass
     states: EditState,             # mask pyramids [C, S]
     cg: np.ndarray,
     gates: np.ndarray,
@@ -363,8 +375,8 @@ def sample_bggen_loop_shared(
     schedule: DDIMSchedule,
     ecfg: EditConfig,
     ref_traj: torch.Tensor,        # [K+1, h, w, c] source inversion trajectory
-    text_pair: torch.Tensor,       # [C, 2, 77, D]
-    text_ref: torch.Tensor,        # [1, 77, D]
+    text_pair,                     # [C, 2, ...]
+    text_ref,                      # [1, ...]
     states: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
@@ -380,7 +392,7 @@ def sample_bggen_loop_shared(
     it (ref_vanilla semantics, as `sample_edit_loop_shared`).  Returns
     [C, h, w, c]."""
     refs = torch.flip(ref_traj[1:], dims=[0])
-    init = ref_traj[-1][None].expand(text_pair.shape[0], *ref_traj.shape[1:])
+    init = ref_traj[-1][None].expand(Cond.of(text_pair).lead[0], *ref_traj.shape[1:])
     return _shared_ref_scan(unet_edit, unet_capture, schedule, ecfg, refs, init, text_pair,
                             text_ref, states, cg, gates, local_cfg, local_var, noise, **kw)
 
@@ -392,8 +404,8 @@ def _shared_ref_scan(
     ecfg: EditConfig,
     refs: torch.Tensor,            # [K, h, w, c] per-step pinned reference latents
     init_lat: torch.Tensor,        # [C, h, w, c]
-    text_pair: torch.Tensor,       # [C, 2, 77, D]
-    text_ref: torch.Tensor,        # [1, 77, D]
+    text_pair,                     # [C, 2, ...]
+    text_ref,                      # [1, ...]
     states: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
@@ -413,7 +425,7 @@ def _shared_ref_scan(
     k = refs.shape[0]
     cases = init_lat.shape[0]
     ts = schedule.timesteps[start_step : start_step + k]
-    text = _flat(text_pair)
+    text = Cond.of(text_pair).reshape(-1)
     cfg_mask = completion_cfg[:, :, :, None]
     var_mask = local_var if local_perturbation else torch.ones_like(local_var)
     lat = init_lat
@@ -453,7 +465,7 @@ def sample_guided_loop(
     schedule: DDIMSchedule,
     ecfg: EditConfig,
     traj: torch.Tensor,            # [K+1, 2, h, w, c] inversion trajectory
-    text_emb: torch.Tensor,        # [3, 77, D] [u, u_ref, edit]
+    text_emb,                      # [3, ...] [u, u_ref, edit]
     state: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
@@ -483,7 +495,8 @@ def sample_guided_loop(
     mask_cur, mask_other, mask_no = energy_masks
     target_hw = tuple(mask_cur.shape)
     k = traj.shape[0] - 1
-    nstr = text_emb.shape[0]
+    text = Cond.of(text_emb)
+    nstr = text.lead[0]
     ts = schedule.timesteps[start_step : start_step + k]
     refs = torch.flip(traj[:k], dims=[0])[:, 1:]
     lat = traj[-1].clone()
@@ -494,12 +507,12 @@ def sample_guided_loop(
         state.context_guidance = float(cg[i])
         state.share_gate = float(gates[i])
         with torch.no_grad():
-            eps = unet_apply(_cfg_model_in(lat, nstr), t, text_emb, ecfg, state)
+            eps = unet_apply(_cfg_model_in(lat, nstr), t, text, ecfg, state)
         nu, nc = _cfg_split(eps, nstr)
         pred = nu + guidance_scale * (nc - nu) * cfg_mask
         if i < energy_until:
             g = energy_guidance(
-                unet_apply, lat[:1], refs[i], t, text_emb[2:3], energy_scale=energy_scale,
+                unet_apply, lat[:1], refs[i], t, text[2:3], energy_scale=energy_scale,
                 guidance_mask=local_var, feature_indices=feature_indices, target_hw=target_hw,
                 inv_warp=None, mask_cur=mask_cur, mask_other=mask_other,
                 mask_non_overlap=mask_no,
@@ -529,10 +542,11 @@ def _guided_energy_masks(cfg: PipelineConfig, em: mask_ops.EditMasks):
 class FreeFine:
     """Training-free geometric image editing, UNet backbone.
 
-    params: {"unet", "vae", "text"} state dicts.  Without them the
-    constructor raises, as JAX's does, unless `init_random=True` asks for
-    random weights (`weights.random_weights`, seeded by `seed`) for
-    weight-free runs (tests, throughput)."""
+    params: {"unet", "vae", "text"} state dicts (the `components()`).
+    Without them the constructor raises, as JAX's does, unless
+    `init_random=True` asks for random weights (`weights.random_weights`,
+    seeded by `seed`, drawn on the pipeline's device) for weight-free runs
+    (tests, throughput)."""
 
     def __init__(
         self,
@@ -550,9 +564,7 @@ class FreeFine:
                              "weight-free runs.")
         cfg = self.config
         with torch.device(self.device):
-            self.unet = UNet2DCondition(cfg.unet).eval()
-            self.vae = AutoencoderKL(cfg.vae).eval()
-            self.text_encoder = CLIPTextEncoder(cfg.text).eval()
+            self._build_modules()
         for i, (name, mod) in enumerate(self.components().items()):
             if params is not None:
                 mod.load_state_dict(params[name])
@@ -569,6 +581,12 @@ class FreeFine:
         total, _ = cfg.unet.attn_layer_layout
         self._layer_range = (round(lo / hi * total), total)
 
+    def _build_modules(self) -> None:
+        cfg = self.config
+        self.unet = UNet2DCondition(cfg.unet).eval()
+        self.vae = AutoencoderKL(cfg.vae).eval()
+        self.text_encoder = CLIPTextEncoder(cfg.text).eval()
+
     def components(self) -> dict:
         return {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
 
@@ -584,14 +602,17 @@ class FreeFine:
 
     def unet_apply(self, lat, t, ctx, ecfg: Optional[EditConfig] = None,
                    state: Optional[EditState] = None, return_features: bool = False,
-                   ctx_extra: Optional[torch.Tensor] = None):
+                   ctx_extra=None):
         """NHWC latents -> NHWC noise prediction (model dtype); with
         return_features, (eps, features) with NHWC features (the plain
-        UNet's taps that energy guidance reads).  ctx_extra: the compose
-        region prompts [P, 77, D]."""
+        UNet's taps that energy guidance reads).  ctx: the conditioning
+        (`Cond`, or a context [B, 77, D]); ctx_extra: the compose region
+        prompts [P, 77, D] (of a `Cond`, its context alone)."""
         kw = {} if ecfg is None else dict(edit_cfg=ecfg, edit_state=state)
-        out = self.unet(lat.permute(0, 3, 1, 2), t, ctx, return_features=return_features,
-                        context_extra=ctx_extra, **kw)
+        cond = Cond.of(ctx)
+        extra = None if ctx_extra is None else Cond.of(ctx_extra).ctx
+        out = self.unet(lat.permute(0, 3, 1, 2), t, cond.ctx, return_features=return_features,
+                        context_extra=extra, added_cond=cond.added, **kw)
         if return_features:
             eps, feats = out
             return eps.permute(0, 2, 3, 1), [f.permute(0, 2, 3, 1) for f in feats]
@@ -599,7 +620,7 @@ class FreeFine:
 
     def make_unet_capture(self, ecfg: EditConfig) -> Callable:
         """The shared-reference capture pass for `ecfg`'s TCA layers: a
-        function (lat [1, h, w, c], t, ctx [1, 77, D]) -> {block_index:
+        function (lat [1, h, w, c], t, ctx [1, ...]) -> {block_index:
         (k [S, E], v [S, E])}, one vanilla UNet pass (`store_kv`) returning
         the K/V of each self-attention TCA would modulate (JAX's
         `_extract_ref_kv` of a sown pass).  The whole UNet runs; its output
@@ -635,9 +656,15 @@ class FreeFine:
 
     @torch.no_grad()
     def encode_text(self, texts: Sequence[str]) -> torch.Tensor:
+        """The UNet's cross-attention context [B, 77, D] of each text."""
         ids = torch.as_tensor(self.tokenizer.batch_encode(list(texts)), dtype=torch.long,
                               device=self.device)
         return self.text_encoder(ids)
+
+    def _batch_text_embeddings(self, texts: Sequence[str]) -> Cond:
+        """The conditioning [B, ...] of each text: the one hook a backbone
+        with more conditioning than a context overrides (SDXL)."""
+        return Cond(self.encode_text(texts))
 
     @torch.no_grad()
     def image_to_latent(self, image: np.ndarray) -> torch.Tensor:
@@ -654,34 +681,34 @@ class FreeFine:
         return to_uint8(self.vae.decode(latents)).cpu().numpy()
 
     def invert(self, latents: torch.Tensor, num_step: int, start_step: int,
-               uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
+               uncond=None) -> torch.Tensor:
         """DDIM-invert for (num_step - start_step) steps; returns the
-        trajectory [K+1, B, h, w, c].  `uncond` [77, D] is the "" context an
-        entry point has already encoded (else it is encoded here)."""
+        trajectory [K+1, B, h, w, c].  `uncond` is the "" conditioning (a
+        `Cond` row, or a context [77, D]) an entry point has already
+        encoded (else it is encoded here)."""
         emb = self._inversion_text_embeddings(latents.shape[0], uncond)
         return ddim_invert_loop(self.unet_apply, self._schedule(num_step), latents, emb,
                                 num_step - start_step)
 
-    def _inversion_text_embeddings(self, batch: int,
-                                   uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Per-stream unconditional context for DDIM inversion."""
+    def _inversion_text_embeddings(self, batch: int, uncond=None) -> Cond:
+        """Per-stream unconditional conditioning for DDIM inversion."""
         if uncond is None:
-            uncond = self.encode_text([""])[0]
-        return uncond.expand(batch, -1, -1)
+            uncond = self._batch_text_embeddings([""])[0]
+        return Cond.of(uncond).expand(batch)
 
-    def _stream_text_embeddings(self, texts: Sequence[str]) -> torch.Tensor:
-        """Per-stream context of the compose loop (the hook the SDXL
-        dual-encoder pipeline overrides in JAX)."""
-        return self.encode_text(texts)
+    def _stream_text_embeddings(self, texts: Sequence[str]) -> Cond:
+        """Per-stream conditioning of the compose loop."""
+        return self._batch_text_embeddings(texts)
 
     def _extra_text_embeddings(self, texts: Sequence[str]) -> torch.Tensor:
-        """Region prompts whose K/V feed compose's local cross-attention."""
+        """Region prompts whose K/V feed compose's local cross-attention
+        (a context alone: no added conditioning)."""
         return self.encode_text(texts)
 
-    def _edit_text_embeddings(self, guidance_text: str) -> torch.Tensor:
+    def _edit_text_embeddings(self, guidance_text: str) -> Cond:
         """[uncond, uncond_ref, cond_edit]: the deduped 3-stream CFG layout."""
-        embs = self.encode_text(["", guidance_text])
-        return torch.stack([embs[0], embs[0], embs[1]])
+        embs = self._batch_text_embeddings(["", guidance_text])
+        return Cond.stack([embs[0], embs[0], embs[1]], 0)
 
     def _prep_image(self, img: np.ndarray) -> np.ndarray:
         """To [H, W, 3] uint8 at the pipeline resolution: an image of
@@ -977,10 +1004,11 @@ class FreeFine:
 
 
 def _invert_cases(unet_plain: Callable, schedule: DDIMSchedule, lats: torch.Tensor,
-                  text: torch.Tensor, num_actual: int) -> torch.Tensor:
+                  text, num_actual: int) -> torch.Tensor:
     """DDIM inversion of every case's streams as one batch: lats, text
     [C, streams, ...] -> trajectories [K+1, C, streams, h, w, c]."""
-    traj = ddim_invert_loop(unet_plain, schedule, _flat(lats), _flat(text), num_actual)
+    traj = ddim_invert_loop(unet_plain, schedule, _flat(lats), Cond.of(text).reshape(-1),
+                            num_actual)
     return traj.reshape(traj.shape[0], *lats.shape)
 
 
@@ -1011,9 +1039,9 @@ def edit_shared_fn(unet_plain: Callable, unet_edit: Callable, unet_capture: Call
 
     def fn(lat_coarse, lat_ref, text_u, text_pair, states, cg, gates, cfg_masks, var_masks,
            noise):
-        cases = lat_coarse.shape[0]
+        text_u = Cond.of(text_u)
         traj_c = ddim_invert_loop(unet_plain, schedule, lat_coarse,
-                                  text_u[None].expand(cases, -1, -1), num_actual)
+                                  text_u.expand(lat_coarse.shape[0]), num_actual)
         traj_r = ddim_invert_loop(unet_plain, schedule, lat_ref[None], text_u[None], num_actual)
         return sample_edit_loop_shared(unet_edit, unet_capture, schedule, ecfg, traj_r[:, 0],
                                        traj_c[-1], text_pair, text_u[None], states, cg, gates,
@@ -1045,6 +1073,7 @@ def bggen_shared_fn(unet_plain: Callable, unet_edit: Callable, unet_capture: Cal
     2 + 1/C instead of 3."""
 
     def fn(lat_ref, text_u, text_pair, states, cg, gates, cfg_masks, var_masks, noise):
+        text_u = Cond.of(text_u)
         traj_r = ddim_invert_loop(unet_plain, schedule, lat_ref[None], text_u[None], num_actual)
         return sample_bggen_loop_shared(unet_edit, unet_capture, schedule, ecfg, traj_r[:, 0],
                                         text_pair, text_u[None], states, cg, gates, cfg_masks,
@@ -1207,8 +1236,9 @@ class BatchedFreeFine:
                 torch.cuda.synchronize(self.pipe.device)
 
     def _uncond_and_conds(self, texts):
-        """One text-encode call for [""] + the per-case prompts."""
-        embs = self.pipe.encode_text([""] + list(texts))
+        """One text-encode call for [""] + the per-case prompts: the ""
+        `Cond` row and the prompts' [C, ...]."""
+        embs = self.pipe._batch_text_embeddings([""] + list(texts))
         return embs[0], embs[1:]
 
     def _noise(self, seed, noise, n: int) -> list:
@@ -1254,9 +1284,9 @@ class BatchedFreeFine:
             lat2 = torch.stack([lats[:n], lats[n:]], dim=1)          # [C, 2, lh, lw, 4]
         with self._stage(timer, "text_encode"):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
-            u = uncond[None].expand(n, -1, -1)
-            text2 = torch.stack([u, u], dim=1)                       # inversion [C, 2, 77, D]
-            text3 = torch.stack([u, u, conds], dim=1)                # deduped CFG [C, 3, 77, D]
+            u = uncond.expand(n)
+            text2 = Cond.stack([u, u], 1)                            # inversion [C, 2, ...]
+            text3 = Cond.stack([u, u, conds], 1)                     # deduped CFG [C, 3, ...]
         with self._stage(timer, "mask_prep"):
             states, cfg_masks, var_masks = edit_mask_states(
                 pipe.config, pipe.device, cases, use_auto_draw, reduce_inp_artifacts)
@@ -1316,7 +1346,7 @@ class BatchedFreeFine:
             lat_coarse, lat_ref = lats[:n], lats[n]
         with self._stage(timer, "text_encode"):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
-            text_pair = torch.stack([uncond[None].expand(n, -1, -1), conds], dim=1)
+            text_pair = Cond.stack([uncond.expand(n), conds], 1)
         with self._stage(timer, "mask_prep"):
             states, cfg_masks, var_masks = edit_mask_states(
                 pipe.config, pipe.device, cases, use_auto_draw, reduce_inp_artifacts)
@@ -1365,9 +1395,9 @@ class BatchedFreeFine:
             lat1 = pipe.image_to_latent(ori)[:, None]                # [C, 1, lh, lw, 4]
         with self._stage(timer, "text_encode"):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
-            u = uncond[None].expand(n, -1, -1)
+            u = uncond.expand(n)
             text1 = u[:, None]
-            text3 = torch.stack([u, u, conds], dim=1)
+            text3 = Cond.stack([u, u, conds], 1)
         with self._stage(timer, "mask_prep"):
             states, lvars = bggen_mask_states(pipe.config, pipe.device, cases)
         method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
@@ -1418,7 +1448,7 @@ class BatchedFreeFine:
             lat_ref = pipe.image_to_latent(ori[None])[0]
         with self._stage(timer, "text_encode"):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
-            text_pair = torch.stack([uncond[None].expand(n, -1, -1), conds], dim=1)
+            text_pair = Cond.stack([uncond.expand(n), conds], 1)
         with self._stage(timer, "mask_prep"):
             states, lvars = bggen_mask_states(pipe.config, pipe.device, cases)
         method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
@@ -1480,13 +1510,13 @@ class BatchedFreeFine:
         with self._stage(timer, "text_encode"):
             uncond, conds = self._uncond_and_conds(
                 [p for c in cases for p in c["guidance_text_list"]])
-            conds = conds.reshape(n, n_prompts, *conds.shape[1:])
-            u = uncond[None, None].expand(n, 1, -1, -1)
+            conds = conds.reshape(n, n_prompts)
+            u = uncond.expand(n, 1)
             # per-stream context [uncond, prompt_1..prompt_N (padded with uncond), uncond]
-            pad = u.expand(n, max(ns - n_prompts, 0), -1, -1)
-            text_emb = torch.cat([u, conds[:, :ns], pad, u], dim=1)  # [C, N+2, 77, D]
-            text_extra = torch.cat([conds, u], dim=1)                # [C, P, 77, D]
-            text_inv = u.expand(n, ns + 1, -1, -1)
+            pad = u.expand(n, max(ns - n_prompts, 0))
+            text_emb = Cond.cat([u, conds[:, :ns], pad, u], 1)       # [C, N+2, ...]
+            text_extra = Cond.cat([conds, u], 1).ctx                 # [C, P, 77, D]
+            text_inv = u.expand(n, ns + 1)
         with self._stage(timer, "mask_prep"):
             def masks(ms):
                 return [torch.as_tensor(m, device=pipe.device) for m in _stack_masks_np(ms, h, w)]

@@ -9,7 +9,9 @@ adds:
     module paths become diffusers keys through the same segment fixes and
     per-model rewrites (the port keeps its own copy of those tables), conv
     kernels HWIO -> OIHW, dense kernels IO -> OI, `scale`/`embedding` ->
-    `weight`;
+    `weight`; SDXL's trees too (the add_embedding names, and the OpenCLIP
+    tower's fused `in_proj` split into q/k/v and its `text_projection`
+    transposed into transformers' names);
   * `random_weights(model, seed)` — the random-weight scheme of the
     throughput bench: norm weights 1, other 1-D leaves 0, matrices
     N(0, 0.02) drawn in float32 from a seeded `torch.Generator` and stored
@@ -19,8 +21,9 @@ adds:
     length, a JSON header of {name: {dtype, shape, data_offsets}} plus an
     optional `__metadata__`, one byte buffer; reads are `torch.frombuffer`
     views of a copy-on-write `np.memmap`, so a file is not copied twice),
-    `load_sd15` (a diffusers checkpoint directory), `load_sd15_single_file`
-    (an LDM single-file checkpoint), `cast_params_for_inference`, and
+    `load_sd15` and `load_sdxl` (a diffusers checkpoint directory),
+    `load_sd15_single_file` (an LDM single-file checkpoint),
+    `cast_params_for_inference`, and
     `save_pipeline` / `load_pipeline_params` (the diffusers layout, written
     by the port's own writer).
 """
@@ -51,7 +54,11 @@ _SEGMENT_FIXES = [
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 
-_UNET_REWRITES = ()
+# the SDXL UNet's added-conditioning MLP (flax add_embedding_1/_2)
+_UNET_REWRITES = (
+    (r"add_embedding\.1$", "add_embedding.linear_1"),
+    (r"add_embedding\.2$", "add_embedding.linear_2"),
+)
 _VAE_KEY_REWRITES = (
     (r"\.mid\.resnets", ".mid_block.resnets"),
     (r"\.mid\.attentions", ".mid_block.attentions"),
@@ -65,6 +72,10 @@ _TEXT_REWRITES = (
     (r"^layers\.", "text_model.encoder.layers."),
     (r"^final_layer_norm", "text_model.final_layer_norm"),
 )
+# OpenCLIP block module -> transformers' CLIPEncoderLayer path
+_OPEN_CLIP_LAYER = {"ln_1": "layer_norm1", "ln_2": "layer_norm2",
+                    "out_proj": "self_attn.out_proj", "mlp_fc": "mlp.fc1",
+                    "mlp_proj": "mlp.fc2"}
 
 
 def _module_to_diffusers(seg: str) -> str:
@@ -110,24 +121,65 @@ def _flax_key(path, rewrites=()) -> str:
     return f"{key}.{_LEAF_MAP[leaf]}" if key else _LEAF_MAP[leaf]
 
 
-def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Flax param tree of numpy arrays (as `freefine_tpu.weights.convert_*`
-    return it, with or without the top-level "params") -> a state dict for
-    `model`, every tensor in the model's own dtype and shape.  Raises on a
-    missing, extra or misshapen key."""
-    rewrites = _rewrites_for(model)
-    want = model.state_dict()
-    out: Dict[str, torch.Tensor] = {}
+def _open_clip_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of an OpenCLIP
+    tower's flax tree, in transformers' `CLIPTextModelWithProjection`
+    names: the fused in_proj split into q, k, v (in that order), dense
+    kernels IO -> OI, `text_projection` [width, proj] transposed into the
+    bias-free Linear's weight."""
+    pre = "text_model."
     for path, leaf in _flatten(tree):
-        key = _flax_key(path, rewrites)
+        mods = [m for m in path[:-1] if m not in ("params", "LayerNorm_0")]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        if name == "positional_embedding":
+            yield f"{pre}embeddings.position_embedding.weight", a, where
+        elif name == "text_projection":
+            yield "text_projection.weight", a.T, where
+        elif mods == ["token_embedding"]:
+            yield f"{pre}embeddings.token_embedding.weight", a, where
+        elif mods == ["ln_final"]:
+            yield f"{pre}final_layer_norm.{_LEAF_MAP[name]}", a, where
+        else:
+            block, sub = mods
+            base = f"{pre}encoder.layers.{block.rsplit('_', 1)[1]}"
+            leaf_name = _LEAF_MAP[name]
+            if sub == "in_proj":
+                for p, part in zip("qkv", np.split(a, 3, axis=-1)):
+                    yield (f"{base}.self_attn.{p}_proj.{leaf_name}",
+                           part.T if name == "kernel" else part, where)
+            else:
+                yield (f"{base}.{_OPEN_CLIP_LAYER[sub]}.{leaf_name}",
+                       a.T if name == "kernel" else a, where)
+
+
+def _flax_items(tree: Mapping, model: nn.Module):
+    """(state-dict key, array in the torch layout, flax path) of each leaf."""
+    from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
+
+    if isinstance(model, OpenCLIPTextHidden):
+        yield from _open_clip_items(tree)
+        return
+    rewrites = _rewrites_for(model)
+    for path, leaf in _flatten(tree):
         a = np.asarray(leaf)
         if path[-1] == "kernel":
             if a.ndim == 4:        # HWIO -> OIHW
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 2:      # IO -> OI
                 a = a.T
+        yield _flax_key(path, rewrites), a, "/".join(path)
+
+
+def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Flax param tree of numpy arrays (as `freefine_tpu.weights.convert_*`
+    return it, with or without the top-level "params") -> a state dict for
+    `model`, every tensor in the model's own dtype and shape.  Raises on a
+    missing, extra or misshapen key."""
+    want = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, a, where in _flax_items(tree, model):
         if key not in want:
-            raise KeyError(f"flax leaf {'/'.join(path)} maps to {key}, not a key of the model")
+            raise KeyError(f"flax leaf {where} maps to {key}, not a key of the model")
         ref = want[key]
         if tuple(a.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch for {key}: flax {a.shape} vs model {tuple(ref.shape)}")
@@ -248,18 +300,20 @@ def read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
 # Folder and weight file of each component in the diffusers layout.
 _DIFFUSERS_FILES = {"unet": ("unet", "diffusion_pytorch_model.safetensors"),
                     "vae": ("vae", "diffusion_pytorch_model.safetensors"),
-                    "text": ("text_encoder", "model.safetensors")}
+                    "text": ("text_encoder", "model.safetensors"),
+                    "text2": ("text_encoder_2", "model.safetensors")}
 
 # Legacy diffusers VAE attention names (1x1-conv projections).
 _VAE_ATTN_ALIASES = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
 
 
 def _templates(pipe) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"unet", "vae", "text"} -> the model's state dict (shapes and dtypes)
-    of a `FreeFine` pipe or, for a `PipelineConfig`, of modules built on the
-    meta device (no weights allocated)."""
+    """{"unet", "vae", "text"[, "text2"]} -> the model's state dict (shapes
+    and dtypes) of a `FreeFine` pipe or, for a `PipelineConfig`, of modules
+    built on the meta device (no weights allocated)."""
     if hasattr(pipe, "components"):
         return {name: mod.state_dict() for name, mod in pipe.components().items()}
+    from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
     from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
     from freefine_tpu_torch.models.unet import UNet2DCondition
     from freefine_tpu_torch.models.vae import AutoencoderKL
@@ -267,7 +321,16 @@ def _templates(pipe) -> Dict[str, Dict[str, torch.Tensor]]:
     with torch.device("meta"):
         mods = {"unet": UNet2DCondition(pipe.unet), "vae": AutoencoderKL(pipe.vae),
                 "text": CLIPTextEncoder(pipe.text)}
+        if pipe.text2 is not None:
+            mods["text2"] = OpenCLIPTextHidden(pipe.text2)
     return {name: mod.state_dict() for name, mod in mods.items()}
+
+
+def _read_diffusers(names, path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The tensors of each named component's folder of a diffusers
+    checkpoint directory."""
+    return {name: read_safetensors_dir(os.path.join(path, _DIFFUSERS_FILES[name][0]))
+            for name in names}
 
 
 def _convert(tensors: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
@@ -301,9 +364,13 @@ def _convert(tensors: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tenso
     return out
 
 
-def _convert_all(pipe, tensors: Mapping[str, Mapping[str, torch.Tensor]], dtype=None,
+def _convert_all(pipe, tensors, dtype=None,
                  strict_dtype: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+    """`pipe`'s components' state dicts from `tensors` (a {name: tensors}
+    mapping, or a diffusers directory to read them from)."""
     want = _templates(pipe)
+    if isinstance(tensors, str):
+        tensors = _read_diffusers(want, tensors)
     return {name: _convert(tensors[name], want[name], dtype, strict_dtype) for name in want}
 
 
@@ -314,9 +381,20 @@ def load_sd15(pipe, checkpoint_dir: str, dtype: Optional[torch.dtype] = None) ->
     `FreeFine(params=...)`.  `pipe` is a `FreeFine` or a `PipelineConfig`
     (its modules give the keys, shapes and dtypes).  Read by the port's own
     reader: the `safetensors` package is not needed."""
-    return _convert_all(pipe, {
-        name: read_safetensors_dir(os.path.join(checkpoint_dir, folder))
-        for name, (folder, _) in _DIFFUSERS_FILES.items()}, dtype)
+    return _convert_all(pipe, checkpoint_dir, dtype)
+
+
+def load_sdxl(pipe, checkpoint_dir: str, dtype: Optional[torch.dtype] = None) -> dict:
+    """A diffusers SDXL-base checkpoint directory
+    (`{unet,vae,text_encoder,text_encoder_2}/*.safetensors`) -> the port's
+    {"unet", "vae", "text", "text2"} state dicts, ready for
+    `SDXLFreeFine(params=...)`.  `pipe` is an `SDXLFreeFine` or an SDXL
+    `PipelineConfig`.  The first tower's last layer and final LayerNorm,
+    which SDXL's penultimate hidden states never reach, are not read."""
+    want = _templates(pipe)
+    if "text2" not in want:
+        raise ValueError("load_sdxl needs an SDXL pipe or config (PipelineConfig.text2)")
+    return _convert_all(pipe, checkpoint_dir, dtype)
 
 
 def cast_params_for_inference(params, dtype: torch.dtype = torch.bfloat16):
@@ -333,8 +411,9 @@ def cast_params_for_inference(params, dtype: torch.dtype = torch.bfloat16):
 def save_pipeline(pipe, path: str) -> int:
     """Write the pipe's weights as a diffusers checkpoint directory
     (`unet/` and `vae/diffusion_pytorch_model.safetensors`,
-    `text_encoder/model.safetensors`), which `load_sd15` and
-    `load_pipeline_params` read back.  Returns the bytes written."""
+    `text_encoder/model.safetensors`, and for SDXL
+    `text_encoder_2/model.safetensors`), which `load_sd15` / `load_sdxl`
+    and `load_pipeline_params` read back.  Returns the bytes written."""
     total = 0
     for name, mod in pipe.components().items():
         folder, fname = _DIFFUSERS_FILES[name]
@@ -347,9 +426,7 @@ def load_pipeline_params(pipe, path: str) -> dict:
     """Read a directory `save_pipeline` wrote, check every tensor's shape
     and dtype against the pipe's modules, and load it into them.  Returns
     the state dicts."""
-    params = _convert_all(pipe, {
-        name: read_safetensors_dir(os.path.join(path, folder))
-        for name, (folder, _) in _DIFFUSERS_FILES.items()}, strict_dtype=True)
+    params = _convert_all(pipe, path, strict_dtype=True)
     for name, mod in pipe.components().items():
         mod.load_state_dict(params[name])
     return params

@@ -1,6 +1,7 @@
 """`bench_torch.py`, the port's throughput benchmark, on the CPU at the
-tiny configuration: each lane prints one JSON line with `bench.py`'s keys
-(and the port's own), and the lanes that are not ported exit non-zero."""
+tiny configuration: each lane (SD-1.5's, and SDXL's with `--sdxl`) prints
+one JSON line with `bench.py`'s keys (and the port's own), and the lanes
+that are not ported exit non-zero."""
 
 import json
 import os
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "lane")
-PORT_KEYS = ("median_s_per_edit", "max_s_per_edit", "peak_memory_gib", "fused_gn", "card")
+PORT_KEYS = ("median_s_per_edit", "max_s_per_edit", "peak_memory_gib", "fused_gn", "card",
+             "backbone")
 
 
 def _bench(*flags):
@@ -25,6 +27,7 @@ def _bench(*flags):
     (("--batch", "2"), "per-case batch 2"),
     (("--batch", "2", "--shared"), "shared-source batch 2"),
     ((), "per-case batch 1"),
+    (("--sdxl",), "per-case batch 1"),
 ])
 def test_tiny_cpu_lanes_print_one_json_line(flags, lane):
     out = _bench("--tiny", "--device", "cpu", "--steps", "2", "--repeats", "1", *flags)
@@ -37,9 +40,10 @@ def test_tiny_cpu_lanes_print_one_json_line(flags, lane):
     assert result["value"] > 0 and abs(result["vs_baseline"] - result["value"] / 20.0) <= 1e-3
     assert result["max_s_per_edit"] >= result["median_s_per_edit"] > 0
     assert result["card"] is None and result["peak_memory_gib"] is None
+    assert result["backbone"] == ("sdxl" if "--sdxl" in flags else "sd15")
 
 
-@pytest.mark.parametrize("flag", ["--sdxl", "--dit", "--mesh", "--sp"])
+@pytest.mark.parametrize("flag", ["--dit", "--mesh", "--sp"])
 def test_unported_lanes_exit_non_zero(flag):
     out = _bench("--tiny", "--device", "cpu", flag, *(["data=1,model=1"] if flag == "--mesh"
                                                       else []))

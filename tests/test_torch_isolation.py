@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of `freefine_tpu_torch` nor its
 scripts (`chip_smoke.py`, `bench_torch.py`, `scripts/tca_graph_times.py`,
-`scripts/gn_plan_sweep.py`) imports `jax`, `flax` or the JAX package, and
-importing the port leaves `jax` out of `sys.modules`.  The card's machine
-has neither `safetensors` nor PIL: no port module imports `safetensors`,
-and PIL is imported only inside `utils.vis.save_intermediate_gif`."""
+`scripts/gn_plan_sweep.py`, `scripts/gn_route_paired.py`,
+`scripts/flash_f32_accuracy.py`) imports `jax`, `flax` or the JAX package,
+and importing the port leaves `jax` out of `sys.modules`.  The card's machine has neither `safetensors` nor PIL: no
+port module imports `safetensors`, and PIL is imported only inside
+`utils.vis.save_intermediate_gif`."""
 
 import ast
 import os
@@ -23,7 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "freefine_tpu")
 def _sources():
     files = sorted((ROOT / "freefine_tpu_torch").rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "bench_torch.py", "scripts/tca_graph_times.py",
-                                 "scripts/gn_plan_sweep.py")]
+                                 "scripts/gn_plan_sweep.py", "scripts/gn_route_paired.py",
+                                 "scripts/flash_f32_accuracy.py")]
     assert len(files) > 10
     return files
 
