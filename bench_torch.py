@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Throughput benchmark of the PyTorch port: edits/min at 512^2, 50-step
-DDIM, on one CUDA card (the port of `bench.py`'s SD-1.5 lanes), and with
-`--sdxl` on the SDXL backbone at 1024^2.
+DDIM, on one CUDA card (the port of `bench.py`'s SD-1.5 lanes), with
+`--sdxl` on the SDXL backbone at 1024^2, and with `--dit` on the DiT
+backbone at 512^2.
 
 The protocol is the reference's 2D GeoBench inference envelope: SD-1.5,
 512^2, num_step 50, start_step 35 (15 inversion UNet passes, 15
@@ -15,6 +16,8 @@ eta 1.0, TCA, end_step 10.  Weights are random (`init_random=True`, seed
     python3 bench_torch.py --tiny --device cpu --steps 2 --repeats 1   # smoke
     python3 bench_torch.py --sdxl              # SDXLFreeFine.generation, 1024^2
     python3 bench_torch.py --tiny --sdxl --device cpu --steps 2 --repeats 1
+    python3 bench_torch.py --dit               # FreeFine.generation on the DiT, 512^2
+    python3 bench_torch.py --tiny --dit --device cpu --steps 2 --repeats 1
 
 Lanes, as in `bench.py`: with no flags, the shared-source lane
 (`BatchedFreeFine.generation_shared_source`) at batch 16: cases share one
@@ -24,6 +27,9 @@ for the whole batch.  An explicit `--batch N` selects the per-case lane
 `FreeFine.generation`.  `--sdxl` runs `SDXLFreeFine` (`sdxl_pipeline_config`,
 1024^2; the tiny SDXL config with `--tiny`) with the same protocol, per
 case at batch 1 unless `--batch` / `--shared` ask for a batched lane.
+`--dit` runs `FreeFine` on `dit_pipeline_config` (the PixArt-XL-2 DiT at
+SD-1.5's VAE and CLIP tower, 512^2; the tiny DiT config with `--tiny`), as
+`bench.py --dit` does, per case at batch 1 by default.
 `--profile` times the stages of the batched lane (`StageTimer`; the
 breakdown goes to stderr).
 
@@ -34,7 +40,7 @@ Prints ONE JSON line with `bench.py`'s keys
   {"metric", "value" (edits/min), "unit", "vs_baseline" (value / 20.0, the
    20 edits/min/chip build target of BASELINE.json, no measurement),
    "lane"}
-and the port's own: the backbone ("sd15" or "sdxl"), the median and the
+and the port's own: the backbone ("sd15", "sdxl" or "dit"), the median and the
 slowest call's seconds per edit, `torch.cuda.max_memory_allocated` in
 GiB, the GroupNorm route that
 `FREEFINE_FUSED_GN` resolves to on the device ("0" or "1"; unset, "auto"
@@ -53,7 +59,7 @@ import time
 
 import numpy as np
 
-NOT_PORTED = {"dit": "the DiT backbone (ROADMAP A11)", "mesh": "mesh serving (ROADMAP A15)",
+NOT_PORTED = {"mesh": "mesh serving (ROADMAP A15)",
               "sp": "sequence-parallel serving (ROADMAP A15)"}
 
 
@@ -87,8 +93,10 @@ def main():
                     help="cuda (default); cpu only for a --tiny smoke run")
     ap.add_argument("--sdxl", action="store_true",
                     help="the SDXL backbone (SDXLFreeFine, 1024^2; per case, batch 1 by default)")
-    for flag in ("dit", "sp"):
-        ap.add_argument(f"--{flag}", action="store_true", help=f"not ported: {NOT_PORTED[flag]}")
+    ap.add_argument("--dit", action="store_true",
+                    help="the DiT backbone (dit_pipeline_config, 512^2; per case, batch 1 by "
+                         "default)")
+    ap.add_argument("--sp", action="store_true", help=f"not ported: {NOT_PORTED['sp']}")
     ap.add_argument("--mesh", type=str, default=None, help=f"not ported: {NOT_PORTED['mesh']}")
     args = ap.parse_args()
 
@@ -97,8 +105,10 @@ def main():
             ap.exit(2, f"bench_torch.py: --{flag} is not ported yet: {what}\n")
     if args.device != "cuda" and not args.tiny:
         ap.error("--device cpu is for the --tiny smoke run only")
+    if args.sdxl and args.dit:
+        ap.error("--sdxl and --dit are two backbones; pick one")
 
-    flagship = not (args.tiny or args.profile or args.sdxl)
+    flagship = not (args.tiny or args.profile or args.sdxl or args.dit)
     batch_defaulted = args.batch is None
     if batch_defaulted:
         args.batch = 16 if (flagship and args.shared is not False) else 1
@@ -123,6 +133,9 @@ def main():
     if args.sdxl:
         cls = SDXLFreeFine
         cfg = C.tiny_sdxl_pipeline_config() if args.tiny else C.sdxl_pipeline_config(dtype=dtype)
+    elif args.dit:
+        cls = FreeFine
+        cfg = C.tiny_dit_pipeline_config() if args.tiny else C.dit_pipeline_config(dtype=dtype)
     else:
         cls = FreeFine
         cfg = C.tiny_pipeline_config() if args.tiny else C.sd15_pipeline_config(dtype=dtype)
@@ -185,7 +198,8 @@ def main():
     epm = 60.0 / statistics.median(per_edit)
 
     metric = ("edits/min (tiny smoke)" if args.tiny else
-              f"edits/min/chip @{h}^2 {num_step}-step" + (" SDXL" if args.sdxl else ""))
+              f"edits/min/chip @{h}^2 {num_step}-step" + (" SDXL" if args.sdxl else "")
+              + (" DiT" if args.dit else ""))
     lane = ("shared-source" if args.shared else "per-case") + f" batch {args.batch}"
     result = {
         "metric": metric,
@@ -193,7 +207,7 @@ def main():
         "unit": "edits/min",
         "vs_baseline": round(epm / 20.0, 3),
         "lane": lane,
-        "backbone": "sdxl" if args.sdxl else "sd15",
+        "backbone": "sdxl" if args.sdxl else "dit" if args.dit else "sd15",
         "median_s_per_edit": statistics.median(per_edit),
         "max_s_per_edit": max(per_edit),
         "s_per_call": secs,

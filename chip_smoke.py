@@ -21,7 +21,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      S 4096 / 10 heads and S 1024 / 20 heads, batch 2 and 3, and the VAE's
      f32 S 16384 / d 512 head at batch 2 and 1; `tca_flash` at both
      resolutions at the SDXL edit's masks; `group_norm_silu` at every
-     SDXL UNet and 1024^2 VAE shape), plus
+     SDXL UNet and 1024^2 VAE shape) and of the PixArt 512^2 edit of phase
+     PX (heads of 72: `flash_sdpa` at S 1024 / 16 heads, batch 2 and 3;
+     `tca_flash` at S 1024 / 8 heads after the parity split, at the
+     PixArt edit's masks), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one CTA's positions, dropped must fail); `group_norm_silu`
@@ -58,7 +61,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `SDXLFreeFine` on the tiny SDXL config the same way (FREEFINE_FUSED_GN
      unset): `generation`, `guided_generation`, `background_generation`,
      `cross_image_composition` and the batched `generation` and
-     `generation_shared_source` at 2 cases;
+     `generation_shared_source` at 2 cases; and `FreeFine` on the tiny DiT
+     and tiny PixArt configs the same way: `generation`,
+     `background_generation`, `cross_image_composition`, the batched
+     `generation` and `generation_shared_source` at 2 cases; on the tiny
+     SD-1.5, DiT and PixArt configs one denoiser forward with IP-Adapter
+     tokens at ip_scale 0.5 (the IP layers' weights equal on both sides);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -117,6 +125,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      counts worked out from the config (1712 `flash_sdpa`, 390
      `tca_flash`, 1432 `group_norm_silu`) and every launch shape among
      phase 2's (path XL of the `kernels` line);
+ PX. the full-width PixArt edit (`phase_pixart`): `FreeFine` at
+     `pixart_pipeline_config()` (512^2, bf16: the PixArt-XL-2 DiT, depth
+     28, 16 heads of 72, and the T5-XXL caption tower, 24 layers of 4096;
+     random weights made on the card); the T5 encode of the edit's
+     prompts timed and checked finite and non-zero; `re_edit_2d`, then
+     `generation` with phase 4's protocol and FREEFINE_FUSED_GN unset; one
+     warm-up and two timed edits, s/edit and peak memory beside the card's
+     line, launches checked against the counts worked out from the config
+     (692 `flash_sdpa`, 150 `tca_flash`, 52 `group_norm_silu`, in the VAE
+     alone) and every launch shape among phase 2's (path PX);
  10. one call of `group_norm_silu` at every path shape under
      torch.profiler: one `gn::` kernel launch per call (after the timed
      edits, which a profiler session could slow; with --profile before
@@ -124,8 +142,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9 and G-XL; path D is one differentiated pass, paths S and B one
-     batched call, path XL one SDXL edit), the nvidia-smi line, and last
+     4 to 9, G-XL and PX; path D is one differentiated pass, paths S and B
+     one batched call, path XL one SDXL edit, path PX one PixArt edit;
+     `group_norm_silu` also has phase 9b's E and D under the default,
+     E_gn_default and D_gn_default), the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 A JSON record of the whole run is written to chiprun_out/chip_smoke.json.
@@ -420,6 +440,11 @@ XL_FLASH_SHAPES = [(b, h, s, 64, "bfloat16", False) for b in (2, 3)
                    for s, h in ((4096, 10), (1024, 20))] + [
     (b, 1, 16384, 512, "float32", False) for b in (2, 1)]
 FLASH_SHAPES += XL_FLASH_SHAPES
+# The full-width PixArt edit (phase PX, `generation`'s protocol at 512^2):
+# the DiT's 16 heads of 72 at S 1024, inversion batch 2 and regeneration
+# batch 3 (the VAE's f32 head is SD-1.5's).
+PX_FLASH_SHAPES = [(b, 16, 1024, 72, "bfloat16", False) for b in (2, 3)]
+FLASH_SHAPES += PX_FLASH_SHAPES
 # check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
 # fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
 # (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
@@ -428,7 +453,7 @@ FLASH_EXTRA = [(2, 8, 1000, 1000, 80, "bfloat16"), (2, 1, 300, 300, 512, "float3
                (3, 2, 77, 77, 16, "float32"), (3, 2, 77, 77, 16, "bfloat16"),
                (1, 2, 5, 5, 24, "bfloat16"), (6, 4, 4096, 8192, 40, "bfloat16"),
                (6, 4, 1024, 2048, 80, "bfloat16"), (6, 4, 256, 512, 160, "bfloat16"),
-               (6, 1, 64, 128, 16, "float32")]
+               (6, 1, 64, 128, 16, "float32"), (2, 4, 1000, 1000, 72, "bfloat16")]
 # TCA after the head-parity split, 4 heads: batch 2*3 streams (single
 # edits), then 2*2*C (the shared lane's [u_e, c_e] per case) and 2*3*C (the
 # per-case lane)
@@ -440,8 +465,13 @@ TCA_SHAPES = TCA_EDIT_SHAPES + [(b, 4, s, d, "bfloat16")
 # S 4096 at 5 heads and S 1024 at 10, held at the SDXL edit's masks ("xl")
 XL_TCA_SHAPES = [(6, 5, 4096, 64, "bfloat16", "xl"), (6, 10, 1024, 64, "bfloat16", "xl")]
 TCA_SHAPES += XL_TCA_SHAPES
+# phase PX's TCA layers: S 1024, 16 heads of 72 regrouped as two blocks of 8
+# by the parity split, at the PixArt edit's masks ("px")
+PX_TCA_SHAPES = [(6, 8, 1024, 72, "bfloat16", "px")]
+TCA_SHAPES += PX_TCA_SHAPES
 TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
-             (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16")]
+             (6, 1, 64, 16, "bfloat16"), (4, 2, 33, 24, "bfloat16"),
+             (6, 2, 1000, 72, "bfloat16")]
 # The differentiated pass of energy guidance: batch 1, every self-attention
 # of the plain UNet (forward with logsumexp; the backward reaches the 10
 # layers upstream of the feature taps: down 6, mid 1, up block 1 3); and of
@@ -612,11 +642,11 @@ def check_flash(gen, shape, timed: bool):
 # `guided_generation` and the differentiated edit pass D the edit layout,
 # `background_generation` the bggen one, the batched lanes their own.
 TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit",
-                   "S": "shared", "B": "cases", "XL": "edit"}
+                   "S": "shared", "B": "cases", "XL": "edit", "PX": "edit"}
 
 
 @functools.lru_cache(maxsize=None)
-def tca_layouts(seq: int, batch: int = 6, device: str = "cuda", xl: bool = False):
+def tca_layouts(seq: int, batch: int = 6, device: str = "cuda", model: str = "sd15"):
     """The fg and tq rows [batch, seq] the SD-1.5 paths pass to `tca_flash`
     (even-head block then odd-head block), built as the entry points build
     their states and `_tca_edit` / `_tca_bggen` their rows.  Batch 2 * 3
@@ -625,17 +655,23 @@ def tca_layouts(seq: int, batch: int = 6, device: str = "cuda", xl: bool = False
     odd one) and "bggen" (fg = 1 - object on the even block, tq = 1
     everywhere).  Batch 2 * 2 * BATCH_SHARED: "shared", the shared lane's
     [u_e, c_e] per case of phase 9's cases; batch 2 * 3 * BATCH_CASES:
-    "cases", the per-case lane's [u_e, r, c_e] per case.  With xl, the
-    "edit" layout of phase G-XL's SDXL 1024^2 case alone."""
+    "cases", the per-case lane's [u_e, r, c_e] per case.  With model "xl"
+    ("px"), the "edit" layout of phase G-XL's SDXL 1024^2 case (phase PX's
+    PixArt 512^2 case) alone."""
     import torch
 
     from freefine_tpu_torch import masks as mask_ops
-    from freefine_tpu_torch.config import sd15_pipeline_config, sdxl_pipeline_config
+    from freefine_tpu_torch.config import (
+        pixart_pipeline_config,
+        sd15_pipeline_config,
+        sdxl_pipeline_config,
+    )
     from freefine_tpu_torch.edit import build_mask_pyramid
     from freefine_tpu_torch.ops.attention import _parity_rows as parity_rows
     from freefine_tpu_torch.pipeline import edit_mask_states
 
-    cfg = sdxl_pipeline_config() if xl else sd15_pipeline_config()
+    cfg = {"sd15": sd15_pipeline_config, "xl": sdxl_pipeline_config,
+           "px": pixart_pipeline_config}[model]()
     h, w, lh, lw = cfg.height, cfg.width, cfg.latent_height, cfg.latent_width
     if batch != 6:
         name, cases, streams = {4 * BATCH_SHARED: ("shared", BATCH_SHARED, 2),
@@ -652,7 +688,7 @@ def tca_layouts(seq: int, batch: int = 6, device: str = "cuda", xl: bool = False
     fg_ref = build_mask_pyramid(em.fg_ref, lh, lw)[seq]
     tgt = (build_mask_pyramid(em.fg_retain, lh, lw)[seq] > 0).float()
     streams = 3
-    if xl:
+    if model != "sd15":
         return {"edit": (parity_rows(fg_ref, streams), parity_rows(tgt, streams))}
     obj = build_mask_pyramid(mask_ops.prepare_mask_bggen(t(mask), h, w, lh, lw)[0], lh, lw)[seq]
     return {"edit": (parity_rows(fg_ref, streams), parity_rows(tgt, streams)),
@@ -717,7 +753,7 @@ def check_tca(gen, shape, timed: bool):
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    b, h, s, d, dtype, *xl = shape
+    b, h, s, d, dtype, *model = shape
     q, ks, vs, km, vm = _inputs(gen, b, h, s, d, dtype, 5)
     cg = 0.7
     rows = 3 * 4.0 * h * s * s
@@ -727,7 +763,7 @@ def check_tca(gen, shape, timed: bool):
 
     layouts = {"parity": _tca_masks(gen, b, s, "parity")}
     if timed:
-        layouts.update(tca_layouts(s, b, gen.device.type, bool(xl)))
+        layouts.update(tca_layouts(s, b, gen.device.type, *model))
     else:
         layouts["blocks"] = _tca_masks(gen, b, s, "blocks")
     row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=True,
@@ -1176,8 +1212,12 @@ def norm_calls(cfg, kind: str) -> list:
     'vae_decode'), in call order, worked out from the config: (channels,
     height, width, groups, eps, silu).  UNet resnets fuse the SiLU (eps
     1e-5), transformer input norms do not (1e-6); every VAE norm is 1e-6
-    without SiLU (the VAE applies it after the cast)."""
+    without SiLU (the VAE applies it after the cast).  The DiT has none."""
+    from freefine_tpu_torch.config import DiTConfig
+
     calls = []
+    if kind == "unet" and isinstance(cfg.unet, DiTConfig):
+        return calls
     if kind == "unet":
         u, res = cfg.unet, [cfg.latent_height, cfg.latent_width]
         g, ch, nb = u.norm_num_groups, u.block_out_channels, len(u.block_out_channels)
@@ -1269,8 +1309,10 @@ GN_PATH_BATCHES = {
 }
 
 
-# Phase G-XL's passes (the SDXL config): generation's, at 1024^2.
+# Phase G-XL's passes (the SDXL config): generation's, at 1024^2; phase PX's
+# (the PixArt config, whose DiT has no GroupNorm): generation's, at 512^2.
 GN_XL_PATH_BATCHES = {"XL": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (1,)}}
+GN_PX_PATH_BATCHES = {"PX": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (1,)}}
 
 
 def gn_shapes(cfg, paths=GN_PATH_BATCHES) -> list:
@@ -1287,11 +1329,17 @@ def gn_shapes(cfg, paths=GN_PATH_BATCHES) -> list:
 
 
 def path_gn_shapes() -> list:
-    """`gn_shapes` of every path: SD-1.5's and phase G-XL's (SDXL)."""
-    from freefine_tpu_torch.config import sd15_pipeline_config, sdxl_pipeline_config
+    """`gn_shapes` of every path: SD-1.5's, phase G-XL's (SDXL) and phase
+    PX's (PixArt)."""
+    from freefine_tpu_torch.config import (
+        pixart_pipeline_config,
+        sd15_pipeline_config,
+        sdxl_pipeline_config,
+    )
 
     return sorted(set(gn_shapes(sd15_pipeline_config()))
-                  | set(gn_shapes(sdxl_pipeline_config(), GN_XL_PATH_BATCHES)))
+                  | set(gn_shapes(sdxl_pipeline_config(), GN_XL_PATH_BATCHES))
+                  | set(gn_shapes(pixart_pipeline_config(), GN_PX_PATH_BATCHES)))
 
 
 # check-only: the eps / SiLU pairings no path runs at full width, float32
@@ -1566,7 +1614,9 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
     `generation` with the fused GroupNorm, phase 5 `guided`, phase 6
     `bggen`, phase 7 `compose`, phase 8 `D`, one differentiated TCA pass,
     phase 9 `S` and `B`, one call of each batched lane with the fused
-    GroupNorm, phase G-XL `XL`, one SDXL edit) the per-edit times weight each
+    GroupNorm, phase G-XL `XL`, one SDXL edit, phase PX `PX`, one PixArt
+    edit; and for `group_norm_silu` phase 9b's E_gn_default and
+    D_gn_default) the per-edit times weight each
     timed shape by the launches counted at that shape in one edit of that path
     (`counts_by_path`: {path: launch shapes of one edit}); the top-level
     launches and times are one edit of each path together. Without the edits
@@ -1620,8 +1670,10 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
                           else "F.scaled_dot_product_attention"),
         f32_route_ms=total("f32_route_ms") if "f32_route_ms" in rows[0] else None,
         per=("one edit of each path (D: one differentiated pass; S and B: one batched call of "
-             f"{BATCH_SHARED} and {BATCH_CASES} edits; XL: one SDXL 1024^2 edit) together; per "
-             "path under `paths`"),
+             f"{BATCH_SHARED} and {BATCH_CASES} edits; XL: one SDXL 1024^2 edit; PX: one PixArt "
+             "512^2 edit; group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
+             "guided edit and differentiated pass under the default) together; per path under "
+             "`paths`"),
         paths=paths, shapes=rows, checks=checks,
     )
 
@@ -1704,26 +1756,39 @@ def fused_gn(mode):
             os.environ["FREEFINE_FUSED_GN"] = prev
 
 
-def phase_tiny(record, xl=False):
+# the tiny configs of phase 3: (config maker in `freefine_tpu_torch.config`,
+# log label); "xl" runs `SDXLFreeFine`, the others `FreeFine`
+TINY_MODELS = {"sd15": ("tiny_pipeline_config", ""), "xl": ("tiny_sdxl_pipeline_config", " SDXL"),
+               "dit": ("tiny_dit_pipeline_config", " DiT"),
+               "pixart": ("tiny_pixart_pipeline_config", " PixArt")}
+
+
+def phase_tiny(record, model="sd15"):
     """The entry points on the tiny config, CUDA against the CPU with the
     same weights and noise: `generation` (fused GroupNorm off and on),
     `guided_generation`, and with the fused GroupNorm
     `background_generation` and `cross_image_composition` of 2 sources.
-    With xl, `SDXLFreeFine` on the tiny SDXL config: the four entry points
-    and the batched `generation` and `generation_shared_source` lanes, with
-    FREEFINE_FUSED_GN unset (the kernel on the card, the two-pass math on
-    the CPU), into record["tiny_xl"]."""
+    With model "xl", `SDXLFreeFine` on the tiny SDXL config: the four entry
+    points and the batched `generation` and `generation_shared_source`
+    lanes; with "dit" and "pixart", `FreeFine` on the tiny DiT and PixArt
+    configs: the three entry points the DiT runs and the same lanes; each
+    with FREEFINE_FUSED_GN unset (the kernel on the card, the two-pass math
+    on the CPU), into record["tiny_<model>"].  On the SD-1.5 and DiT
+    configs, one denoiser forward with IP-Adapter tokens (`tiny_ip`); the
+    tiny PixArt config's denoiser is the tiny DiT's, so its forward would
+    repeat that one."""
     import torch
 
-    from freefine_tpu_torch.config import tiny_pipeline_config, tiny_sdxl_pipeline_config
+    from freefine_tpu_torch import config as C
+    from freefine_tpu_torch import pipeline as P
+    from freefine_tpu_torch import sdxl
     from freefine_tpu_torch.ops.geometry import re_edit_2d
-    from freefine_tpu_torch.pipeline import FreeFine
-    from freefine_tpu_torch.sdxl import SDXLFreeFine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, cls = (tiny_sdxl_pipeline_config(), SDXLFreeFine) if xl else (tiny_pipeline_config(),
-                                                                       FreeFine)
+    make, label = TINY_MODELS[model]
+    cfg = getattr(C, make)()
+    cls = sdxl.SDXLFreeFine if model == "xl" else P.FreeFine
     cpu = cls(cfg, init_random=True, seed=0, device="cpu")
     gpu = cls(cfg, params={n: m.state_dict() for n, m in cpu.components().items()},
               device="cuda")
@@ -1759,14 +1824,14 @@ def phase_tiny(record, xl=False):
             [img, src2], [mask, mask2], [tm_c, mask2], coarse_c, ["a cat", "a dog"],
             dil_factor=5, **edit_kw, **kw)),
     }
-    if xl:
-        runs = {entry: (None, *run[1:]) for entry, run in runs.items()
-                if entry in ("generation", "guided_generation", "background_generation",
-                             "cross_image_composition")}
+    if model != "sd15":  # the DiT has no feature taps for the energy
+        keep = ("generation", "background_generation", "cross_image_composition") + (
+            ("guided_generation",) if model == "xl" else ())
+        runs = {entry: (None, *run[1:]) for entry, run in runs.items() if entry in keep}
     stores = {name: {} for name in ("cpu", "cuda")}
     for name, pipe in (("cpu", cpu), ("cuda", gpu)):
         _capture_latents(pipe, stores[name])
-    out = record["tiny_xl" if xl else "tiny"] = {}
+    out = record["tiny" if model == "sd15" else f"tiny_{model}"] = {}
     for entry, (mode, rows, k, call) in runs.items():
         noise = [rng.standard_normal((rows, cfg.latent_height, cfg.latent_width, 4))
                  .astype(np.float32) for _ in range(k)]
@@ -1780,27 +1845,64 @@ def phase_tiny(record, xl=False):
         out[entry] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
                           image_max_level_diff=img_err, fused_gn=mode or "unset",
                           finite=bool(torch.isfinite(lats["cuda"]).all()))
-        log(f"  tiny{' SDXL' if xl else ''} {entry} CUDA vs CPU: latents max |diff| {err:.3g} "
+        log(f"  tiny{label} {entry} CUDA vs CPU: latents max |diff| {err:.3g} "
             f"(tol {TINY_TOL}), image {img_err} levels")
         if not err <= TINY_TOL or img_err > 1 or not out[entry]["finite"]:
             raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {out[entry]}")
-    tiny_batched(out, cpu, gpu, stores, img, mask, edit_kw, xl)
-    if xl:
+    tiny_batched(out, cpu, gpu, stores, img, mask, edit_kw, model)
+    if model in ("sd15", "dit"):
+        tiny_ip(out, cpu, gpu, label)
+    if model != "sd15":
         return
     for mode in ("0", None):
         with fused_gn(mode):
             tiny_tca_grad(record, cpu, gpu, img, mask, coarse_c, tm_c)
 
 
-def tiny_batched(results, cpu, gpu, stores, img, mask, edit_kw, xl=False):
+def tiny_ip(results, cpu, gpu, label):
+    """One denoiser forward with IP-Adapter tokens at ip_scale 0.5, CUDA
+    against the CPU: `add_ip_adapter` on the CPU pipe, its weights copied
+    to the CUDA pipe's; the image tokens must move the output by far more
+    than the two sides differ.  Into `results["ip_forward"]`."""
+    import torch
+
+    from freefine_tpu_torch.edit import EditConfig
+    from freefine_tpu_torch.models.ip_adapter import add_ip_adapter
+
+    add_ip_adapter(cpu, seed=5)
+    add_ip_adapter(gpu)
+    gpu.unet.load_state_dict(cpu.unet.state_dict())
+    cfg = cpu.config
+    width = cfg.unet.cross_attention_dim
+    rng = np.random.default_rng(11)
+    lat, ctx, tok = (rng.standard_normal(shape).astype(np.float32) for shape in (
+        (2, 4, cfg.latent_height, cfg.latent_width), (2, 77, width), (2, 16, width)))
+    ecfg = EditConfig(mode="none", method=None, local_cfg=False, ip_scale=0.5)
+    outs = {}
+    with torch.no_grad():
+        for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+            x, c, t = (torch.from_numpy(a).to(name) for a in (lat, ctx, tok))
+            outs[name] = pipe.unet(x, 501, c, edit_cfg=ecfg, context_image=t).float().cpu()
+        plain = gpu.unet(x, 501, c).float().cpu()
+    err = float((outs["cpu"] - outs["cuda"]).abs().max())
+    effect = float((outs["cuda"] - plain).abs().max())
+    rec = results["ip_forward"] = dict(max_abs_err=err, tol=TINY_TOL, ip_effect=effect,
+                                       ip_scale=0.5, finite=bool(outs["cuda"].isfinite().all()))
+    log(f"  tiny{label} denoiser forward with IP tokens (ip_scale 0.5) CUDA vs CPU: max |diff| "
+        f"{err:.3g} (tol {TINY_TOL}); the tokens move the output by {effect:.3g}")
+    if not (err <= TINY_TOL and effect > 100 * err and effect > 1e-5 and rec["finite"]):
+        raise AssertionError(f"tiny{label} IP forward: {rec}")
+
+
+def tiny_batched(results, cpu, gpu, stores, img, mask, edit_kw, model="sd15"):
     """Phase 3's batched lanes: `BatchedFreeFine.generation` and
     `generation_shared_source` (2 cases, TCA) and, with the fused
     GroupNorm, `background_generation_shared_source` (2 removal cases), on
     CUDA against the CPU with the same weights and per-case noise; launches
     of the CUDA call against the counts worked out from the config, and the
-    per-case lane at 3 cases launching exactly what it launches at 2.  With
-    xl (SDXL), the two edit lanes, FREEFINE_FUSED_GN unset.  Into
-    `results`."""
+    per-case lane at 3 cases launching exactly what it launches at 2.  On
+    the SDXL, DiT and PixArt configs, the two edit lanes, FREEFINE_FUSED_GN
+    unset.  Into `results`."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
@@ -1828,7 +1930,7 @@ def tiny_batched(results, cpu, gpu, stores, img, mask, edit_kw, xl=False):
             BatchedFreeFine(p).background_generation_shared_source(
                 [removals[i] for i in range(len(c))], **bg_kw, **kw)),
     }
-    if xl:
+    if model != "sd15":
         runs = {entry: (None, *run[1:]) for entry, run in runs.items()
                 if entry != "batched_background_generation_shared_source"}
     rng = np.random.default_rng(3)
@@ -1856,9 +1958,8 @@ def tiny_batched(results, cpu, gpu, stores, img, mask, edit_kw, xl=False):
             latent_max_abs_err=err, latent_tol=TINY_TOL, image_max_level_diff=img_err,
             fused_gn=mode, cases=2, finite=bool(torch.isfinite(lats["cuda"]).all()),
             launches=launched[2], launches_at_3_cases=launched.get(3))
-        log(f"  tiny{' SDXL' if xl else ''} {entry} (2 cases) CUDA vs CPU: latents max |diff| "
-            f"{err:.3g} "
-            f"(tol {TINY_TOL}), images {img_err} levels; launches by cases "
+        log(f"  tiny{TINY_MODELS[model][1]} {entry} (2 cases) CUDA vs CPU: latents max |diff| "
+            f"{err:.3g} (tol {TINY_TOL}), images {img_err} levels; launches by cases "
             f"{ {n: {k: v for k, v in c.items() if v} for n, c in launched.items()} }")
         if not err <= TINY_TOL or img_err > 1 or not rec["finite"]:
             raise AssertionError(f"tiny {entry}: CUDA and CPU disagree: {rec}")
@@ -2003,14 +2104,15 @@ def profile_edit(run, out_name):
     gn_ms = sum(us for name, us, _ in rows if any(p in name for p in GN_KERNEL_NAMES)) / 1e3
     transposes_ms = sum(us for name, us, _ in rows
                         if "nchwToNhwc" in name or "nhwcToNchw" in name) / 1e3
+    copies_ms = sum(us for name, us, _ in rows if "copy" in name.lower()) / 1e3
     log(f"  profiled edit: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"(idle share {1 - busy / wall:.3f}); named GroupNorm kernels {gn_ms:.2f} ms, "
-        f"cuDNN layout transposes {transposes_ms:.2f} ms")
+        f"cuDNN layout transposes {transposes_ms:.2f} ms, copy kernels {copies_ms:.2f} ms")
     for r in top[:12]:
         log(f"    {r['ms']:10.2f} ms {r['count']:6d}  {r['name']}")
     return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall, top=top,
                 group_norm_kernels_ms=gn_ms, group_norm_kernel_names=GN_KERNEL_NAMES,
-                layout_transposes_ms=transposes_ms)
+                layout_transposes_ms=transposes_ms, copies_ms=copies_ms)
 
 
 def _launch_counts():
@@ -2111,19 +2213,22 @@ def _expected(cfg, pipe, k_inv, k_edit, energy_steps=0, feature_indices=(1, 2), 
     composition, the self-attention and the per-source masked attention;
     per energy step the no-grad reference-feature pass (`flash_sdpa`), the
     differentiated pass (forward with logsumexp) and two gradient pulls
-    through the layers upstream of the deepest feature tap used; one VAE
-    attention per encode and decode call.  With the fused GroupNorm, every
-    GroupNorm of every UNet pass and VAE call (`norm_calls`)."""
+    through the layers upstream of the deepest feature tap used (UNet
+    only); one VAE attention per encode and decode call.  With the fused
+    GroupNorm, every GroupNorm of every UNet pass and VAE call
+    (`norm_calls`; a DiT pass has none).  A DiT's layers are its blocks."""
     u = cfg.unet
-    nb = len(u.block_out_channels)
     n_layers, _ = u.attn_layer_layout
     lo, hi = pipe._layer_range
     gated = hi - lo
-    down = sum(u.transformer_depth[i] * u.layers_per_block for i in range(nb)
-               if u.down_block_has_attn[i])
-    up = sum(u.transformer_depth[nb - 1 - i] * (u.layers_per_block + 1)
-             for i in range(max(feature_indices)) if u.up_block_has_attn[i])
-    upstream = down + u.transformer_depth[nb - 1] + up
+    upstream = 0
+    if energy_steps:
+        nb = len(u.block_out_channels)
+        down = sum(u.transformer_depth[i] * u.layers_per_block for i in range(nb)
+                   if u.down_block_has_attn[i])
+        up = sum(u.transformer_depth[nb - 1 - i] * (u.layers_per_block + 1)
+                 for i in range(max(feature_indices)) if u.up_block_has_attn[i])
+        upstream = down + u.transformer_depth[nb - 1] + up
     compose = mode == "compose"
     unet_passes = k_inv + k_edit + 2 * energy_steps
     return {**{name: 0 for name in TCA_GRAD_KERNELS},
@@ -2758,7 +2863,7 @@ def phase_rest(record, pipe, case, store):
     rec["gn_default"] = dict(mode=mode, route_on_cuda=route, seconds=secs, launches=expect)
     log(f"  FREEFINE_FUSED_GN unset: mode {mode!r}, route {route!r} on the card, G edit "
         f"{secs:.3f} s, group_norm_silu launches {expect['group_norm_silu']}")
-    gn_default_e_d(record, pipe, case, store)
+    return gn_default_e_d(record, pipe, case, store)
 
 
 def _gn_shapes_checked(key, shapes):
@@ -2773,7 +2878,8 @@ def gn_default_e_d(record, pipe, case, store):
     unset): one warm-up and two timed `guided_generation` edits at phase
     5's protocol, and one differentiated TCA pass at phase 8's, each with
     its launches (`group_norm_silu` at every GroupNorm of every UNet pass
-    and VAE call) and GroupNorm shapes checked."""
+    and VAE call) and GroupNorm shapes checked.  Returns {"E": ..., "D":
+    ...}: each one's `group_norm_silu` launches by call shape."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
@@ -2791,9 +2897,9 @@ def gn_default_e_d(record, pipe, case, store):
     expect = _expected(cfg, pipe, k, k, energy_steps, fused=True)
     key = "sd15_guided_gn_default"
     with fused_gn(None):
-        shapes = timed_edits(record, key, lambda: pipe.guided_generation(
+        shapes_e = timed_edits(record, key, lambda: pipe.guided_generation(
             img, mask, coarse, tm, "a photo of a cat", **kw), expect, 2, store, (h, w))
-    _gn_shapes_checked(key, shapes)
+    _gn_shapes_checked(key, shapes_e)
     record[key]["protocol"] = record["sd15_guided"]["protocol"] + ", FREEFINE_FUSED_GN unset"
 
     inputs = tca_pass_inputs(pipe, case, "edit", 35)
@@ -2822,6 +2928,8 @@ def gn_default_e_d(record, pipe, case, store):
                                                              "FREEFINE_FUSED_GN unset"))
     log(f"  FREEFINE_FUSED_GN unset: TCA grad pass {secs:.3f} s, launches {expect} "
         f"[{record['card']}]")
+    gn = {key: n for key, n in shapes_e.items() if key[0] == "group_norm_silu"}
+    return {"E": gn, "D": {key: n for key, n in shapes.items() if key[0] == "group_norm_silu"}}
 
 
 def phase_sdxl(record, timed_runs, profile):
@@ -2879,10 +2987,88 @@ def phase_sdxl(record, timed_runs, profile):
     return shapes
 
 
+def phase_pixart(record, timed_runs, profile):
+    """Phase PX: the full-width PixArt edit.  `FreeFine` at
+    `pixart_pipeline_config()` (512^2, bf16: the PixArt-XL-2 DiT and the
+    T5-XXL caption tower; random weights from seed 0 made on the card).
+    The T5 encode of the edit's two prompts ("" and the guidance text) is
+    timed (one warm-up, then `timed_runs` calls) and must be finite, of
+    shape [2, 120, 4096] and not all zeros.  Then `re_edit_2d` on a 512^2
+    case and `generation` with phase 4's protocol (50 DDIM steps, start
+    35, guidance 7.5, eta 1.0, TCA) and FREEFINE_FUSED_GN unset: one
+    warm-up and `timed_runs` timed edits, each with its launches checked
+    against the counts worked out from the config (`_expected`: the DiT's
+    28 self-attentions a pass, 10 of them TCA in the regeneration, and the
+    VAE's); s/edit and peak memory beside the card's line; with `profile`,
+    one more edit under torch.profiler.  Returns the launches of one edit
+    by call shape (each must be a shape phase 2 held)."""
+    import torch
+
+    from freefine_tpu_torch.config import pixart_pipeline_config
+    from freefine_tpu_torch.pipeline import FreeFine
+
+    cfg = pixart_pipeline_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = FreeFine(cfg, init_random=True, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.max_memory_allocated()
+    prompts = ["", "a photo of a cat"]
+    emb = pipe.encode_text(prompts)
+    secs = []
+    for _ in range(timed_runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = pipe.encode_text(prompts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    t5 = dict(seconds=secs, shape=list(emb.shape), finite=bool(torch.isfinite(emb).all()),
+              mean_abs=float(emb.abs().mean()), std=float(emb.std()))
+    log(f"  PixArt pipe built on the card in {setup_s:.1f} s ({weights_bytes / 2**30:.2f} GiB "
+        f"peak); T5-XXL encode of 2 prompts {secs} s, output {t5['shape']} mean |x| "
+        f"{t5['mean_abs']:.3g}, std {t5['std']:.3g} [{record['card']}]")
+    if t5["shape"] != [2, cfg.text.max_length, cfg.text.d_model] or not t5["finite"] or \
+            not t5["mean_abs"] > 0:
+        raise AssertionError(f"PixArt T5 encode: {t5}")
+    store = {}
+    _capture_latents(pipe, store)
+    img, mask, coarse, tm = edit_case(cfg)
+    h, w = cfg.height, cfg.width
+    num_step, start_step = 50, 35
+    k = num_step - start_step
+    kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
+              end_step=10, method_type="tca", use_auto_draw=True,
+              cons_area=np.zeros((h, w), np.uint8), reduce_inp_artifacts=True, seed=42)
+    expect = _expected(cfg, pipe, k, k, fused=True)
+    log(f"  layer range {pipe._layer_range}; expected launches per edit {expect}")
+
+    def run():
+        return pipe.generation(img, mask, coarse, tm, "a photo of a cat", **kw)
+
+    with fused_gn(None):
+        shapes = timed_edits(record, "pixart", run, expect, timed_runs, store, (h, w))
+        if profile:
+            record["pixart_profile"] = profile_edit(run, "profile_pixart.txt")
+    _gn_shapes_checked("pixart", shapes)
+    record["pixart"].update(
+        setup_s=setup_s, setup_peak_memory_bytes=weights_bytes, layer_range=pipe._layer_range,
+        t5_encode=t5,
+        parameters={name: sum(p.numel() for p in mod.parameters())
+                    for name, mod in pipe.components().items()},
+        protocol=("PixArt-XL-2 + T5-XXL 512^2 (pixart_pipeline_config), 50-step DDIM, start 35, "
+                  "guidance 7.5, eta 1.0, TCA, bf16 random weights, batch 1, "
+                  "FREEFINE_FUSED_GN unset"))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b and G-XL (kernel and tiny checks only)")
+                    help="skip phases 4 to 9b, G-XL and PX (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
@@ -2920,7 +3106,8 @@ def main():
     checked = phase_kernels(record)
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
-    phase_tiny(record, xl=True)
+    for model in ("xl", "dit", "pixart"):
+        phase_tiny(record, model)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -2948,16 +3135,22 @@ def main():
                                                  args.profile)
         log("phase 9b: SD-1.5 512^2 checkpoint round trip, off-size input, intermediates, "
             "attention probe, GroupNorm default")
-        phase_rest(record, pipe, case, store)
+        gn_default = phase_rest(record, pipe, case, store)
         del pipe, case, store
         gc.collect()
         torch.cuda.empty_cache()
         log("phase G-XL: SDXL 1024^2 edit (SDXLFreeFine.generation)")
         counts["XL"] = phase_sdxl(record, args.timed_runs, args.profile)
+        log("phase PX: PixArt 512^2 edit (FreeFine.generation on the DiT, T5-XXL captions)")
+        counts["PX"] = phase_pixart(record, args.timed_runs, args.profile)
     if not args.profile:
         log("phase 10: group_norm_silu launches per call at every path shape (profiled last)")
         gn_launches_per_call(checked["group_norm_silu"][0])
-    kernels = [summarize(name, source, replaces, *checked[name], counts)
+    # the GroupNorm kernel also over phase 9b's E and D under the default
+    gn_counts = None if counts is None else {
+        **counts, **{f"{path}_gn_default": sh for path, sh in gn_default.items()}}
+    kernels = [summarize(name, source, replaces, *checked[name],
+                         gn_counts if name == "group_norm_silu" else counts)
                for name, _, _, _, source, replaces in KERNELS]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t0

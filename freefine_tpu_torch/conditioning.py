@@ -1,8 +1,9 @@
-"""The UNet's text conditioning, as the loops carry it.
+"""The denoiser's text conditioning, as the loops carry it.
 
-SD-1.5 conditions the UNet on a context [..., 77, D].  SDXL adds a vector
-[..., A] (the second tower's pooled projection ++ the time ids) with the
-same leading axes, which the UNet folds into its timestep embedding.
+SD-1.5 conditions the UNet on a context [..., L, D] (L tokens: 77 for
+CLIP, 120 for PixArt's T5).  SDXL adds a vector [..., A] (the second
+tower's pooled projection ++ the time ids) with the same leading axes,
+which the UNet folds into its timestep embedding.
 `Cond` holds both (`added` is None for SD-1.5).  The loops stack, index,
 flatten and broadcast it over its leading axes, as the JAX package moves
 its (context, added_cond) pytrees with `tree_map`; `FreeFine.unet_apply`
@@ -20,7 +21,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Cond:
-    ctx: torch.Tensor                      # [..., 77, D]
+    ctx: torch.Tensor                      # [..., L, D]
     added: Optional[torch.Tensor] = None   # [..., A], the same leading axes
 
     @staticmethod

@@ -3,7 +3,8 @@
 Same fields and defaults as `freefine_tpu.config` (SD-1.5 in bfloat16),
 with `torch.dtype` in place of the jnp dtypes.  The configurations the port
 runs are carried: SD-1.5, SDXL-base (dual text towers, added
-conditioning), SD-2.1, and their miniature test configs.
+conditioning), SD-2.1, the PixArt-α DiT backbone (with the T5 caption
+tower, or SD-1.5's CLIP tower), and their miniature test configs.
 """
 
 from __future__ import annotations
@@ -130,11 +131,39 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """PixArt-α-class latent diffusion transformer (`models/dit.py`);
+    defaults are the PixArt-XL-2 geometry (hidden 1152, depth 28, 16 heads
+    of 72, patch 2 on the 64^2 latent grid: 1024 tokens)."""
+
+    sample_size: int = 64
+    patch_size: int = 2
+    in_channels: int = 4
+    out_channels: int = 4
+    hidden_size: int = 1152
+    depth: int = 28
+    num_heads: int = 16
+    cross_attention_dim: int = 768
+    # PixArt checkpoints predict [eps; sigma] (out 2*C); the forward returns
+    # the eps half, as the diffusers PixArt pipeline chunks it
+    learn_sigma: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def attn_layer_layout(self) -> Tuple[int, int]:
+        """(total, up_start): one self-attention per block, and every block
+        reports place "up", so the TCA window is a fraction of the depth."""
+        return self.depth, 0
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Top-level pipeline configuration."""
 
+    # the denoiser: a UNetConfig, or a DiTConfig (the DiT backbone)
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    # the text tower: a CLIPTextConfig, or a `models.t5.T5Config` (PixArt)
     text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     height: int = 512
@@ -269,3 +298,71 @@ def sd21_pipeline_config(height: int = 768, width: int = 768,
         width=width,
     )
 
+
+
+def _square_only(height: int, width: int) -> None:
+    if height != width:
+        raise ValueError(
+            "the DiT backbone is square-only (DiTConfig carries one sample_size and a "
+            f"square sincos position table); got {height}x{width}"
+        )
+
+
+def pixart_xl2_dit_config(sample_size: int = 64,
+                          dtype: Optional[torch.dtype] = None) -> DiTConfig:
+    """The published PixArt-XL-2 transformer geometry
+    (PixArt-alpha/PixArt-XL-2-512x512): depth 28, hidden 1152, 16 heads of
+    72, patch 2, T5-XXL 4096-d captions, learned sigma (key manifest
+    tests/fixtures/pixart_xl2_keys.txt)."""
+    return DiTConfig(sample_size=sample_size, cross_attention_dim=4096, learn_sigma=True,
+                     dtype=dtype or torch.bfloat16)
+
+
+def pixart_pipeline_config(height: int = 512, width: int = 512,
+                           dtype: Optional[torch.dtype] = None) -> PipelineConfig:
+    """The PixArt-α-512 editing pipeline: the PixArt-XL-2 transformer, the
+    SD VAE and the T5 v1.1 XXL caption tower (`weights.load_pixart` reads
+    a diffusers PixArt directory)."""
+    from freefine_tpu_torch.models.t5 import T5Config
+
+    _square_only(height, width)
+    dtype = dtype or torch.bfloat16
+    return PipelineConfig(unet=pixart_xl2_dit_config(sample_size=height // 8, dtype=dtype),
+                          vae=VAEConfig(dtype=dtype), text=T5Config(dtype=dtype),
+                          height=height, width=width)
+
+
+def tiny_dit_config() -> DiTConfig:
+    """Miniature DiT for CPU tests: patch 1 on the tiny 8^2 latent grid
+    keeps the token count at 64, the tiny mask pyramid's top level."""
+    return DiTConfig(sample_size=8, patch_size=1, hidden_size=32, depth=4, num_heads=2,
+                     cross_attention_dim=32, dtype=torch.float32)
+
+
+def dit_pipeline_config(height: int = 512, width: int = 512,
+                        dtype: Optional[torch.dtype] = None) -> PipelineConfig:
+    """SD-1.5's VAE and CLIP tower with the DiT backbone (PixArt-XL's
+    geometry at the CLIP 768-d context)."""
+    _square_only(height, width)
+    dtype = dtype or torch.bfloat16
+    return PipelineConfig(unet=DiTConfig(sample_size=height // 8, dtype=dtype),
+                          vae=VAEConfig(dtype=dtype), text=CLIPTextConfig(dtype=dtype),
+                          height=height, width=width)
+
+
+def tiny_dit_pipeline_config(height: int = 64, width: int = 64) -> PipelineConfig:
+    """`tiny_pipeline_config` with the tiny DiT backbone."""
+    return dataclasses.replace(tiny_pipeline_config(height, width), unet=tiny_dit_config())
+
+
+def tiny_pixart_pipeline_config(height: int = 64, width: int = 64) -> PipelineConfig:
+    """The PixArt layout at unit-test scale: the tiny DiT with learned
+    sigma and the tiny T5 caption tower."""
+    from freefine_tpu_torch.models.t5 import tiny_t5_config
+
+    t5 = tiny_t5_config()
+    return dataclasses.replace(
+        tiny_pipeline_config(height, width),
+        unet=dataclasses.replace(tiny_dit_config(), learn_sigma=True,
+                                 cross_attention_dim=t5.d_model),
+        text=t5)

@@ -58,6 +58,10 @@ class EditConfig:
     sow_token_attn : every cross-attention adds its maps of the tokens
                     `EditState.token_select` selects [B*H, Sq, T] to
                     `EditState.intermediates`.
+    ip_scale      : IP-Adapter image-prompt strength: > 0 makes every
+                    cross-attention add ip_scale * attention over the
+                    `context_image` tokens through its to_k_ip / to_v_ip
+                    (`models.ip_adapter.add_ip_adapter` attaches them).
     """
 
     mode: str = "none"
@@ -71,6 +75,7 @@ class EditConfig:
     store_kv: bool = False
     store_attention: bool = False
     sow_token_attn: bool = False
+    ip_scale: float = 0.0
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -113,7 +118,7 @@ class EditState:
     ref_kv       : shared-reference layout, {block_index: (k [S, E],
                    v [S, E])}: the reference stream's self-attention K/V at
                    each TCA-gated layer (the capture pass writes it).
-    token_select : [T, 77] one-hot rows (zero rows padding) selecting the
+    token_select : [T, L] one-hot rows (zero rows padding) selecting the
                    tokens whose cross-attention maps `sow_token_attn` keeps.
     intermediates : where the instruments write, the port's form of flax's
                    "intermediates" collection: {(module path..., name):

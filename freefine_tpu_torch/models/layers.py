@@ -79,7 +79,23 @@ class LayerNorm32(nn.Module):
         return y.to(x.dtype)
 
 
-NORM_TYPES = (GroupNorm32, LayerNorm32)
+class RMSNorm(nn.Module):
+    """T5's scale-only norm in float32 (weight float32), output in the
+    input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = (x32 * x32).mean(-1, keepdim=True)
+        return (self.weight * x32 / torch.sqrt(var + self.eps)).to(x.dtype)
+
+
+# the norms whose weight `weights.random_weights` fills with 1
+NORM_TYPES = (GroupNorm32, LayerNorm32, RMSNorm)
 
 
 class TimestepEmbedding(nn.Module):
@@ -183,30 +199,48 @@ class FeedForward(nn.Module):
 
 
 class EditAttention(nn.Module):
-    """One attention layer (to_q/to_k/to_v without bias, to_out.0) with the
-    edit dispatch: self-attention through `edit_self_attention`, text
-    cross-attention through `edit_cross_attention`.  Under
-    `edit_cfg.store_kv` (the shared-reference capture pass, batch 1) each
-    self-attention that TCA would modulate writes its (k, v) [S, E] into
-    `edit_state.ref_kv` under its block index.  Under
-    `edit_cfg.store_attention` / `sow_token_attn` it adds its maps to
-    `edit_state.intermediates` under (`path`..., name); the UNet sets
-    `path` to the layer's module path."""
+    """One attention layer (to_q/to_k/to_v, with bias where `qkv_bias`: the
+    DiT's; to_out.0) with the edit dispatch: self-attention through
+    `edit_self_attention`, text cross-attention through
+    `edit_cross_attention`.  Under `edit_cfg.store_kv` (the
+    shared-reference capture pass, batch 1) each self-attention that TCA
+    would modulate writes its (k, v) [S, E] into `edit_state.ref_kv` under
+    its block index.  Under `edit_cfg.store_attention` / `sow_token_attn`
+    it adds its maps to `edit_state.intermediates` under (`path`..., name);
+    the backbone sets `path` to the layer's module path.  A cross-attention
+    given IP-Adapter layers (`add_ip_layers`) adds, where
+    `edit_cfg.ip_scale > 0`, ip_scale * attention over the image tokens
+    `context_image` through its own to_k_ip / to_v_ip, before to_out."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, is_cross: bool, dtype,
-                 device=None):
+                 device=None, qkv_bias: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.heads, self.is_cross = heads, is_cross
         self.path: tuple = ()
-        self.to_q = nn.Linear(dim, dim, bias=False, **kw)
-        self.to_k = nn.Linear(context_dim, dim, bias=False, **kw)
-        self.to_v = nn.Linear(context_dim, dim, bias=False, **kw)
+        self.to_q = nn.Linear(dim, dim, bias=qkv_bias, **kw)
+        self.to_k = nn.Linear(context_dim, dim, bias=qkv_bias, **kw)
+        self.to_v = nn.Linear(context_dim, dim, bias=qkv_bias, **kw)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim, **kw)])
+        self.to_k_ip = self.to_v_ip = None
+
+    def add_ip_layers(self, image_dim: int) -> None:
+        """IP-Adapter's decoupled K/V projections of the image tokens
+        (bias-free, the layer's dtype and device, weights zero until
+        loaded)."""
+        if not self.is_cross:
+            raise ValueError("IP-Adapter layers belong to a cross-attention")
+        w = self.to_q.weight
+        dim = w.shape[0]
+        self.to_k_ip = nn.Linear(image_dim, dim, bias=False, dtype=w.dtype, device=w.device)
+        self.to_v_ip = nn.Linear(image_dim, dim, bias=False, dtype=w.dtype, device=w.device)
+        nn.init.zeros_(self.to_k_ip.weight)
+        nn.init.zeros_(self.to_v_ip.weight)
 
     def forward(self, x, context=None, *, edit_cfg: EditConfig,
                 edit_state: Optional[EditState], block_index: int, place: str,
-                context_extra: Optional[torch.Tensor] = None):
+                context_extra: Optional[torch.Tensor] = None,
+                context_image: Optional[torch.Tensor] = None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if (edit_cfg.store_kv and not self.is_cross and place in TCA_SCOPE
@@ -221,10 +255,17 @@ class EditAttention(nn.Module):
                 attn_ops.token_attention_maps(q, k, self.heads, edit_state.token_select))
         if self.is_cross:
             k_extra = v_extra = None
-            if context_extra is not None:  # compose region prompts [P, 77, D]
+            if context_extra is not None:  # compose region prompts [P, L, D]
                 k_extra, v_extra = self.to_k(context_extra), self.to_v(context_extra)
             h = attn_ops.edit_cross_attention(q, k, v, self.heads, edit_cfg, edit_state,
                                               k_extra=k_extra, v_extra=v_extra)
+            if edit_cfg.ip_scale > 0:
+                if context_image is None or self.to_k_ip is None:
+                    raise ValueError("ip_scale > 0 needs context_image tokens and the "
+                                     "IP-Adapter layers (models.ip_adapter.add_ip_adapter)")
+                img = context_image.to(q.dtype)
+                h = h + edit_cfg.ip_scale * attn_ops.sdpa(q, self.to_k_ip(img),
+                                                          self.to_v_ip(img), self.heads)
         else:
             h = attn_ops.edit_self_attention(
                 q, k, v, self.heads, edit_cfg, edit_state, block_index, place
@@ -245,11 +286,12 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, dtype, device)
 
     def forward(self, x, context, *, edit_cfg, edit_state, block_index, place,
-                context_extra=None):
+                context_extra=None, context_image=None):
         kw = dict(edit_cfg=edit_cfg, edit_state=edit_state, block_index=block_index,
                   place=place)
         x = x + self.attn1(self.norm1(x), **kw)
-        x = x + self.attn2(self.norm2(x), context, context_extra=context_extra, **kw)
+        x = x + self.attn2(self.norm2(x), context, context_extra=context_extra,
+                           context_image=context_image, **kw)
         return x + self.ff(self.norm3(x))
 
 
@@ -272,7 +314,7 @@ class SpatialTransformer(nn.Module):
         self.proj_out = nn.Linear(ch, ch, **kw) if use_linear else nn.Conv2d(ch, ch, 1, **kw)
 
     def forward(self, x, context, *, edit_cfg, edit_state, block_index, place,
-                context_extra=None):
+                context_extra=None, context_image=None):
         b, c, hh, ww = x.shape
         h = self.norm(x)
         if self.use_linear:
@@ -281,7 +323,8 @@ class SpatialTransformer(nn.Module):
             h = self.proj_in(h).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         for d, blk in enumerate(self.transformer_blocks):
             h = blk(h, context, edit_cfg=edit_cfg, edit_state=edit_state,
-                    block_index=block_index + d, place=place, context_extra=context_extra)
+                    block_index=block_index + d, place=place, context_extra=context_extra,
+                    context_image=context_image)
         if self.use_linear:
             return self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)

@@ -114,12 +114,15 @@ class UNet2DCondition(nn.Module):
         return_features: bool = False,
         context_extra: Optional[torch.Tensor] = None,
         added_cond: Optional[torch.Tensor] = None,
+        context_image: Optional[torch.Tensor] = None,
     ):
-        """sample [B, C, H, W]; timestep int, 0-d or [B]; context [B, 77, D];
-        context_extra optional [P, 77, D] compose region prompts (their K/V
+        """sample [B, C, H, W]; timestep int, 0-d or [B]; context [B, L, D];
+        context_extra optional [P, L, D] compose region prompts (their K/V
         feed the conditional edit stream's cross-attention); added_cond
         [B, addition_embed_dim] the SDXL added conditioning (pooled text ++
-        time ids), required where the config has addition_embed_dim.
+        time ids), required where the config has addition_embed_dim;
+        context_image [B, T, D] IP-Adapter image tokens, read by every
+        cross-attention where `edit_cfg.ip_scale > 0`.
         Returns the noise prediction [B, C_out, H, W] in the model dtype;
         with return_features, (eps, [mid, up_0, .., up_{n-1}]): the mid-block
         output and each up block's output after its upsampler (NCHW), the
@@ -141,7 +144,8 @@ class UNet2DCondition(nn.Module):
             temb = temb + a.linear_2(F.silu(a.linear_1(added_cond.to(dt))))
         nb = len(cfg.block_out_channels)
         attn_index = 0
-        ekw = dict(edit_cfg=edit_cfg, edit_state=edit_state, context_extra=context_extra)
+        ekw = dict(edit_cfg=edit_cfg, edit_state=edit_state, context_extra=context_extra,
+                   context_image=context_image)
 
         h = self.conv_in(sample)
         skips = [h]

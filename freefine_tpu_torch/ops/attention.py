@@ -365,7 +365,7 @@ def edit_cross_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[E
     compose (modulate_local_cross_attn_compose): the unconditional streams
     attend to their own text; the conditional edit stream is the sum over
     regions of tgt_mask_i * attn(q_ce, prompt_i), the region prompts' K/V
-    passed as k_extra / v_extra [P, 77, E]."""
+    passed as k_extra / v_extra [P, L, E]."""
     if cfg.mode == "none" or not cfg.local_cfg or state is None:
         return sdpa(q, k, v, heads)
     b, seq, _ = q.shape

@@ -81,7 +81,7 @@ def move_energy(
     latent: torch.Tensor,           # [1, h, w, 4] current latent
     ref_latent: torch.Tensor,       # [1, h, w, 4] inverted reference latent
     t,
-    text_emb: torch.Tensor,         # [1, 77, D]
+    text_emb: torch.Tensor,         # [1, L, D]
     *,
     feature_indices: Sequence[int] = (1, 2),
     target_hw: Tuple[int, int],

@@ -13,6 +13,10 @@ a `conditioning.Cond` (the context and, for SDXL, the added conditioning
 with the same leading axes); a loop also takes a bare context tensor, and
 `FreeFine.unet_apply` splits the two at the UNet call.
 
+Backbones: the denoiser is the UNet (`UNetConfig`) or the PixArt DiT
+(`DiTConfig`), the text tower CLIP or T5 (PixArt's `T5Config`); the loops
+and entry points are the same for each (`build_modules`).
+
 Noise: every sampling loop draws one standard-normal tensor per step from
 a `torch.Generator` seeded by `seed`, or takes an explicit per-step noise
 sequence (the tests replay JAX's `split` -> `normal` chain through it).
@@ -35,7 +39,7 @@ import torch
 
 from freefine_tpu_torch import masks as mask_ops
 from freefine_tpu_torch.conditioning import Cond
-from freefine_tpu_torch.config import PipelineConfig, sd15_pipeline_config
+from freefine_tpu_torch.config import DiTConfig, PipelineConfig, sd15_pipeline_config
 from freefine_tpu_torch.edit import (
     DEFAULT_LAYER_RANGE,
     EditConfig,
@@ -45,6 +49,8 @@ from freefine_tpu_torch.edit import (
     nearest_resize,
     none_config,
 )
+from freefine_tpu_torch.models.dit import DiT2DCondition
+from freefine_tpu_torch.models.t5 import T5Config, T5Encoder
 from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
 from freefine_tpu_torch.models.tokenizer import load_tokenizer
 from freefine_tpu_torch.models.unet import UNet2DCondition
@@ -274,7 +280,7 @@ def sample_compose_cases(
     ecfg: EditConfig,
     traj: torch.Tensor,            # [K+1, C, N+1, h, w, c] inversion trajectories
     text_emb,                      # [C, N+2, ...] per-stream conditioning
-    text_extra,                    # [C, P, 77, D] region prompts of the cond streams
+    text_extra,                    # [C, P, L, D] region prompts of the cond streams
     state: EditState,
     cg: np.ndarray,
     gates: np.ndarray,
@@ -539,8 +545,19 @@ def _guided_energy_masks(cfg: PipelineConfig, em: mask_ops.EditMasks):
 # ---------------------------------------------------------------------------
 
 
+def build_modules(cfg: PipelineConfig) -> dict:
+    """The denoiser, VAE and text tower of `cfg`, in eval mode, on the
+    current default device: {"unet": the UNet or, for a `DiTConfig`, the
+    DiT, "vae", "text": CLIP or, for a `T5Config`, T5}."""
+    unet = DiT2DCondition(cfg.unet) if isinstance(cfg.unet, DiTConfig) else UNet2DCondition(
+        cfg.unet)
+    text = T5Encoder(cfg.text) if isinstance(cfg.text, T5Config) else CLIPTextEncoder(cfg.text)
+    return {"unet": unet.eval(), "vae": AutoencoderKL(cfg.vae).eval(), "text": text.eval()}
+
+
 class FreeFine:
-    """Training-free geometric image editing, UNet backbone.
+    """Training-free geometric image editing, on the UNet or the DiT
+    backbone (`build_modules`).
 
     params: {"unet", "vae", "text"} state dicts (the `components()`).
     Without them the constructor raises, as JAX's does, unless
@@ -576,16 +593,15 @@ class FreeFine:
         )
         self._schedules = {}
         # SD-1.5's reference TCA window (10, 16) as the same decoder
-        # fraction of this backbone's depth-weighted layer layout
+        # fraction of this backbone's depth-weighted layer layout (a DiT's
+        # blocks: (18, 28) for PixArt-XL-2)
         lo, hi = DEFAULT_LAYER_RANGE
         total, _ = cfg.unet.attn_layer_layout
         self._layer_range = (round(lo / hi * total), total)
 
     def _build_modules(self) -> None:
-        cfg = self.config
-        self.unet = UNet2DCondition(cfg.unet).eval()
-        self.vae = AutoencoderKL(cfg.vae).eval()
-        self.text_encoder = CLIPTextEncoder(cfg.text).eval()
+        mods = build_modules(self.config)
+        self.unet, self.vae, self.text_encoder = mods["unet"], mods["vae"], mods["text"]
 
     def components(self) -> dict:
         return {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
@@ -606,8 +622,8 @@ class FreeFine:
         """NHWC latents -> NHWC noise prediction (model dtype); with
         return_features, (eps, features) with NHWC features (the plain
         UNet's taps that energy guidance reads).  ctx: the conditioning
-        (`Cond`, or a context [B, 77, D]); ctx_extra: the compose region
-        prompts [P, 77, D] (of a `Cond`, its context alone)."""
+        (`Cond`, or a context [B, L, D]); ctx_extra: the compose region
+        prompts [P, L, D] (of a `Cond`, its context alone)."""
         kw = {} if ecfg is None else dict(edit_cfg=ecfg, edit_state=state)
         cond = Cond.of(ctx)
         extra = None if ctx_extra is None else Cond.of(ctx_extra).ctx
@@ -656,9 +672,15 @@ class FreeFine:
 
     @torch.no_grad()
     def encode_text(self, texts: Sequence[str]) -> torch.Tensor:
-        """The UNet's cross-attention context [B, 77, D] of each text."""
+        """The denoiser's cross-attention context [B, L, D] of each text
+        (L the tokenizer's length: 77 for CLIP, 120 for PixArt's T5).  T5
+        masks the keys of id 0, JAX's rule (ROADMAP C8: under the hash
+        tokenizer, whose bos is 0 and whose padding is eos 1, that masks
+        the bos and keeps the padding)."""
         ids = torch.as_tensor(self.tokenizer.batch_encode(list(texts)), dtype=torch.long,
                               device=self.device)
+        if isinstance(self.text_encoder, T5Encoder):
+            return self.text_encoder(ids, (ids != 0).float())
         return self.text_encoder(ids)
 
     def _batch_text_embeddings(self, texts: Sequence[str]) -> Cond:
@@ -684,7 +706,7 @@ class FreeFine:
                uncond=None) -> torch.Tensor:
         """DDIM-invert for (num_step - start_step) steps; returns the
         trajectory [K+1, B, h, w, c].  `uncond` is the "" conditioning (a
-        `Cond` row, or a context [77, D]) an entry point has already
+        `Cond` row, or a context [L, D]) an entry point has already
         encoded (else it is encoded here)."""
         emb = self._inversion_text_embeddings(latents.shape[0], uncond)
         return ddim_invert_loop(self.unet_apply, self._schedule(num_step), latents, emb,
@@ -835,9 +857,14 @@ class FreeFine:
         are added to the noise prediction for the first `energy_fraction` of
         the denoise steps.  Returns the edited uint8 image [H, W, 3].
         `noise` optionally replaces the seeded per-step draws with K tensors
-        [2, lh, lw, 4]."""
+        [2, lh, lw, 4].  UNet backbone only: the DiT has no feature taps."""
         if method_type not in METHOD_TYPES:
             raise ValueError(method_type)
+        if isinstance(self.config.unet, DiTConfig):
+            raise NotImplementedError(
+                "guided_generation needs the UNet backbone's intermediate feature taps for "
+                "the energy gradients; the DiT backbone does not expose them.  Use a UNet "
+                "pipeline config, or generation() on the DiT.")
         cfg = self.config
         lh, lw = cfg.latent_height, cfg.latent_width
         dev = self.device
@@ -1515,7 +1542,7 @@ class BatchedFreeFine:
             # per-stream context [uncond, prompt_1..prompt_N (padded with uncond), uncond]
             pad = u.expand(n, max(ns - n_prompts, 0))
             text_emb = Cond.cat([u, conds[:, :ns], pad, u], 1)       # [C, N+2, ...]
-            text_extra = Cond.cat([conds, u], 1).ctx                 # [C, P, 77, D]
+            text_extra = Cond.cat([conds, u], 1).ctx                 # [C, P, L, D]
             text_inv = u.expand(n, ns + 1)
         with self._stage(timer, "mask_prep"):
             def masks(ms):

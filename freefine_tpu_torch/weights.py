@@ -11,7 +11,9 @@ adds:
     kernels HWIO -> OIHW, dense kernels IO -> OI, `scale`/`embedding` ->
     `weight`; SDXL's trees too (the add_embedding names, and the OpenCLIP
     tower's fused `in_proj` split into q/k/v and its `text_projection`
-    transposed into transformers' names);
+    transposed into transformers' names); the PixArt DiT's tree (diffusers'
+    `PixArtTransformer2DModel` names, the AdaLN `scale_shift_table`s) and
+    the T5 tower's (transformers' `T5EncoderModel` names);
   * `random_weights(model, seed)` — the random-weight scheme of the
     throughput bench: norm weights 1, other 1-D leaves 0, matrices
     N(0, 0.02) drawn in float32 from a seeded `torch.Generator` and stored
@@ -21,7 +23,8 @@ adds:
     length, a JSON header of {name: {dtype, shape, data_offsets}} plus an
     optional `__metadata__`, one byte buffer; reads are `torch.frombuffer`
     views of a copy-on-write `np.memmap`, so a file is not copied twice),
-    `load_sd15` and `load_sdxl` (a diffusers checkpoint directory),
+    `load_sd15`, `load_sdxl` and `load_pixart` (a diffusers checkpoint
+    directory; a component's shards merged),
     `load_sd15_single_file` (an LDM single-file checkpoint),
     `cast_params_for_inference`, and
     `save_pipeline` / `load_pipeline_params` (the diffusers layout, written
@@ -52,7 +55,9 @@ _SEGMENT_FIXES = [
     ("to_out_0", "to_out.0"),
 ]
 
-_LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
+_LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
+             # PixArt's AdaLN tables are bare parameters (no .weight suffix)
+             "scale_shift_table": "scale_shift_table"}
 
 # the SDXL UNet's added-conditioning MLP (flax add_embedding_1/_2)
 _UNET_REWRITES = (
@@ -72,6 +77,22 @@ _TEXT_REWRITES = (
     (r"^layers\.", "text_model.encoder.layers."),
     (r"^final_layer_norm", "text_model.final_layer_norm"),
 )
+# the DiT's flax module paths (after `_module_to_diffusers`) -> diffusers'
+# PixArtTransformer2DModel keys
+_PIXART_REWRITES = (
+    (r"^patch_embed", "pos_embed.proj"),
+    (r"^time_embedding", "adaln_single.emb.timestep_embedder"),
+    (r"^t_block", "adaln_single.linear"),
+    (r"^caption_proj\.1", "caption_projection.linear_1"),
+    (r"^caption_proj\.2", "caption_projection.linear_2"),
+    (r"^blocks\.", "transformer_blocks."),
+    (r"ff_net\.0_proj", "ff.net.0.proj"),
+    (r"ff_net\.2", "ff.net.2"),
+)
+# T5 block sub-module -> its path in transformers' T5Block
+_T5_LAYER = {"attn": "layer.0.SelfAttention", "norm_attn": "layer.0.layer_norm",
+             "norm_ff": "layer.1.layer_norm", "wi_0": "layer.1.DenseReluDense.wi_0",
+             "wi_1": "layer.1.DenseReluDense.wi_1", "wo": "layer.1.DenseReluDense.wo"}
 # OpenCLIP block module -> transformers' CLIPEncoderLayer path
 _OPEN_CLIP_LAYER = {"ln_1": "layer_norm1", "ln_2": "layer_norm2",
                     "out_proj": "self_attn.out_proj", "mlp_fc": "mlp.fc1",
@@ -96,12 +117,15 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def _rewrites_for(model: nn.Module):
+    from freefine_tpu_torch.models.dit import DiT2DCondition
     from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
     from freefine_tpu_torch.models.unet import UNet2DCondition
     from freefine_tpu_torch.models.vae import AutoencoderKL
 
     if isinstance(model, UNet2DCondition):
         return _UNET_REWRITES
+    if isinstance(model, DiT2DCondition):
+        return _PIXART_REWRITES
     if isinstance(model, AutoencoderKL):
         return _VAE_KEY_REWRITES
     if isinstance(model, CLIPTextEncoder):
@@ -152,12 +176,34 @@ def _open_clip_items(tree: Mapping):
                        a.T if name == "kernel" else a, where)
 
 
+def _t5_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of a T5 tower's flax
+    tree, in transformers' `T5EncoderModel` names, dense kernels IO -> OI."""
+    for path, leaf in _flatten(tree):
+        mods = [m for m in path[:-1] if m != "params"]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        if name == "shared":
+            yield "shared.weight", a, where
+        elif name == "relative_attention_bias":
+            yield "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight", a, where
+        elif mods == ["final_layer_norm"]:
+            yield "encoder.final_layer_norm.weight", a, where
+        else:
+            block, sub, *proj = mods
+            key = f"encoder.block.{block.rsplit('_', 1)[1]}.{_T5_LAYER[sub]}"
+            yield (".".join([key, *proj, "weight"]), a.T if name == "kernel" else a, where)
+
+
 def _flax_items(tree: Mapping, model: nn.Module):
     """(state-dict key, array in the torch layout, flax path) of each leaf."""
     from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
+    from freefine_tpu_torch.models.t5 import T5Encoder
 
     if isinstance(model, OpenCLIPTextHidden):
         yield from _open_clip_items(tree)
+        return
+    if isinstance(model, T5Encoder):
+        yield from _t5_items(tree)
         return
     rewrites = _rewrites_for(model)
     for path, leaf in _flatten(tree):
@@ -282,8 +328,12 @@ def write_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> int:
 
 
 def read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
-    """Every *.safetensors file under `path`, in sorted order, as one dict
-    (the shards of one model)."""
+    """Every *.safetensors file under `path`, in sorted order, as one dict:
+    the shards of one model (T5-XXL ships as `model-0000i-of-0000n`).  As
+    the JAX package's `_load_safetensors_dir` does, a tensor name in two
+    files takes the later file's tensor: in a stock diffusers folder the
+    full `diffusion_pytorch_model.safetensors` wins over the `.fp16`
+    variant beside it."""
     files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
     if not files:
         raise FileNotFoundError(f"no .safetensors under {path}")
@@ -297,11 +347,23 @@ def read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
 # Checkpoints -> the port's state dicts
 # ---------------------------------------------------------------------------
 
-# Folder and weight file of each component in the diffusers layout.
+# Folder and weight file of each component in the diffusers layout (a DiT
+# denoiser's folder is "transformer": `_diffusers_files`).
 _DIFFUSERS_FILES = {"unet": ("unet", "diffusion_pytorch_model.safetensors"),
                     "vae": ("vae", "diffusion_pytorch_model.safetensors"),
                     "text": ("text_encoder", "model.safetensors"),
                     "text2": ("text_encoder_2", "model.safetensors")}
+
+
+def _diffusers_files(pipe) -> Dict[str, tuple]:
+    """`_DIFFUSERS_FILES` for a pipe or config: the PixArt layout keeps
+    the DiT under `transformer/`."""
+    from freefine_tpu_torch.config import DiTConfig
+
+    cfg = getattr(pipe, "config", pipe)
+    if isinstance(cfg.unet, DiTConfig):
+        return {**_DIFFUSERS_FILES, "unet": ("transformer", _DIFFUSERS_FILES["unet"][1])}
+    return _DIFFUSERS_FILES
 
 # Legacy diffusers VAE attention names (1x1-conv projections).
 _VAE_ATTN_ALIASES = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
@@ -314,23 +376,20 @@ def _templates(pipe) -> Dict[str, Dict[str, torch.Tensor]]:
     if hasattr(pipe, "components"):
         return {name: mod.state_dict() for name, mod in pipe.components().items()}
     from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
-    from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
-    from freefine_tpu_torch.models.unet import UNet2DCondition
-    from freefine_tpu_torch.models.vae import AutoencoderKL
+    from freefine_tpu_torch.pipeline import build_modules
 
     with torch.device("meta"):
-        mods = {"unet": UNet2DCondition(pipe.unet), "vae": AutoencoderKL(pipe.vae),
-                "text": CLIPTextEncoder(pipe.text)}
+        mods = build_modules(pipe)
         if pipe.text2 is not None:
             mods["text2"] = OpenCLIPTextHidden(pipe.text2)
     return {name: mod.state_dict() for name, mod in mods.items()}
 
 
-def _read_diffusers(names, path: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The tensors of each named component's folder of a diffusers
-    checkpoint directory."""
-    return {name: read_safetensors_dir(os.path.join(path, _DIFFUSERS_FILES[name][0]))
-            for name in names}
+def _read_diffusers(names, path: str, files: Mapping[str, tuple]
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The tensors of each named component's folder (`files`) of a
+    diffusers checkpoint directory."""
+    return {name: read_safetensors_dir(os.path.join(path, files[name][0])) for name in names}
 
 
 def _convert(tensors: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
@@ -370,7 +429,7 @@ def _convert_all(pipe, tensors, dtype=None,
     mapping, or a diffusers directory to read them from)."""
     want = _templates(pipe)
     if isinstance(tensors, str):
-        tensors = _read_diffusers(want, tensors)
+        tensors = _read_diffusers(want, tensors, _diffusers_files(pipe))
     return {name: _convert(tensors[name], want[name], dtype, strict_dtype) for name in want}
 
 
@@ -397,6 +456,25 @@ def load_sdxl(pipe, checkpoint_dir: str, dtype: Optional[torch.dtype] = None) ->
     return _convert_all(pipe, checkpoint_dir, dtype)
 
 
+def load_pixart(pipe, checkpoint_dir: str, dtype: Optional[torch.dtype] = None) -> dict:
+    """A diffusers PixArt-α checkpoint directory
+    (`{transformer,vae,text_encoder}/*.safetensors`: the PixArt transformer,
+    the SD VAE and T5-XXL, whose shards are merged) -> the port's {"unet",
+    "vae", "text"} state dicts, ready for `FreeFine(params=...)`.  `pipe` is
+    a `FreeFine` or a `PipelineConfig` of the PixArt layout
+    (`pixart_pipeline_config`).  Tensors the modules lack (diffusers'
+    `pos_embed.pos_embed` buffer, the tied `encoder.embed_tokens.weight`)
+    are ignored; a missing or misshapen one raises."""
+    from freefine_tpu_torch.config import DiTConfig
+    from freefine_tpu_torch.models.t5 import T5Config
+
+    cfg = getattr(pipe, "config", pipe)
+    if not (isinstance(cfg.unet, DiTConfig) and isinstance(cfg.text, T5Config)):
+        raise ValueError("load_pixart needs a PixArt pipe or config (a DiTConfig denoiser and "
+                         "a T5Config text tower)")
+    return _convert_all(pipe, checkpoint_dir, dtype)
+
+
 def cast_params_for_inference(params, dtype: torch.dtype = torch.bfloat16):
     """The serving cast: float32 tensors of ndim >= 2 (matmul and conv
     weights) to `dtype`; 1-D tensors (norms, biases) and tensors of any
@@ -410,13 +488,16 @@ def cast_params_for_inference(params, dtype: torch.dtype = torch.bfloat16):
 
 def save_pipeline(pipe, path: str) -> int:
     """Write the pipe's weights as a diffusers checkpoint directory
-    (`unet/` and `vae/diffusion_pytorch_model.safetensors`,
+    (`unet/` (a DiT: `transformer/`) and
+    `vae/diffusion_pytorch_model.safetensors`,
     `text_encoder/model.safetensors`, and for SDXL
-    `text_encoder_2/model.safetensors`), which `load_sd15` / `load_sdxl`
-    and `load_pipeline_params` read back.  Returns the bytes written."""
+    `text_encoder_2/model.safetensors`), which `load_sd15` / `load_sdxl` /
+    `load_pixart` and `load_pipeline_params` read back.  Returns the bytes
+    written."""
     total = 0
+    files = _diffusers_files(pipe)
     for name, mod in pipe.components().items():
-        folder, fname = _DIFFUSERS_FILES[name]
+        folder, fname = files[name]
         os.makedirs(os.path.join(path, folder), exist_ok=True)
         total += write_safetensors(mod.state_dict(), os.path.join(path, folder, fname))
     return total

@@ -1,7 +1,7 @@
 """`bench_torch.py`, the port's throughput benchmark, on the CPU at the
-tiny configuration: each lane (SD-1.5's, and SDXL's with `--sdxl`) prints
-one JSON line with `bench.py`'s keys (and the port's own), and the lanes
-that are not ported exit non-zero."""
+tiny configuration: each lane (SD-1.5's, SDXL's with `--sdxl` and the
+DiT's with `--dit`) prints one JSON line with `bench.py`'s keys (and the
+port's own), and the lanes that are not ported exit non-zero."""
 
 import json
 import os
@@ -28,6 +28,7 @@ def _bench(*flags):
     (("--batch", "2", "--shared"), "shared-source batch 2"),
     ((), "per-case batch 1"),
     (("--sdxl",), "per-case batch 1"),
+    (("--dit",), "per-case batch 1"),
 ])
 def test_tiny_cpu_lanes_print_one_json_line(flags, lane):
     out = _bench("--tiny", "--device", "cpu", "--steps", "2", "--repeats", "1", *flags)
@@ -40,10 +41,11 @@ def test_tiny_cpu_lanes_print_one_json_line(flags, lane):
     assert result["value"] > 0 and abs(result["vs_baseline"] - result["value"] / 20.0) <= 1e-3
     assert result["max_s_per_edit"] >= result["median_s_per_edit"] > 0
     assert result["card"] is None and result["peak_memory_gib"] is None
-    assert result["backbone"] == ("sdxl" if "--sdxl" in flags else "sd15")
+    assert result["backbone"] == ("sdxl" if "--sdxl" in flags else "dit" if "--dit" in flags
+                                  else "sd15")
 
 
-@pytest.mark.parametrize("flag", ["--dit", "--mesh", "--sp"])
+@pytest.mark.parametrize("flag", ["--mesh", "--sp"])
 def test_unported_lanes_exit_non_zero(flag):
     out = _bench("--tiny", "--device", "cpu", flag, *(["data=1,model=1"] if flag == "--mesh"
                                                       else []))

@@ -10,7 +10,8 @@ the `safetensors` package and the JAX package's loaders.
     the legacy VAE attention names stored as 1x1 convs) against
     `freefine_tpu.weights.load_sd15`, carried back through
     `state_dict_from_flax`, bit for bit (float32); a missing tensor raises
-    and names its key, a misshapen one raises.
+    and names its key, a misshapen one raises; `.fp16` variant files beside
+    the full ones load as JAX loads them (a later file wins).
   * The LDM single-file renames against JAX's, on the tiny tensors and on
     the full SD-1.5 key sets of `tests/fixtures` (placeholder arrays);
     `load_sd15_single_file` from a .safetensors and a .ckpt file.
@@ -152,6 +153,27 @@ def test_load_sd15_matches_jax_loader(tiny, tmp_path):
     loaded = FreeFine(cfg, params=W.load_sd15(cfg, str(tmp_path)), device="cpu")
     for kind, mod in loaded.components().items():
         _assert_same(mod.state_dict(), mods[kind].state_dict())
+
+
+def test_load_sd15_reads_fp16_variants_as_jax(tiny, tmp_path):
+    """A stock diffusers snapshot keeps `*.fp16.safetensors` beside each
+    full file.  Both loaders merge every file in sorted order, a later file
+    winning, so the full file (sorted after its variant) is what loads."""
+    cfg, mods, jpipe = tiny
+    _, other = tiny_modules(12)
+    names = {"unet": "diffusion_pytorch_model", "vae": "diffusion_pytorch_model",
+             "text": "model"}
+    for kind, mod in mods.items():
+        d = tmp_path / DIRS[kind]
+        d.mkdir(parents=True)
+        save_file(dict(mod.state_dict()), str(d / f"{names[kind]}.safetensors"))
+        half = {k: v.half() for k, v in other[kind].state_dict().items()}
+        save_file(half, str(d / f"{names[kind]}.fp16.safetensors"))
+    jparams = jax.tree_util.tree_map(np.asarray, JW.load_sd15(jpipe, str(tmp_path)))
+    got = W.load_sd15(cfg, str(tmp_path))
+    for kind, mod in mods.items():
+        _assert_same(got[kind], W.state_dict_from_flax(jparams[kind], mod))
+        _assert_same(got[kind], mod.state_dict())
 
 
 def test_load_sd15_casts_as_jax(tiny, tmp_path):

@@ -62,6 +62,8 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.ops.geometry, freefine_tpu_torch.ops.group_norm\n"
         "import freefine_tpu_torch.utils.profiling, freefine_tpu_torch.utils.vis\n"
         "import freefine_tpu_torch.utils.attn_store, freefine_tpu_torch.masks\n"
+        "import freefine_tpu_torch.models.dit, freefine_tpu_torch.models.t5\n"
+        "import freefine_tpu_torch.models.ip_adapter\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL')]\n"
         "print(','.join(bad))\n"
