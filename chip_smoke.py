@@ -24,7 +24,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      SDXL UNet and 1024^2 VAE shape) and of the PixArt 512^2 edit of phase
      PX (heads of 72: `flash_sdpa` at S 1024 / 16 heads, batch 2 and 3;
      `tca_flash` at S 1024 / 8 heads after the parity split, at the
-     PixArt edit's masks), plus
+     PixArt edit's masks) and of phase 3D's perception models (heads of 64
+     in float32, batch 1: `flash_sdpa` at S 1370 / 16 heads, ragged, and S
+     4096 / 6 heads; timed in bf16 too, a cast no path runs), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one CTA's positions, dropped must fail); `group_norm_silu`
@@ -67,6 +69,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `generation` and `generation_shared_source` at 2 cases; on the tiny
      SD-1.5, DiT and PixArt configs one denoiser forward with IP-Adapter
      tokens at ip_scale 0.5 (the IP layers' weights equal on both sides);
+     `generation` at GeoBench-3D's protocol on a coarse 3D edit
+     (FREEFINE_FUSED_GN unset); the tiny DINOv2, Depth-Anything and
+     EfficientSAM forwards, `make_depth_fn`, `re_edit_3d_depth` and
+     `author_case` (masks equal but for 0.05 % of the pixels, images within
+     1 level where they agree);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -116,6 +123,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits (`guided_generation`, phase 5's protocol) and one differentiated
      TCA pass (phase 8's), each with its launches and the GroupNorm shapes
      it launches among phase 2's;
+ 3D. the depth-based 3D edit (`phase_3d`), SD-1.5 512^2, bf16, phase 4's
+     pipe and source: EfficientSAM ViT-S's box mask (`segment_with_box`,
+     f32, 1024^2 inside), Depth-Anything ViT-L's depth (`make_depth_fn`,
+     f32, 518^2 inside), the coarse edit (`re_edit_3d_depth`, ry 20
+     degrees), `compute_correspondence`, the fast-marching background and
+     the GeoBench-3D warp (`author_case`, focal 550, supersample 4), each
+     timed with its launches checked (12 and 24 `flash_sdpa`, one per ViT
+     block; none elsewhere), then `generation` at GeoBench-3D's protocol
+     (50 DDIM steps, start 15, TCA to the end, end_scale 0, the target
+     mask as draw mask and cons_area, no auto draw) with FREEFINE_FUSED_GN
+     unset: one warm-up and two timed edits, launches 912 / 210 / 4322
+     checked (path 3D, perception included);
  G-XL. the full-width SDXL edit (`phase_sdxl`): `SDXLFreeFine` at
      `sdxl_pipeline_config()` (1024^2, bf16, full depth: UNet depths
      (1, 2, 10), dual text towers, added conditioning; random weights made
@@ -142,8 +161,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9, G-XL and PX; path D is one differentiated pass, paths S and B
-     one batched call, path XL one SDXL edit, path PX one PixArt edit;
+     4 to 9, 3D, G-XL and PX; path D is one differentiated pass, paths S
+     and B one batched call, path 3D one 3D edit with its perception
+     calls, path XL one SDXL edit, path PX one PixArt edit;
      `group_norm_silu` also has phase 9b's E and D under the default,
      E_gn_default and D_gn_default), the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
@@ -445,6 +465,17 @@ FLASH_SHAPES += XL_FLASH_SHAPES
 # batch 3 (the VAE's f32 head is SD-1.5's).
 PX_FLASH_SHAPES = [(b, 16, 1024, 72, "bfloat16", False) for b in (2, 3)]
 FLASH_SHAPES += PX_FLASH_SHAPES
+# The perception models of phase 3D, batch 1, float32 (the JAX package's
+# default), unmasked: Depth-Anything's DINOv2 ViT-L/14 at 518^2 (1 + 37^2
+# tokens, ragged; 16 heads of 64) and EfficientSAM ViT-S at 1024^2 (64^2
+# tokens, 6 heads of 64)
+PERCEPTION_FLASH_SHAPES = [(1, 16, 1370, 64, "float32", False),
+                           (1, 6, 4096, 64, "float32", False)]
+# the same in bf16, as a caller who casts the models would run them: timed
+# and held like the rest, launched on no path
+CAST_FLASH_SHAPES = [(b, h, s, d, "bfloat16", m) for b, h, s, d, _, m in PERCEPTION_FLASH_SHAPES]
+FLASH_SHAPES += PERCEPTION_FLASH_SHAPES + CAST_FLASH_SHAPES
+NOT_ON_A_PATH = {(b, h, s, s, d, dt, m) for b, h, s, d, dt, m in CAST_FLASH_SHAPES}
 # check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
 # fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
 # (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
@@ -642,7 +673,7 @@ def check_flash(gen, shape, timed: bool):
 # `guided_generation` and the differentiated edit pass D the edit layout,
 # `background_generation` the bggen one, the batched lanes their own.
 TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit",
-                   "S": "shared", "B": "cases", "XL": "edit", "PX": "edit"}
+                   "S": "shared", "B": "cases", "XL": "edit", "PX": "edit", "3D": "edit"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1643,9 +1674,10 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
             paths[path] = entry
             for key, n in counted.items():
                 timed[key].setdefault("launches", {})[path] = n
-        if launched != set(timed):
+        unused = set(timed) - launched - NOT_ON_A_PATH
+        if unused:
             raise AssertionError(f"{name}: shapes timed but launched on no path: "
-                                 f"{sorted(set(timed) - launched)}")
+                                 f"{sorted(unused)}")
 
     def total(field):
         if paths is None or any(p[field] is None for p in paths.values()):
@@ -1671,7 +1703,9 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
         f32_route_ms=total("f32_route_ms") if "f32_route_ms" in rows[0] else None,
         per=("one edit of each path (D: one differentiated pass; S and B: one batched call of "
              f"{BATCH_SHARED} and {BATCH_CASES} edits; XL: one SDXL 1024^2 edit; PX: one PixArt "
-             "512^2 edit; group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
+             "512^2 edit; 3D: one depth-based 3D edit, EfficientSAM's box mask and "
+             "Depth-Anything's depth included, its TCA launches weighted at G's edit masks; "
+             "group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
              "guided edit and differentiated pass under the default) together; per path under "
              "`paths`"),
         paths=paths, shapes=rows, checks=checks,
@@ -1767,7 +1801,9 @@ def phase_tiny(record, model="sd15"):
     """The entry points on the tiny config, CUDA against the CPU with the
     same weights and noise: `generation` (fused GroupNorm off and on),
     `guided_generation`, and with the fused GroupNorm
-    `background_generation` and `cross_image_composition` of 2 sources.
+    `background_generation` and `cross_image_composition` of 2 sources;
+    and with FREEFINE_FUSED_GN unset `generation` at GeoBench-3D's protocol
+    on a coarse 3D edit (`re_edit_3d_depth` of a depth plane).
     With model "xl", `SDXLFreeFine` on the tiny SDXL config: the four entry
     points and the batched `generation` and `generation_shared_source`
     lanes; with "dit" and "pixart", `FreeFine` on the tiny DiT and PixArt
@@ -1783,6 +1819,7 @@ def phase_tiny(record, model="sd15"):
     from freefine_tpu_torch import pipeline as P
     from freefine_tpu_torch import sdxl
     from freefine_tpu_torch.ops.geometry import re_edit_2d
+    from freefine_tpu_torch.ops.point_splat import re_edit_3d_depth
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1804,6 +1841,14 @@ def phase_tiny(record, model="sd15"):
     mask2[h // 2 :, w // 2 :] = 255
     cons = np.zeros((h, w), np.uint8)
     edit_kw = dict(num_step=8, start_step=4, end_step=1)
+    # the 3D edit: the coarse edit of a synthetic depth plane, then
+    # GeoBench-3D's protocol (start 3 of 8, TCA to the end, no auto draw)
+    plane = 5.0 + np.linspace(0, 1.5, w, dtype=np.float32)[None, :].repeat(h, 0)
+    coarse3, tm3, _ = re_edit_3d_depth(img, mask, plane, (0, 0, 0, 0, 20, 0, 1, 1, 1),
+                                       focal_length_x=0.92 * w, focal_length_y=0.92 * w,
+                                       device="cpu")
+    kw_3d = dict(num_step=8, start_step=3, end_step=8, end_scale=0.0, draw_mask=tm3,
+                 use_auto_draw=False, cons_area=tm3, reduce_inp_artifacts=True)
     # name: (GroupNorm mode, per-step noise rows, steps, call)
     runs = {
         "generation": ("0", 2, 4, lambda p, **kw: p.generation(
@@ -1823,6 +1868,8 @@ def phase_tiny(record, model="sd15"):
         "cross_image_composition": ("1", 1, 4, lambda p, **kw: p.cross_image_composition(
             [img, src2], [mask, mask2], [tm_c, mask2], coarse_c, ["a cat", "a dog"],
             dil_factor=5, **edit_kw, **kw)),
+        "generation_3d": (None, 2, 5, lambda p, **kw: p.generation(
+            img, mask, coarse3, tm3, "a photo", **kw_3d, **kw)),
     }
     if model != "sd15":  # the DiT has no feature taps for the energy
         keep = ("generation", "background_generation", "cross_image_composition") + (
@@ -2129,19 +2176,7 @@ def edit_once(key, run, expect, store, hw, cases=1):
     -> (seconds, launches by shape)."""
     import torch
 
-    from freefine_tpu_torch.ops import flash_attention as FA
-    from freefine_tpu_torch.ops import group_norm as G
-
-    FA.reset_launch_counts()
-    G.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches, shapes = _launch_counts()
-    if launches != expect:
-        raise AssertionError(f"{key}: launch counts {launches} != expected per edit {expect}")
+    out, secs, shapes = counted(key, run, expect)
     outs = out if isinstance(out, list) else [out]
     if len(outs) != cases or any(o.shape != (*hw, 3) or o.dtype != np.uint8 for o in outs):
         raise AssertionError(f"{key}: output {[(o.shape, o.dtype) for o in outs]}")
@@ -3065,10 +3100,332 @@ def phase_pixart(record, timed_runs, profile):
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 3D: the depth-based 3D edit (and its tiny checks of phase 3)
+# ---------------------------------------------------------------------------
+
+# the tiny perception configs of phase 3 (those of tests/test_perception.py)
+TINY_DINO = dict(dim=32, depth=3, heads=2, pos_embed_size=4)
+TINY_DEPTH = dict(dim=32, depth=4, heads=2, pos_embed_size=4)
+TINY_SAM = dict(img_size=64, patch_size=16, patch_embed_dim=32, depth=2, num_heads=2,
+                neck_dim=32, decoder_mlp_dim=64, decoder_heads=2, upscaling_dims=(16, 8),
+                iou_hidden_dim=16)
+RY20 = (0, 0, 0, 0, 20, 0, 1, 1, 1)
+# pixels whose splat coverage may flip between two scatter-add orders
+MASK_SHARE = 5e-4
+
+
+def _tiny_pair(make, seed):
+    """A tiny model on the CPU with the bench's random weights (biases
+    moved off 0) and its copy on the card."""
+    import torch
+
+    from freefine_tpu_torch.weights import random_weights
+
+    cpu = random_weights(make("cpu"), seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.ndim == 1:
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    gpu = make("cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu.eval(), gpu.eval()
+
+
+def _held(out, name, got, want):
+    """CUDA against the CPU: max |diff| over max |ref| within TINY_TOL."""
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float()
+    err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    out[name] = dict(max_abs_err_of_max_ref=err, tol=TINY_TOL,
+                     finite=bool(torch.isfinite(got).all()))
+    log(f"  tiny 3D {name} CUDA vs CPU: max |diff| {err:.3g} of max |ref| (tol {TINY_TOL})")
+    if not err <= TINY_TOL or not out[name]["finite"]:
+        raise AssertionError(f"tiny 3D {name}: CUDA and CPU disagree: {out[name]}")
+
+
+def _masks_held(out, name, got, want, share=MASK_SHARE, images=()):
+    """Masks equal except at `share` of the pixels (scatter-add orders), each
+    (got, want) image pair within 1 level where the masks agree."""
+    differ = (np.asarray(got) > 0) != (np.asarray(want) > 0)
+    levels = [int(np.abs(a.astype(int) - b.astype(int))[~differ].max()) for a, b in images]
+    out[name] = dict(mask_pixels_differ=int(differ.sum()), pixels=int(differ.size),
+                     image_max_level_diff=max(levels, default=0))
+    log(f"  tiny 3D {name} CUDA vs CPU: {int(differ.sum())} of {differ.size} mask pixels "
+        f"differ, images {out[name]['image_max_level_diff']} levels where they agree")
+    if differ.mean() > share or out[name]["image_max_level_diff"] > 1:
+        raise AssertionError(f"tiny 3D {name}: CUDA and CPU disagree: {out[name]}")
+
+
+def phase_tiny_3d(record):
+    """Phase 3's 3D checks, CUDA against the CPU with the same float32
+    weights (TF32 off): the tiny DINOv2 (at its native position grid and
+    off it, the last 3 blocks' outputs), Depth-Anything and EfficientSAM
+    (masks and IoUs of a box and of points; `segment_with_box`) forwards;
+    the tiny depth through `make_depth_fn`; `re_edit_3d_depth` and
+    `author_case` on it.  Into record["tiny_3d"]."""
+    import torch
+
+    from freefine_tpu_torch.data.author3d import make_depth_fn
+    from freefine_tpu_torch.models.depth_anything import DepthAnything, DepthAnythingConfig
+    from freefine_tpu_torch.models.dinov2 import DINOv2, DINOv2Config
+    from freefine_tpu_torch.models.efficient_sam import (
+        EfficientSAM,
+        EfficientSAMConfig,
+        segment_with_box,
+    )
+    from freefine_tpu_torch.ops.geodiff_warp import author_case
+    from freefine_tpu_torch.ops.point_splat import re_edit_3d_depth
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = record["tiny_3d"] = {}
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        cpu, gpu = _tiny_pair(lambda d: DINOv2(DINOv2Config(**TINY_DINO), device=d), 1)
+        for hw in ((56, 56), (42, 28)):
+            x = torch.randn(2, 3, *hw, generator=gen)
+            for i, (a, b) in enumerate(zip(gpu(x.cuda(), num_intermediate=3),
+                                           cpu(x, num_intermediate=3))):
+                _held(out, f"dinov2_{hw[0]}x{hw[1]}_block{i}_patch", a[0], b[0])
+                _held(out, f"dinov2_{hw[0]}x{hw[1]}_block{i}_cls", a[1], b[1])
+        da_cfg = DepthAnythingConfig(backbone=DINOv2Config(**TINY_DEPTH), features=16,
+                                     out_channels=(8, 16, 16, 32))
+        da_cpu, da_gpu = _tiny_pair(lambda d: DepthAnything(da_cfg, device=d), 2)
+        for m in (da_cpu, da_gpu):   # a ReLU'd output that is not all zeros
+            m.head.conv3.bias.add_(1.0)
+        x = torch.randn(1, 3, 56, 56, generator=gen)
+        _held(out, "depth_anything", da_gpu(x.cuda()), da_cpu(x))
+        sam_cpu, sam_gpu = _tiny_pair(
+            lambda d: EfficientSAM(EfficientSAMConfig(**TINY_SAM), device=d), 3)
+        imgs = torch.rand(1, 3, 48, 80, generator=gen)
+        for name, pts, lbl in (("box", [[[[10.0, 12.0], [40.0, 44.0]]]], [[[2.0, 3.0]]]),
+                               ("points", [[[[20.0, 30.0], [50.0, 41.0]]]], [[[1.0, 1.0]]])):
+            pts, lbl = torch.tensor(pts), torch.tensor(lbl)
+            (mg, ig), (mc, ic) = sam_gpu(imgs.cuda(), pts.cuda(), lbl.cuda()), \
+                sam_cpu(imgs, pts, lbl)
+            _held(out, f"efficient_sam_{name}_masks", mg, mc)
+            _held(out, f"efficient_sam_{name}_iou", ig, ic)
+    img, mask = _case(64, 64, 5)
+    _masks_held(out, "segment_with_box", segment_with_box(sam_gpu, img, (12, 10, 40, 50)),
+                segment_with_box(sam_cpu, img, (12, 10, 40, 50)), share=1e-3)
+    depth = make_depth_fn(model=da_cpu, size=56)(img)
+    _held(out, "make_depth_fn", make_depth_fn(model=da_gpu, size=56)(img), depth)
+    f = 0.92 * 64
+    coarse = {dev: re_edit_3d_depth(img, mask, depth + 1.0, RY20, focal_length_x=f,
+                                    focal_length_y=f, device=dev) for dev in ("cpu", "cuda")}
+    _masks_held(out, "re_edit_3d_depth", coarse["cuda"][1], coarse["cpu"][1],
+                images=[(coarse["cuda"][0], coarse["cpu"][0])])
+    bg = np.full_like(img, 90)
+    warp = {dev: author_case(img, mask, depth, bg, (4, -2, 0, 10, 20, 0, 1, 1, 1),
+                             focal_length=0.9 * 64, device=dev) for dev in ("cpu", "cuda")}
+    _masks_held(out, "author_case", warp["cuda"][1], warp["cpu"][1],
+                images=[(warp["cuda"][0], warp["cpu"][0])])
+    for i, name in ((2, "author_case_mesh"), (3, "author_case_md")):
+        _masks_held(out, name, warp["cuda"][i], warp["cpu"][i])
+    _held(out, "author_case_coords", warp["cuda"][4], warp["cpu"][4])
+
+
+def _bbox(mask) -> tuple:
+    ys, xs = np.nonzero(mask)
+    return int(xs.min()), int(ys.min()), int(xs.max()), int(ys.max())
+
+
+def counted(key, fn, expect):
+    """fn() with the launch counters set to 0 just before and read just
+    after; they must equal `expect`.  -> (output, seconds, launches by
+    shape)."""
+    import torch
+
+    from freefine_tpu_torch.ops import flash_attention as FA
+    from freefine_tpu_torch.ops import group_norm as G
+
+    FA.reset_launch_counts()
+    G.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, shapes = _launch_counts()
+    if launches != expect:
+        raise AssertionError(f"{key}: launch counts {launches} != expected {expect}")
+    return out, secs, shapes
+
+
+def _timed_counted(key, fn, expect, timed_runs):
+    """One warm-up, then `timed_runs` `counted` calls: -> (last output,
+    milliseconds, launches by shape of one call)."""
+    fn()
+    ms, first = [], None
+    for _ in range(timed_runs):
+        res, secs, shapes = counted(key, fn, expect)
+        ms.append(secs * 1e3)
+        if first is not None and shapes != first:
+            raise AssertionError(f"{key}: launches by shape differ between calls: {shapes}")
+        first = shapes
+    return res, ms, first
+
+
+def phase_3d(record, pipe, store, timed_runs, profile):
+    """Phase 3D: the depth-based 3D edit at full width on phase 4's SD-1.5
+    512^2 pipe (bf16).  Phase 4's source image and object; EfficientSAM
+    ViT-S (`efficient_sam_vits`, f32, 1024^2 inside; random weights made on
+    the card) segments the object's box (`segment_with_box`); Depth-Anything
+    ViT-L (`depth_anything_vitl`, DINOv2 ViT-L/14 and DPT features 256, f32,
+    random weights made on the card) gives the depth through
+    `make_depth_fn` (518^2 inside, the disparity resized to 512^2, then
+    max - disparity), checked finite; the coarse edit gets that depth + 1,
+    as examples/edit_3d_depth.py forms it from the disparity, so it is well
+    formed whatever the weights: `re_edit_3d_depth` with ry = 20 degrees,
+    `compute_correspondence`, and the GeoBench-3D authoring warp
+    (`author_case`, focal 550, supersample 4, over the fast-marching
+    background `inpaint_fmm` gives); each timed after a warm-up, each
+    perception call's launches checked against its config (one
+    `flash_sdpa` per ViT block).  Then `generation` at GeoBench-3D's
+    protocol (parallel/harness.py: 50 DDIM steps, start 15, guidance 7.5,
+    eta 1.0, TCA to the end, end_scale 0, the target mask as draw mask and
+    cons_area, no auto draw, reduce_inp_artifacts) with FREEFINE_FUSED_GN
+    unset: one warm-up and `timed_runs` timed edits, launches checked
+    against `_expected` (35 inversion and 35 regeneration passes).  Returns
+    the launches by shape of one 3D edit, perception included (path 3D)."""
+    from collections import Counter
+
+    import torch
+
+    from freefine_tpu_torch import masks as mask_ops
+    from freefine_tpu_torch.data.author3d import make_depth_fn
+    from freefine_tpu_torch.models.depth_anything import depth_anything_vitl
+    from freefine_tpu_torch.models.efficient_sam import (
+        EfficientSAM,
+        efficient_sam_vits,
+        segment_with_box,
+    )
+    from freefine_tpu_torch.ops.geodiff_warp import author_case
+    from freefine_tpu_torch.ops.point_splat import (
+        compute_correspondence,
+        inpaint_fmm,
+        re_edit_3d_depth,
+    )
+    from freefine_tpu_torch.weights import random_weights
+
+    cfg = pipe.config
+    h, w = cfg.height, cfg.width
+    img, mask, _, _ = edit_case(cfg)
+    none = {k: 0 for k in _launch_counts()[0]}
+    card = record["card"]
+    info = {}
+
+    sam_cfg = efficient_sam_vits()
+    torch.cuda.reset_peak_memory_stats()
+    sam = random_weights(EfficientSAM(sam_cfg, device=torch.device("cuda")), 0).eval()
+    box = _bbox(mask)
+    sam_mask, sam_ms, sam_shapes = _timed_counted(
+        "EfficientSAM", lambda: segment_with_box(sam, img, box),
+        {**none, "flash_sdpa": sam_cfg.depth}, timed_runs)
+    info["efficient_sam"] = dict(
+        ms=sam_ms, box=box, mask_pixels=int((sam_mask > 0).sum()),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches=[[*k, n] for k, n in sorted(sam_shapes.items())])
+    log(f"  EfficientSAM ViT-S segment_with_box {sam_ms} ms, mask "
+        f"{info['efficient_sam']['mask_pixels']} px of {h * w} [{card}]")
+    del sam
+
+    da_cfg = depth_anything_vitl()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    predict = make_depth_fn("depth_anything", encoder="vitl", seed=0)
+    depth, da_ms, da_shapes = _timed_counted(
+        "Depth-Anything", lambda: predict(img), {**none, "flash_sdpa": da_cfg.backbone.depth},
+        timed_runs)
+    info["depth_anything"] = dict(
+        ms=da_ms, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        finite=bool(np.isfinite(depth).all()), shape=list(depth.shape),
+        min=float(depth.min()), max=float(depth.max()), mean=float(depth.mean()),
+        disparity_constant=bool(depth.max() == depth.min()),
+        launches=[[*k, n] for k, n in sorted(da_shapes.items())])
+    log(f"  Depth-Anything ViT-L depth {da_ms} ms, peak "
+        f"{info['depth_anything']['peak_memory_bytes'] / 2**30:.2f} GiB, depth in "
+        f"[{depth.min():.4g}, "
+        f"{depth.max():.4g}], raw disparity constant: "
+        f"{info['depth_anything']['disparity_constant']} [{card}]")
+    if depth.shape != (h, w) or not info["depth_anything"]["finite"]:
+        raise AssertionError(f"Depth-Anything depth: {info['depth_anything']}")
+    del predict
+    torch.cuda.empty_cache()
+
+    depth3d = depth + 1.0
+    f = 0.92 * w
+
+    def coarse():
+        return re_edit_3d_depth(img, mask, depth3d, RY20, focal_length_x=f, focal_length_y=f)
+
+    def background():
+        hole = mask_ops.binarize(mask_ops.dilate(
+            torch.as_tensor((mask > 0).astype(np.float32), device="cuda"), 15))
+        filled = inpaint_fmm(torch.as_tensor(img, dtype=torch.float32, device="cuda"), hole)
+        return torch.round(filled).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+    host = {}
+    for name, fn in (("re_edit_3d_depth", coarse),
+                     ("compute_correspondence", lambda: compute_correspondence(
+                         depth3d, mask, RY20, f, f)),
+                     ("inpaint_fmm_background", background)):
+        host[name], ms, _ = _timed_counted(name, fn, none, timed_runs)
+        info[name] = dict(ms=ms)
+    bg = host["inpaint_fmm_background"]
+    warp, ms, _ = _timed_counted("author_case", lambda: author_case(
+        img, mask, depth, bg, RY20, focal_length=550.0, supersample=4), none, timed_runs)
+    info["author_case"] = dict(ms=ms)
+    coarse_img, tm, _ = host["re_edit_3d_depth"]
+    corr = host["compute_correspondence"]
+    info["re_edit_3d_depth"].update(target_pixels=int((tm > 0).sum()))
+    info["compute_correspondence"].update(
+        finite_pixels=int(np.isfinite(corr[..., 0]).sum()), object_pixels=int((mask > 0).sum()))
+    info["author_case"].update(full_pixels=int((warp[1] > 0).sum()),
+                               mesh_pixels=int((warp[2] > 0).sum()),
+                               md_pixels=int((warp[3] > 0).sum()))
+    for name in ("re_edit_3d_depth", "compute_correspondence", "inpaint_fmm_background",
+                 "author_case"):
+        log(f"  {name} {info[name]['ms']} ms "
+            f"{ {k: v for k, v in info[name].items() if k != 'ms'} } [{card}]")
+    if not 0 < info["re_edit_3d_depth"]["target_pixels"] < h * w or \
+            info["compute_correspondence"]["finite_pixels"] != \
+            info["compute_correspondence"]["object_pixels"] or \
+            not info["author_case"]["full_pixels"] > 0:
+        raise AssertionError(f"3D coarse edit: {info}")
+
+    num_step, start_step = 50, 15
+    k = num_step - start_step
+    kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
+              end_step=num_step, end_scale=0.0, method_type="tca", draw_mask=tm,
+              use_auto_draw=False, cons_area=tm, reduce_inp_artifacts=True, seed=42)
+    expect = _expected(cfg, pipe, k, k, fused=True)
+    log(f"  expected launches per 3D edit (the generation) {expect}")
+
+    def run():
+        return pipe.generation(img, mask, coarse_img, tm, "a photo of a cat", **kw)
+
+    with fused_gn(None):
+        shapes = timed_edits(record, "edit3d", run, expect, timed_runs, store, (h, w))
+        if profile:
+            record["edit3d_profile"] = profile_edit(run, "profile_edit3d.txt")
+    _gn_shapes_checked("edit3d", shapes)
+    record["edit3d"].update(
+        info, protocol=("GeoBench-3D regeneration (parallel/harness.py) on SD-1.5 512^2: "
+                        "50-step DDIM, start 15, guidance 7.5, eta 1.0, TCA to the end, "
+                        "end_scale 0, draw mask = cons_area = the target mask, no auto draw, "
+                        "reduce_inp_artifacts, bf16 random weights, FREEFINE_FUSED_GN unset; "
+                        "EfficientSAM ViT-S and Depth-Anything ViT-L f32 random weights"))
+    return Counter(shapes) + Counter(sam_shapes) + Counter(da_shapes)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b, G-XL and PX (kernel and tiny checks only)")
+                    help="skip phases 4 to 9b, 3D, G-XL and PX (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
@@ -3108,6 +3465,7 @@ def main():
     phase_tiny(record)
     for model in ("xl", "dit", "pixart"):
         phase_tiny(record, model)
+    phase_tiny_3d(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -3136,6 +3494,9 @@ def main():
         log("phase 9b: SD-1.5 512^2 checkpoint round trip, off-size input, intermediates, "
             "attention probe, GroupNorm default")
         gn_default = phase_rest(record, pipe, case, store)
+        log("phase 3D: SD-1.5 512^2 depth-based 3D edit (EfficientSAM box mask, Depth-Anything "
+            "depth, point-splat coarse edit, GeoBench-3D warp, generation at the 3D protocol)")
+        counts["3D"] = phase_3d(record, pipe, store, args.timed_runs, args.profile)
         del pipe, case, store
         gc.collect()
         torch.cuda.empty_cache()

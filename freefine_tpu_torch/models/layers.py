@@ -94,8 +94,56 @@ class RMSNorm(nn.Module):
         return (self.weight * x32 / torch.sqrt(var + self.eps)).to(x.dtype)
 
 
-# the norms whose weight `weights.random_weights` fills with 1
-NORM_TYPES = (GroupNorm32, LayerNorm32, RMSNorm)
+class LayerScale(nn.Module):
+    """DINOv2's per-channel residual scale `gamma` (float32), output in the
+    input dtype (JAX multiplies by the float32 parameter)."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x * self.gamma).to(x.dtype)
+
+
+class LayerNorm2d(nn.Module):
+    """Channel LayerNorm of an NCHW map in float32 (EfficientSAM's neck),
+    output in the input dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(1, keepdim=True)
+        var = (xf - mu).square().mean(1, keepdim=True)
+        y = (xf - mu) / torch.sqrt(var + self.eps)
+        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+
+class PlainGroupNorm(nn.Module):
+    """GroupNorm of an NCHW map in float32 by `F.group_norm`, output in the
+    input dtype: flax's `nn.GroupNorm`, which the JAX package leaves to XLA
+    (EfficientSAM's decoder), so no kernel of the port's either."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+# the norms (and DINOv2's LayerScale) whose weight `weights.random_weights`
+# fills with 1
+NORM_TYPES = (GroupNorm32, LayerNorm32, RMSNorm, LayerScale, LayerNorm2d, PlainGroupNorm)
 
 
 class TimestepEmbedding(nn.Module):

@@ -55,7 +55,7 @@ from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
 from freefine_tpu_torch.models.tokenizer import load_tokenizer
 from freefine_tpu_torch.models.unet import UNet2DCondition
 from freefine_tpu_torch.models.vae import AutoencoderKL, from_uint8, to_uint8
-from freefine_tpu_torch.ops.geometry import resize_lanczos3
+from freefine_tpu_torch.ops.resize import resize_lanczos3
 from freefine_tpu_torch.ops.guidance import energy_guidance
 from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, ctrl_step, inv_step, method_and_gates
 from freefine_tpu_torch.utils.attn_store import collect_maps

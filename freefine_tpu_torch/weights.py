@@ -13,7 +13,8 @@ adds:
     tower's fused `in_proj` split into q/k/v and its `text_projection`
     transposed into transformers' names); the PixArt DiT's tree (diffusers'
     `PixArtTransformer2DModel` names, the AdaLN `scale_shift_table`s) and
-    the T5 tower's (transformers' `T5EncoderModel` names);
+    the T5 tower's (transformers' `T5EncoderModel` names); DINOv2's
+    (torchhub names), Depth-Anything's and EfficientSAM's;
   * `random_weights(model, seed)` — the random-weight scheme of the
     throughput bench: norm weights 1, other 1-D leaves 0, matrices
     N(0, 0.02) drawn in float32 from a seeded `torch.Generator` and stored
@@ -28,7 +29,11 @@ adds:
     `load_sd15_single_file` (an LDM single-file checkpoint),
     `cast_params_for_inference`, and
     `save_pipeline` / `load_pipeline_params` (the diffusers layout, written
-    by the port's own writer).
+    by the port's own writer);
+  * the perception checkpoints: `load_depth_anything` (transformers'
+    `DepthAnythingForDepthEstimation` safetensors, its DINOv2 backbone
+    renamed by the port's copy of `hf_dinov2_to_torchhub`) and
+    `load_efficient_sam` (the published `torch.save`d file).
 """
 
 from __future__ import annotations
@@ -57,7 +62,11 @@ _SEGMENT_FIXES = [
 
 _LEAF_MAP = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
              # PixArt's AdaLN tables are bare parameters (no .weight suffix)
-             "scale_shift_table": "scale_shift_table"}
+             "scale_shift_table": "scale_shift_table",
+             # DINOv2's LayerScale, class token and position table, and
+             # EfficientSAM's LayerNorm2d, keep their own names
+             "gamma": "gamma", "cls_token": "cls_token", "pos_embed": "pos_embed",
+             "weight": "weight"}
 
 # the SDXL UNet's added-conditioning MLP (flax add_embedding_1/_2)
 _UNET_REWRITES = (
@@ -93,6 +102,62 @@ _PIXART_REWRITES = (
 _T5_LAYER = {"attn": "layer.0.SelfAttention", "norm_attn": "layer.0.layer_norm",
              "norm_ff": "layer.1.layer_norm", "wi_0": "layer.1.DenseReluDense.wi_0",
              "wi_1": "layer.1.DenseReluDense.wi_1", "wo": "layer.1.DenseReluDense.wo"}
+# DINOv2 (torchhub names), Depth-Anything (transformers' neck and head
+# names, the backbone under "backbone.") and EfficientSAM (the reference's
+# names): the inverses of `freefine_tpu.weights.convert_dinov2`,
+# `convert_depth_anything_hf` and `convert_efficient_sam`.
+_DINOV2_REWRITES = (
+    (r"(^|\.)patch_embed$", r"\1patch_embed.proj"),
+    (r"\.mlp_fc(\d)$", r".mlp.fc\1"),
+)
+_DEPTH_ANYTHING_REWRITES = (
+    (r"^pretrained(\.|$)", r"backbone\1"),
+    *_DINOV2_REWRITES,
+    (r"^depth_head\.projects\.(\d)$", r"neck.reassemble_stage.layers.\1.projection"),
+    (r"^depth_head\.resize\.(\d)$", r"neck.reassemble_stage.layers.\1.resize"),
+    (r"^depth_head\.layer(\d)_rn$", lambda m: f"neck.convs.{int(m[1]) - 1}"),
+    (r"^depth_head\.refinenet(\d)", lambda m: f"neck.fusion_stage.layers.{4 - int(m[1])}"),
+    (r"\.resConfUnit(\d)\.conv(\d)$", r".residual_layer\1.convolution\2"),
+    (r"\.out_conv$", ".projection"),
+    (r"^depth_head\.output_conv1$", "head.conv1"),
+    (r"^depth_head\.output_conv2\.0$", "head.conv2"),
+    (r"^depth_head\.output_conv2\.2$", "head.conv3"),
+)
+_SAM_BARE_PARAMS = {
+    "prompt_encoder.positional_encoding_gaussian_matrix":
+        "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+    "prompt_encoder.invalid_points": "prompt_encoder.invalid_points.weight",
+    "prompt_encoder.point_embeddings": "prompt_encoder.point_embeddings.weight",
+    "prompt_encoder.bbox_top_left_embeddings": "prompt_encoder.bbox_top_left_embeddings.weight",
+    "prompt_encoder.bbox_bottom_right_embeddings":
+        "prompt_encoder.bbox_bottom_right_embeddings.weight",
+    "mask_decoder.iou_token": "mask_decoder.iou_token.weight",
+    "mask_decoder.mask_tokens": "mask_decoder.mask_tokens.weight",
+}
+_SAM_REWRITES = (
+    (r"^image_encoder\.patch_embed$", "image_encoder.patch_embed.proj"),
+    (r"\.attn_qkv$", ".attn.qkv"),
+    (r"\.attn_proj$", ".attn.proj"),
+    (r"\.mlp_fc(\d)$", r".mlp.fc\1"),
+    (r"^mask_decoder\.layers\.", "mask_decoder.transformer.layers."),
+    (r"^mask_decoder\.(final_attn_token_to_image|norm_final_attn)",
+     r"mask_decoder.transformer.\1"),
+    (r"^(mask_decoder\.transformer\.layers\.\d+)\.mlp\.layers\.(\d+)$", r"\1.mlp.layers.\2.0"),
+    (r"^mask_decoder\.upscale\.(\d+)$", r"mask_decoder.final_output_upscaling_layers.\1.0"),
+    (r"^mask_decoder\.upscale_norm\.(\d+)$",
+     r"mask_decoder.final_output_upscaling_layers.\1.1"),
+    (r"^mask_decoder\.hyper_mlps\.(\d+)\.layers\.(\d+)$",
+     r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2.0"),
+    (r"^mask_decoder\.hyper_mlps\.(\d+)\.fc$", r"mask_decoder.output_hypernetworks_mlps.\1.fc"),
+    (r"^mask_decoder\.iou_prediction_head\.layers\.(\d+)$",
+     r"mask_decoder.iou_prediction_head.layers.\1.0"),
+)
+# Transposed convs: flax [kh, kw, in, out] <-> torch [in, out, kh, kw];
+# EfficientSAM's converter also flips the kernel spatially, Depth-Anything's
+# does not (ROADMAP C9), and each inverse undoes exactly its converter.
+_DECONV_KEYS = {_DEPTH_ANYTHING_REWRITES: r"^neck\.reassemble_stage\.layers\.[01]\.resize\.weight$",
+                _SAM_REWRITES: r"final_output_upscaling_layers\.\d+\.0\.weight$"}
+
 # OpenCLIP block module -> transformers' CLIPEncoderLayer path
 _OPEN_CLIP_LAYER = {"ln_1": "layer_norm1", "ln_2": "layer_norm2",
                     "out_proj": "self_attn.out_proj", "mlp_fc": "mlp.fc1",
@@ -117,7 +182,10 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def _rewrites_for(model: nn.Module):
+    from freefine_tpu_torch.models.depth_anything import DepthAnything
+    from freefine_tpu_torch.models.dinov2 import DINOv2
     from freefine_tpu_torch.models.dit import DiT2DCondition
+    from freefine_tpu_torch.models.efficient_sam import EfficientSAM
     from freefine_tpu_torch.models.text_encoder import CLIPTextEncoder
     from freefine_tpu_torch.models.unet import UNet2DCondition
     from freefine_tpu_torch.models.vae import AutoencoderKL
@@ -130,6 +198,12 @@ def _rewrites_for(model: nn.Module):
         return _VAE_KEY_REWRITES
     if isinstance(model, CLIPTextEncoder):
         return _TEXT_REWRITES
+    if isinstance(model, DINOv2):
+        return _DINOV2_REWRITES
+    if isinstance(model, DepthAnything):
+        return _DEPTH_ANYTHING_REWRITES
+    if isinstance(model, EfficientSAM):
+        return _SAM_REWRITES
     raise TypeError(f"no flax key layout known for {type(model).__name__}")
 
 
@@ -206,14 +280,22 @@ def _flax_items(tree: Mapping, model: nn.Module):
         yield from _t5_items(tree)
         return
     rewrites = _rewrites_for(model)
+    deconv = _DECONV_KEYS.get(rewrites)
     for path, leaf in _flatten(tree):
         a = np.asarray(leaf)
+        bare = ".".join(m for m in path if m != "params")
+        key = (_SAM_BARE_PARAMS[bare] if rewrites is _SAM_REWRITES and bare in _SAM_BARE_PARAMS
+               else _flax_key(path, rewrites))
         if path[-1] == "kernel":
-            if a.ndim == 4:        # HWIO -> OIHW
+            if deconv and re.search(deconv, key):
+                if rewrites is _SAM_REWRITES:
+                    a = a[::-1, ::-1]
+                a = a.transpose(2, 3, 0, 1)
+            elif a.ndim == 4:      # HWIO -> OIHW
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 2:      # IO -> OI
                 a = a.T
-        yield _flax_key(path, rewrites), a, "/".join(path)
+        yield key, a, "/".join(path)
 
 
 def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -240,7 +322,9 @@ def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Ten
 def random_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill `model` in place with the bench's random-weight scheme; draws
     come from a `torch.Generator` on each parameter's device."""
-    norm_weights = {id(m.weight) for m in model.modules() if isinstance(m, NORM_TYPES)}
+    norm_weights = {id(p) for m in model.modules() if isinstance(m, NORM_TYPES)
+                    for name, p in m.named_parameters(recurse=False)
+                    if name in ("weight", "gamma")}
     gens: Dict[torch.device, torch.Generator] = {}
     for p in model.parameters():
         if id(p) in norm_weights:
@@ -657,3 +741,77 @@ def load_sd15_single_file(pipe, ckpt_path: str, dtype: Optional[torch.dtype] = N
             if k.startswith(_LDM_TEXT_PREFIX)}
     return _convert_all(pipe, {"unet": _ldm_unet_to_diffusers(sd),
                                "vae": _ldm_vae_to_diffusers(sd), "text": text}, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Perception checkpoints: Depth-Anything (transformers) and EfficientSAM
+# ---------------------------------------------------------------------------
+
+# transformers' Dinov2 layer -> torchhub block, the tensors renamed one to one
+_HF_DINOV2_BLOCK = {"attention.output.dense": "attn.proj", "norm1": "norm1", "norm2": "norm2",
+                    "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"}
+_HF_QKV = ("query", "key", "value")
+# tensors of a transformers Depth-Anything checkpoint that the forward never
+# reads: Dinov2's mask token, and the first fusion layer's residual unit (it
+# gets no residual input)
+_DA_UNUSED = re.compile(r"^backbone\.embeddings\.mask_token$|"
+                        r"^neck\.fusion_stage\.layers\.0\.residual_layer1\.")
+
+
+def hf_dinov2_to_torchhub(sd: Mapping[str, torch.Tensor], prefix: str = ""
+                          ) -> Dict[str, torch.Tensor]:
+    """A transformers Dinov2Model / Dinov2Backbone state dict (keys under
+    `prefix`) -> torchhub facebookresearch/dinov2 names (query, key and
+    value fused into `qkv`); the port's copy of the JAX package's
+    `hf_dinov2_to_torchhub`."""
+    g = lambda k: sd[prefix + k]  # noqa: E731
+    t = {"cls_token": g("embeddings.cls_token"),
+         "pos_embed": g("embeddings.position_embeddings"),
+         "patch_embed.proj.weight": g("embeddings.patch_embeddings.projection.weight"),
+         "patch_embed.proj.bias": g("embeddings.patch_embeddings.projection.bias")}
+    i = 0
+    while f"{prefix}encoder.layer.{i}.norm1.weight" in sd:
+        p = f"encoder.layer.{i}"
+        for leaf in ("weight", "bias"):
+            t[f"blocks.{i}.attn.qkv.{leaf}"] = torch.cat(
+                [g(f"{p}.attention.attention.{n}.{leaf}") for n in _HF_QKV], 0)
+            for hf, hub in _HF_DINOV2_BLOCK.items():
+                t[f"blocks.{i}.{hub}.{leaf}"] = g(f"{p}.{hf}.{leaf}")
+        t[f"blocks.{i}.ls1.gamma"] = g(f"{p}.layer_scale1.lambda1")
+        t[f"blocks.{i}.ls2.gamma"] = g(f"{p}.layer_scale2.lambda1")
+        i += 1
+    if prefix + "layernorm.weight" in sd:
+        t["norm.weight"] = g("layernorm.weight")
+        t["norm.bias"] = g("layernorm.bias")
+    return t
+
+
+def load_depth_anything(model: nn.Module, path: str) -> nn.Module:
+    """Fill a `DepthAnything` in place from a transformers
+    `DepthAnythingForDepthEstimation` checkpoint (a .safetensors file, or a
+    folder of them, read by the port's own reader): the backbone's tensors
+    renamed by `hf_dinov2_to_torchhub`, the neck's and head's as they are,
+    each cast to the model's dtype; the two never-read tensors
+    (`_DA_UNUSED`) dropped.  Any other tensor the model lacks, or a missing
+    or misshapen one, raises.  Returns the model."""
+    sd = read_safetensors_dir(path) if os.path.isdir(path) else read_safetensors(path)
+    extra = sorted(k for k in sd if not k.startswith("backbone.") and not _DA_UNUSED.match(k)
+                   and k not in model.state_dict())
+    if extra:
+        raise KeyError(f"{len(extra)} checkpoint tensors the model lacks, e.g. {extra[:5]}")
+    tensors = {f"backbone.{k}": v for k, v in hf_dinov2_to_torchhub(sd, "backbone.").items()}
+    tensors.update((k, v) for k, v in sd.items() if not k.startswith("backbone."))
+    model.load_state_dict(_convert(tensors, model.state_dict()))
+    return model
+
+
+def load_efficient_sam(model: nn.Module, path: str) -> nn.Module:
+    """Fill an `EfficientSAM` in place from the published checkpoint
+    (efficient_sam_vits.pt / efficient_sam_vitt.pt: a `torch.save`d
+    {"model": state_dict}, read with `torch.load(weights_only=True)`), each
+    tensor cast to the model's dtype.  The module names are the
+    checkpoint's; a missing or misshapen tensor raises.  Returns the
+    model."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(_convert(raw.get("model", raw), model.state_dict()))
+    return model

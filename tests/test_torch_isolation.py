@@ -2,8 +2,8 @@
 scripts (`chip_smoke.py`, `bench_torch.py`, `scripts/tca_graph_times.py`,
 `scripts/gn_plan_sweep.py`, `scripts/gn_route_paired.py`,
 `scripts/flash_f32_accuracy.py`) imports `jax`, `flax` or the JAX package,
-and importing the port leaves `jax` out of `sys.modules`.  The card's machine has neither `safetensors` nor PIL: no
-port module imports `safetensors`, and PIL is imported only inside
+and importing the port leaves `jax` out of `sys.modules`.  The card's machine has neither `safetensors`, PIL nor cv2: no
+port module imports `safetensors` or cv2, and PIL is imported only inside
 `utils.vis.save_intermediate_gif`."""
 
 import ast
@@ -64,8 +64,12 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.utils.attn_store, freefine_tpu_torch.masks\n"
         "import freefine_tpu_torch.models.dit, freefine_tpu_torch.models.t5\n"
         "import freefine_tpu_torch.models.ip_adapter\n"
+        "import freefine_tpu_torch.models.dinov2, freefine_tpu_torch.models.depth_anything\n"
+        "import freefine_tpu_torch.models.efficient_sam, freefine_tpu_torch.ops.resize\n"
+        "import freefine_tpu_torch.ops.point_splat, freefine_tpu_torch.ops.geodiff_warp\n"
+        "import freefine_tpu_torch.data.author3d\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL')]\n"
+        "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2')]\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -99,7 +103,7 @@ def test_no_safetensors_and_pil_only_inside_the_gif_writer():
     for path in files:
         for name, scope in _imports_with_scope(path):
             root = name.split(".")[0]
-            assert root != "safetensors", f"{path.relative_to(ROOT)} imports {name}"
+            assert root not in ("safetensors", "cv2"), f"{path.relative_to(ROOT)} imports {name}"
             if root == "PIL":
                 pil.append((str(path.relative_to(ROOT)), scope))
     assert pil and all(p == ("freefine_tpu_torch/utils/vis.py", ("save_intermediate_gif",))
