@@ -26,7 +26,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `tca_flash` at S 1024 / 8 heads after the parity split, at the
      PixArt edit's masks) and of phase 3D's perception models (heads of 64
      in float32, batch 1: `flash_sdpa` at S 1370 / 16 heads, ragged, and S
-     4096 / 6 heads; timed in bf16 too, a cast no path runs), plus
+     4096 / 6 heads; timed in bf16 too, a cast no path runs) and of phase
+     SV3D's video UNet (heads of 64 at batch 21: S 5184 / 5 heads, 1296 /
+     10, 324 / 20 and the mid block's 81 / 20, all ragged; the VAE's f32
+     S 5184 / d 512 head of a 576^2 frame; `group_norm_silu` at every video
+     UNet norm, the temporal ones over the frame-folded [1, C, 21*H, W]
+     slabs, and at the 576^2 VAE slabs), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one CTA's positions, dropped must fail); `group_norm_silu`
@@ -73,7 +78,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (FREEFINE_FUSED_GN unset); the tiny DINOv2, Depth-Anything and
      EfficientSAM forwards, `make_depth_fn`, `re_edit_3d_depth` and
      `author_case` (masks equal but for 0.05 % of the pixels, images within
-     1 level where they agree);
+     1 level where they agree); the tiny video UNet, a 3-step tiny orbit,
+     the tiny ViT, u2netp and its mask, the tiny `re_edit_3d_sv3d` and
+     `generation` on its output (FREEFINE_FUSED_GN unset);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -135,6 +142,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      mask as draw mask and cons_area, no auto draw) with FREEFINE_FUSED_GN
      unset: one warm-up and two timed edits, launches 912 / 210 / 4322
      checked (path 3D, perception included);
+ SV3D. the SV3D coarse 3D edit (`phase_sv3d`) on phase 4's pipe and
+     source, FREEFINE_FUSED_GN unset: SV3D_p's video UNet (1.5 B random
+     parameters, bf16, 21 frames), the ViT-H/14 image tower (f32), the SD
+     VAE (bf16) and u2netp made on the card; `re_edit_3d_sv3d` at azimuth
+     30, elevation 10 (576^2 crop, VAE encode, ViT-H token, the orbit, the
+     frame decoded, matted and pasted back): 2 Euler steps (s per step),
+     then the published 50 (cut only past SV3D_ORBIT_BUDGET_S; the count
+     is printed), launches checked against the config (per step two passes
+     of 16 `flash_sdpa` and 105 `group_norm_silu`, plus the VAE's); the
+     stage times, a pass's time against its bf16 bound (its operations
+     counted on the meta device), peak memory, the view mask's share and
+     which branch ran;
+     then `generation` at phase 3D's protocol on the coarse edit (one
+     warm-up, two timed edits, launches checked; path SV3D is the two
+     together);
  G-XL. the full-width SDXL edit (`phase_sdxl`): `SDXLFreeFine` at
      `sdxl_pipeline_config()` (1024^2, bf16, full depth: UNet depths
      (1, 2, 10), dual text towers, added conditioning; random weights made
@@ -161,9 +183,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9, 3D, G-XL and PX; path D is one differentiated pass, paths S
-     and B one batched call, path 3D one 3D edit with its perception
-     calls, path XL one SDXL edit, path PX one PixArt edit;
+     4 to 9, 3D, SV3D, G-XL and PX; path D is one differentiated pass,
+     paths S and B one batched call, path 3D one 3D edit with its
+     perception calls, path SV3D one SV3D coarse edit and its refining
+     generation, path XL one SDXL edit, path PX one PixArt edit;
      `group_norm_silu` also has phase 9b's E and D under the default,
      E_gn_default and D_gn_default), the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
@@ -476,6 +499,15 @@ PERCEPTION_FLASH_SHAPES = [(1, 16, 1370, 64, "float32", False),
 CAST_FLASH_SHAPES = [(b, h, s, d, "bfloat16", m) for b, h, s, d, _, m in PERCEPTION_FLASH_SHAPES]
 FLASH_SHAPES += PERCEPTION_FLASH_SHAPES + CAST_FLASH_SHAPES
 NOT_ON_A_PATH = {(b, h, s, s, d, dt, m) for b, h, s, d, dt, m in CAST_FLASH_SHAPES}
+# The SV3D coarse 3D edit (phase SV3D): the video UNet's spatial
+# self-attention at batch 21 (one clip of 21 frames), heads of 64, at the
+# 72^2, 36^2 and 18^2 latents (5, 10 and 20 heads; ragged S 5184, 1296,
+# 324) and the 9^2 mid block (S 81, under one tile); the SD VAE's float32
+# head of 512 at S 5184 (a 576^2 frame, one encode and one decode).
+SV3D_FLASH_SHAPES = [(21, 5, 5184, 64, "bfloat16", False), (21, 10, 1296, 64, "bfloat16", False),
+                     (21, 20, 324, 64, "bfloat16", False), (21, 20, 81, 64, "bfloat16", False),
+                     (1, 1, 5184, 512, "float32", False)]
+FLASH_SHAPES += SV3D_FLASH_SHAPES
 # check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
 # fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
 # (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
@@ -673,7 +705,8 @@ def check_flash(gen, shape, timed: bool):
 # `guided_generation` and the differentiated edit pass D the edit layout,
 # `background_generation` the bggen one, the batched lanes their own.
 TCA_PATH_LAYOUT = {"generation": "edit", "guided": "edit", "bggen": "bggen", "D": "edit",
-                   "S": "shared", "B": "cases", "XL": "edit", "PX": "edit", "3D": "edit"}
+                   "S": "shared", "B": "cases", "XL": "edit", "PX": "edit", "3D": "edit",
+                   "SV3D": "edit"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1360,8 +1393,8 @@ def gn_shapes(cfg, paths=GN_PATH_BATCHES) -> list:
 
 
 def path_gn_shapes() -> list:
-    """`gn_shapes` of every path: SD-1.5's, phase G-XL's (SDXL) and phase
-    PX's (PixArt)."""
+    """`gn_shapes` of every path: SD-1.5's, phase G-XL's (SDXL), phase
+    PX's (PixArt) and phase SV3D's (`sv3d_gn_shapes`)."""
     from freefine_tpu_torch.config import (
         pixart_pipeline_config,
         sd15_pipeline_config,
@@ -1370,7 +1403,117 @@ def path_gn_shapes() -> list:
 
     return sorted(set(gn_shapes(sd15_pipeline_config()))
                   | set(gn_shapes(sdxl_pipeline_config(), GN_XL_PATH_BATCHES))
-                  | set(gn_shapes(pixart_pipeline_config(), GN_PX_PATH_BATCHES)))
+                  | set(gn_shapes(pixart_pipeline_config(), GN_PX_PATH_BATCHES))
+                  | set(sv3d_gn_shapes()))
+
+
+# SV3D's frame: the object's 576^2 square, a 72^2 latent
+SV3D_SIZE, SV3D_LATENT = 576, 72
+
+
+def video_unet_calls(u, side: int) -> tuple:
+    """One `VideoUNet` pass at a side^2 latent, worked out from its config
+    (in call order): (its GroupNorm32 calls as (batch, channels, height,
+    width, groups, eps): per res block the spatial norms at batch T and
+    the temporal ones over the frame-folded [1, C, T*H, W], per
+    transformer its input norm (eps 1e-6), the output norm; its
+    `masked_sdpa` calls as (batch T, heads, S, head dim), one per
+    transformer, the mid block's included)."""
+    t, g, ch0, n = u.num_frames, u.norm_num_groups, u.model_channels, len(u.channel_mult)
+    norms, attns, res = [], [], side
+
+    def resblock(cin, cout):
+        norms.extend([(t, cin, res, res, g, 1e-5), (t, cout, res, res, g, 1e-5),
+                      (1, cout, t * res, res, g, 1e-5), (1, cout, t * res, res, g, 1e-5)])
+
+    def transformer(c):
+        norms.append((t, c, res, res, g, 1e-6))
+        attns.append((t, c // u.num_head_channels, res * res, u.num_head_channels))
+
+    ch, skips = ch0, [ch0]
+    for lvl, mult in enumerate(u.channel_mult):
+        for _ in range(u.num_res_blocks):
+            resblock(ch, ch0 * mult)
+            ch = ch0 * mult
+            if u.attention_levels[lvl]:
+                transformer(ch)
+            skips.append(ch)
+        if lvl < n - 1:
+            res = (res + 1) // 2
+            skips.append(ch)
+    resblock(ch, ch)
+    transformer(ch)
+    resblock(ch, ch)
+    for lvl in reversed(range(n)):
+        for _ in range(u.num_res_blocks + 1):
+            resblock(ch + skips.pop(), ch0 * u.channel_mult[lvl])
+            ch = ch0 * u.channel_mult[lvl]
+            if u.attention_levels[lvl]:
+                transformer(ch)
+        if lvl > 0:
+            res *= 2
+    norms.append((t, ch, res, res, g, 1e-5))
+    return norms, attns
+
+
+def video_unet_pass_flops(u, side: int) -> dict:
+    """Floating-point operations of one `VideoUNet` pass at a side^2 latent:
+    its GEMMs and convolutions counted by `torch.utils.flop_counter` over
+    a trace on the meta device (GroupNorms and attention stubbed: no
+    weights, no device), its `masked_sdpa` calls' 4*B*H*S^2*d
+    (`video_unet_calls`), and its plain attentions' 4*B*Sq*Sk*E (the
+    temporal self-attention over T keys, the one-key cross-attention)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from freefine_tpu_torch.models import video_unet as V
+    from freefine_tpu_torch.models.layers import GroupNorm32
+
+    plain = []
+    saved = V.masked_sdpa, V.sdpa, GroupNorm32.forward
+    V.masked_sdpa = lambda q, k, v, heads: q
+    V.sdpa = lambda q, k, v, heads: (
+        plain.append(4 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]), q)[1]
+    GroupNorm32.forward = lambda self, x, silu=False: x
+    t = u.num_frames
+    try:
+        with torch.device("meta"):
+            model = V.VideoUNet(u)
+            with FlopCounterMode(display=False) as counter:
+                model(torch.zeros(t, side, side, u.in_channels), torch.zeros(t),
+                      torch.zeros(t, 1, u.context_dim), torch.zeros(t, u.adm_in_channels))
+    finally:
+        V.masked_sdpa, V.sdpa, GroupNorm32.forward = saved
+    _, attns = video_unet_calls(u, side)
+    return dict(gemm_conv=counter.get_total_flops(),
+                flash_sdpa=sum(4 * b * h * s * s * d for b, h, s, d in attns),
+                plain_attention=sum(plain))
+
+
+def sv3d_vae_config():
+    """The SD VAE at SV3D's 576^2 frame, as `norm_calls` takes a config."""
+    import types
+
+    from freefine_tpu_torch.config import VAEConfig
+
+    return types.SimpleNamespace(vae=VAEConfig(), height=SV3D_SIZE, width=SV3D_SIZE,
+                                 latent_height=SV3D_LATENT, latent_width=SV3D_LATENT)
+
+
+def sv3d_gn_shapes() -> list:
+    """`group_norm_silu` shapes of phase SV3D's coarse edit: every video
+    UNet norm (bf16, no SiLU: the module applies it after the cast) and
+    the VAE's at 576^2 (one encode, one decode, batch 1)."""
+    from freefine_tpu_torch.models.video_unet import sv3d_config
+
+    norms, _ = video_unet_calls(sv3d_config(), SV3D_LATENT)
+    out = {(b, c, h, w, g, eps, "bfloat16", False) for b, c, h, w, g, eps in norms}
+    vcfg = sv3d_vae_config()
+    dtype = str(vcfg.vae.dtype).split(".")[-1]
+    for kind in ("vae_encode", "vae_decode"):
+        out |= {(1, c, h, w, g, eps, dtype, silu) for c, h, w, g, eps, silu in
+                norm_calls(vcfg, kind)}
+    return sorted(out)
 
 
 # check-only: the eps / SiLU pairings no path runs at full width, float32
@@ -1427,42 +1570,78 @@ def _gn_dropped(x, scale, bias, plan, *, num_groups, eps, apply_silu):
     return y.to(x.dtype)
 
 
+def _gn_call_groups(rows, cap_bytes: int = 1 << 30):
+    """`rows` in order, cut into groups whose inputs together stay under
+    `cap_bytes` (a row larger than that is a group of its own)."""
+    group, size = [], 0
+    for row in rows:
+        b, c, h, w, *_ = row["key"]
+        n = 4 * b * c * h * w
+        if group and size + n > cap_bytes:
+            yield group
+            group, size = [], 0
+        group.append(row)
+        size += n
+    if group:
+        yield group
+
+
 def gn_launches_per_call(rows):
     """Device kernels that one `group_norm_silu` call launches at each timed
-    shape (torch.profiler, after a warm-up call), into each row; fails
-    unless it is one `gn::` kernel.  Run after the timed edits (a profiler
-    session can leave the host's launches slower for the rest of the
-    process), and before any other profiler session (after the profiled
-    edits of --profile, a session recorded no device event of a call this
-    short)."""
+    shape, into each row; fails unless it is one `gn::` kernel.  The shapes
+    go in groups of about 1 GiB of inputs (`_gn_call_groups`), one
+    torch.profiler session a group (up to three if a session records no
+    device event at all): the inputs are made and each shape called once
+    before the session, then each shape is called once, synchronised,
+    inside it, so the session's device events in order of start are the
+    calls' kernels in order of call (the device clock's offset from the
+    host's can move a kernel past the host's range of its call, not past
+    the next call's kernel).  One session a shape left a session with no
+    device event after a few hundred in one process.  Run after the timed
+    edits (a profiler session can leave the host's launches slower for the
+    rest of the process), and before any other profiler session (after the
+    profiled edits of --profile, a session recorded no device event of a
+    call this short)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from freefine_tpu_torch.ops import group_norm as G
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for row in rows:
-        b, c, h, w, g, eps, dtype, silu = row["key"]
-        x, scale, bias = _gn_inputs(gen, b, c, h, w, dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        G.group_norm_silu(x, scale, bias, num_groups=g, eps=eps, apply_silu=silu)
+    for group in _gn_call_groups(rows):
+        calls = []
+        for row in group:
+            b, c, h, w, g, eps, dtype, silu = row["key"]
+            x, scale, bias = _gn_inputs(gen, b, c, h, w, dtype)
+            calls.append(functools.partial(
+                G.group_norm_silu, x.contiguous(memory_format=torch.channels_last), scale,
+                bias, num_groups=g, eps=eps, apply_silu=silu))
+            calls[-1]()
         torch.cuda.synchronize()
         for attempt in range(3):  # a session now and then records no device event at all
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                G.group_norm_silu(x, scale, bias, num_groups=g, eps=eps, apply_silu=silu)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-            if names:
+                for call in calls:
+                    call()
+                    torch.cuda.synchronize()
+            kernels = sorted((e for e in prof.events()
+                              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                             key=lambda e: e.time_range.start)
+            if kernels:
                 break
-        row.update(kernels_per_call=len(names), kernel_names=sorted(set(names)),
-                   profiler_sessions=attempt + 1)
-        log(f"  group_norm_silu {row['key']}: {len(names)} kernel launch(es) per call "
-            f"{sorted(set(n.split('(')[0] for n in names))}"
-            + (f" ({attempt + 1} profiler sessions)" if attempt else ""))
-        if len(names) != 1 or "gn::gn_" not in names[0]:
-            raise AssertionError(f"group_norm_silu {row['key']}: one call launched {names}, not "
-                                 "one gn:: kernel")
+        del calls
+        if len(kernels) != len(group):
+            raise AssertionError(f"group_norm_silu: {len(group)} calls at {group[0]['key']} ... "
+                                 f"{group[-1]['key']} launched {len(kernels)} kernels "
+                                 f"{sorted({e.name for e in kernels})}, not one each")
+        for row, e in zip(group, kernels):
+            row.update(kernels_per_call=1, kernel_names=[e.name],
+                       profiler_sessions=attempt + 1)
+            log(f"  group_norm_silu {row['key']}: 1 kernel launch per call "
+                f"{e.name.split('(')[0]}" + (f" ({attempt + 1} profiler sessions)"
+                                              if attempt else ""))
+            if "gn::gn_" not in e.name:
+                raise AssertionError(f"group_norm_silu {row['key']}: one call launched "
+                                     f"{e.name}, not one gn:: kernel")
 
 
 def check_gn(gen, shape, timed: bool):
@@ -1704,7 +1883,9 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
         per=("one edit of each path (D: one differentiated pass; S and B: one batched call of "
              f"{BATCH_SHARED} and {BATCH_CASES} edits; XL: one SDXL 1024^2 edit; PX: one PixArt "
              "512^2 edit; 3D: one depth-based 3D edit, EfficientSAM's box mask and "
-             "Depth-Anything's depth included, its TCA launches weighted at G's edit masks; "
+             "Depth-Anything's depth included, its TCA launches weighted at G's edit masks; SV3D: one "
+             "SV3D coarse 3D edit (the 21-frame orbit, its VAE calls) and the generation that "
+             "refines it, TCA weighted at G's edit masks; "
              "group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
              "guided edit and differentiated pass under the default) together; per path under "
              "`paths`"),
@@ -3133,7 +3314,7 @@ def _tiny_pair(make, seed):
     return cpu.eval(), gpu.eval()
 
 
-def _held(out, name, got, want):
+def _held(out, name, got, want, label="3D"):
     """CUDA against the CPU: max |diff| over max |ref| within TINY_TOL."""
     import torch
 
@@ -3141,22 +3322,23 @@ def _held(out, name, got, want):
     err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
     out[name] = dict(max_abs_err_of_max_ref=err, tol=TINY_TOL,
                      finite=bool(torch.isfinite(got).all()))
-    log(f"  tiny 3D {name} CUDA vs CPU: max |diff| {err:.3g} of max |ref| (tol {TINY_TOL})")
+    log(f"  tiny {label} {name} CUDA vs CPU: max |diff| {err:.3g} of max |ref| "
+        f"(tol {TINY_TOL})")
     if not err <= TINY_TOL or not out[name]["finite"]:
-        raise AssertionError(f"tiny 3D {name}: CUDA and CPU disagree: {out[name]}")
+        raise AssertionError(f"tiny {label} {name}: CUDA and CPU disagree: {out[name]}")
 
 
-def _masks_held(out, name, got, want, share=MASK_SHARE, images=()):
+def _masks_held(out, name, got, want, share=MASK_SHARE, images=(), label="3D"):
     """Masks equal except at `share` of the pixels (scatter-add orders), each
     (got, want) image pair within 1 level where the masks agree."""
     differ = (np.asarray(got) > 0) != (np.asarray(want) > 0)
     levels = [int(np.abs(a.astype(int) - b.astype(int))[~differ].max()) for a, b in images]
     out[name] = dict(mask_pixels_differ=int(differ.sum()), pixels=int(differ.size),
                      image_max_level_diff=max(levels, default=0))
-    log(f"  tiny 3D {name} CUDA vs CPU: {int(differ.sum())} of {differ.size} mask pixels "
-        f"differ, images {out[name]['image_max_level_diff']} levels where they agree")
+    log(f"  tiny {label} {name} CUDA vs CPU: {int(differ.sum())} of {differ.size} mask "
+        f"pixels differ, images {out[name]['image_max_level_diff']} levels where they agree")
     if differ.mean() > share or out[name]["image_max_level_diff"] > 1:
-        raise AssertionError(f"tiny 3D {name}: CUDA and CPU disagree: {out[name]}")
+        raise AssertionError(f"tiny {label} {name}: CUDA and CPU disagree: {out[name]}")
 
 
 def phase_tiny_3d(record):
@@ -3422,10 +3604,302 @@ def phase_3d(record, pipe, store, timed_runs, profile):
     return Counter(shapes) + Counter(sam_shapes) + Counter(da_shapes)
 
 
+# ---------------------------------------------------------------------------
+# Phase SV3D: the SV3D coarse 3D edit (and its tiny checks of phase 3)
+# ---------------------------------------------------------------------------
+
+# the tiny configs of phase 3 (those of tests/test_torch_sv3d.py)
+TINY_VIDEO = dict(model_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                  attention_levels=(True, False), num_head_channels=8, context_dim=16,
+                  adm_in_channels=24, num_frames=3, norm_num_groups=4)
+TINY_VIT = dict(image_size=224, patch_size=32, hidden_size=32, intermediate_size=64,
+                num_layers=2, num_heads=2, projection_dim=16, activation="gelu")
+TINY_U2NET = dict(stages=((4, 4, 8), (3, 4, 8), (3, 4, 8), (3, 4, 8), (0, 4, 8), (0, 4, 8)),
+                  dstages=((0, 4, 8), (3, 4, 8), (3, 4, 8), (3, 4, 8), (4, 4, 8)))
+# masks from a thresholded saliency: pixels within rounding of the threshold may flip
+SALIENCY_MASK_SHARE = 5e-3
+# the target of phase SV3D's coarse edit (JAX's default elevation)
+SV3D_AZIMUTH, SV3D_ELEVATION = 30.0, 10.0
+SV3D_STEPS = 50           # the published Euler steps (sv3d_p.yaml)
+SV3D_ORBIT_BUDGET_S = 360.0  # the most phase SV3D's orbit may take before its steps are cut
+
+
+def _sv3d_noise(gen, t, side):
+    """The sampler's two draws (conditioning augmentation, x0), made on the
+    CPU from `gen`, so that both sides replay the same."""
+    import torch
+
+    return tuple(torch.randn(t, side, side, 4, generator=gen) for _ in range(2))
+
+
+def phase_tiny_sv3d(record):
+    """Phase 3's SV3D checks, CUDA against the CPU with the same float32
+    weights and draws (TF32 off; FREEFINE_FUSED_GN unset: the kernels on
+    the card, the two-pass math on the CPU): the tiny video UNet forward,
+    a 3-step tiny orbit (`SV3D.sample_latents`), the tiny ViT (pooled and
+    penultimate), u2netp's saliency at an even and an odd size and
+    `get_mask_from_saliency`, then the tiny `re_edit_3d_sv3d` (a tiny UNet
+    attending at its 36^2 level, the tiny SD-1.5 config's VAE, tiny ViT and
+    U^2-Net; a 576^2 frame) and `generation` at GeoBench-3D's protocol on
+    its output.  Into record["tiny_sv3d"]."""
+    import torch
+
+    from freefine_tpu_torch.config import tiny_pipeline_config
+    from freefine_tpu_torch.models import u2net as U
+    from freefine_tpu_torch.models.clip_image import CLIPImageEncoder, CLIPVisionConfig
+    from freefine_tpu_torch.models.sv3d import SV3D, re_edit_3d_sv3d
+    from freefine_tpu_torch.models.vae import AutoencoderKL
+    from freefine_tpu_torch.models.video_unet import VideoUNet, VideoUNetConfig
+    from freefine_tpu_torch.pipeline import FreeFine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = record["tiny_sv3d"] = {}
+    gen = torch.Generator().manual_seed(17)
+    vcfg = VideoUNetConfig(**TINY_VIDEO, dtype=torch.float32)
+    t = vcfg.num_frames
+    with fused_gn(None), torch.no_grad():
+        unet = _tiny_pair(lambda d: VideoUNet(vcfg, device=d), 4)
+        for i, m in enumerate(unet[0].modules()):   # mix factors off 0 on both sides
+            if hasattr(m, "mix_factor"):
+                m.mix_factor.fill_(0.7 - 0.3 * (i % 5))
+        unet[1].load_state_dict(unet[0].state_dict())
+        ins = (torch.randn(t, 8, 8, 8, generator=gen), torch.rand(t, generator=gen),
+               torch.randn(t, 1, 16, generator=gen), torch.randn(t, 24, generator=gen))
+        _held(out, "video_unet", unet[1](*(x.cuda() for x in ins)), unet[0](*ins), "SV3D")
+        cond, tok = torch.randn(1, 8, 8, 4, generator=gen), torch.randn(1, 1, 16, generator=gen)
+        noise = _sv3d_noise(gen, t, 8)
+        az, el = [0.0, 120.0, 240.0], [10.0] * t
+        lat = {d: SV3D(unet=m, num_frames=t, num_steps=3).sample_latents(
+            cond.to(d), tok.to(d), az, el, noise=tuple(n.to(d) for n in noise))
+            for d, m in zip(("cpu", "cuda"), unet)}
+        _held(out, "sample_latents_3_steps", lat["cuda"], lat["cpu"], "SV3D")
+        vit = _tiny_pair(lambda d: CLIPImageEncoder(CLIPVisionConfig(**TINY_VIT), device=d), 5)
+        x = torch.randn(2, 224, 224, 3, generator=gen)
+        _held(out, "clip_image", vit[1](x.cuda()), vit[0](x), "SV3D")
+        _held(out, "clip_image_penultimate", vit[1](x.cuda(), penultimate=True),
+              vit[0](x, penultimate=True), "SV3D")
+        u2p = _tiny_pair(lambda d: U.U2Net(U.u2netp_config(), device=d), 6)
+        for hw in ((64, 64), (45, 37)):
+            x = torch.rand(1, *hw, 3, generator=gen)
+            _held(out, f"u2netp_{hw[0]}x{hw[1]}", u2p[1](x.cuda()), u2p[0](x), "SV3D")
+        frame, _ = _case(70, 50, 9)
+        _masks_held(out, "get_mask_from_saliency",
+                    U.get_mask_from_saliency(u2p[1], frame, size=64),
+                    U.get_mask_from_saliency(u2p[0], frame, size=64), share=SALIENCY_MASK_SHARE,
+                    label="SV3D")
+        pcfg = tiny_pipeline_config()
+        # the coarse edit's UNet attends at its 36^2 level (the CPU side's twin at 72^2
+        # would hold S^2 logits of 5184 tokens)
+        ecfg = VideoUNetConfig(**{**TINY_VIDEO, "attention_levels": (False, True)},
+                               dtype=torch.float32)
+        eunet = _tiny_pair(lambda d: VideoUNet(ecfg, device=d), 12)
+        vae = _tiny_pair(lambda d: AutoencoderKL(pcfg.vae, device=d), 7)
+        u2 = _tiny_pair(lambda d: U.U2Net(U.U2NetConfig(**TINY_U2NET), device=d), 8)
+    img, mask = _case(pcfg.height, pcfg.width, 10)
+    side = SV3D_SIZE // 8
+    noise = _sv3d_noise(gen, t, side)
+    coarse = {}
+    with fused_gn(None):
+        for i, d in enumerate(("cpu", "cuda")):
+            coarse[d] = re_edit_3d_sv3d(
+                SV3D(unet=eunet[i], num_frames=t, num_steps=3), vae[i], vit[i], u2[i], img, mask,
+                SV3D_AZIMUTH, SV3D_ELEVATION, noise=tuple(n.to(d) for n in noise))
+    _masks_held(out, "re_edit_3d_sv3d", coarse["cuda"][1], coarse["cpu"][1],
+                share=SALIENCY_MASK_SHARE, images=[(coarse["cuda"][0], coarse["cpu"][0])],
+                label="SV3D")
+    tm = coarse["cpu"][1]
+    out["re_edit_3d_sv3d"]["target_share"] = float((tm > 0).mean())
+    cpu = FreeFine(pcfg, init_random=True, seed=0, device="cpu")
+    gpu = FreeFine(pcfg, params={n: m.state_dict() for n, m in cpu.components().items()},
+                   device="cuda")
+    stores = {name: {} for name in ("cpu", "cuda")}
+    for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+        _capture_latents(pipe, stores[name])
+    kw = dict(num_step=8, start_step=3, end_step=8, end_scale=0.0, draw_mask=tm,
+              use_auto_draw=False, cons_area=tm, reduce_inp_artifacts=True)
+    steps = [np.random.default_rng(11).standard_normal(
+        (2, pcfg.latent_height, pcfg.latent_width, 4)).astype(np.float32) for _ in range(5)]
+    imgs = {}
+    with fused_gn(None):
+        for name, pipe in (("cpu", cpu), ("cuda", gpu)):
+            imgs[name] = pipe.generation(img, mask, coarse["cpu"][0], tm, "a photo", **kw,
+                                         noise=[torch.from_numpy(z).to(name) for z in steps])
+    err = float((stores["cpu"]["lat"] - stores["cuda"]["lat"]).abs().max())
+    img_err = int(np.abs(imgs["cpu"].astype(int) - imgs["cuda"].astype(int)).max())
+    out["generation_after_sv3d"] = dict(latent_max_abs_err=err, latent_tol=TINY_TOL,
+                                        image_max_level_diff=img_err, fused_gn="unset")
+    log(f"  tiny SV3D generation after the coarse edit CUDA vs CPU: latents max |diff| "
+        f"{err:.3g} (tol {TINY_TOL}), image {img_err} levels; target mask "
+        f"{out['re_edit_3d_sv3d']['target_share']:.3f} of the pixels")
+    if not err <= TINY_TOL or img_err > 1:
+        raise AssertionError(f"tiny SV3D generation: CUDA and CPU disagree: "
+                             f"{out['generation_after_sv3d']}")
+
+
+def phase_sv3d(record, pipe, store, timed_runs, profile):
+    """Phase SV3D: the SV3D coarse 3D edit at full width, then `generation`
+    refining it on phase 4's SD-1.5 512^2 pipe (bf16), FREEFINE_FUSED_GN
+    unset.  SV3D_p's video UNet (`sv3d_config`: 320 channels, mult
+    (1, 2, 4, 4), 21 frames, 1024-d context, adm 1280, bf16), the ViT-H/14
+    image tower (f32), the SD VAE (bf16) and u2netp (f32), random weights
+    made on the card; phase 4's source image and object.
+    `re_edit_3d_sv3d` at azimuth 30, elevation 10 (crop to 576^2, VAE
+    encode, the ViT-H token, the 21-frame orbit, the frame decoded, matted
+    by U^2-Net and pasted back), first with 2 Euler steps (a warm-up, then
+    one counted run: s per step), then with the published 50 (cut only if
+    50 would take more than SV3D_ORBIT_BUDGET_S; the count that ran is
+    recorded), each run's launches checked against `video_unet_calls`
+    (per step two passes, conditional and unconditional) plus the VAE's
+    encode and decode; then `generation` at phase 3D's protocol on the
+    coarse image and target mask (one warm-up and `timed_runs` timed
+    edits, launches checked against `_expected`).  Returns the launches by
+    shape of one SV3D edit: the coarse edit and the generation (path
+    SV3D)."""
+    from collections import Counter
+
+    import torch
+
+    from freefine_tpu_torch.config import VAEConfig
+    from freefine_tpu_torch.models import u2net as U
+    from freefine_tpu_torch.models.clip_image import CLIPImageEncoder, clip_vit_h14
+    from freefine_tpu_torch.models.sv3d import SV3D, re_edit_3d_sv3d
+    from freefine_tpu_torch.models.vae import AutoencoderKL
+    from freefine_tpu_torch.models.video_unet import VideoUNet, sv3d_config
+    from freefine_tpu_torch.utils.profiling import StageTimer
+    from freefine_tpu_torch.weights import random_weights
+
+    cfg = pipe.config
+    h, w = cfg.height, cfg.width
+    img, mask, _, _ = edit_case(cfg)
+    card = record["card"]
+    dev = torch.device("cuda")
+    none = {k: 0 for k in _launch_counts()[0]}
+    info = record["sv3d"] = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ucfg = sv3d_config()
+    unet = random_weights(VideoUNet(ucfg, device=dev), 0).eval()
+    clip = random_weights(CLIPImageEncoder(clip_vit_h14(), device=dev), 1).eval()
+    vae = random_weights(AutoencoderKL(VAEConfig(), device=dev), 2).eval()
+    matting = random_weights(U.U2Net(U.u2netp_config(), device=dev), 3).eval()
+    torch.cuda.synchronize()
+    info.update(setup_s=time.perf_counter() - t0, parameters={
+        name: sum(p.numel() for p in m.parameters())
+        for name, m in (("video_unet", unet), ("clip_vit_h14", clip), ("vae", vae),
+                        ("u2netp", matting))})
+    log(f"  SV3D modules on the card in {info['setup_s']:.2f} s: {info['parameters']}")
+
+    norms, attns = video_unet_calls(ucfg, SV3D_LATENT)
+    flops = video_unet_pass_flops(ucfg, SV3D_LATENT)
+    pass_bound_ms = 1e3 * sum(flops.values()) / PEAK_FLOPS["bfloat16"]
+    vcfg = sv3d_vae_config()
+    vae_norms = len(norm_calls(vcfg, "vae_encode")) + len(norm_calls(vcfg, "vae_decode"))
+
+    def expect(steps):
+        passes = 2 * steps
+        return {**none, "flash_sdpa": passes * len(attns) + 2,
+                "group_norm_silu": passes * len(norms) + vae_norms}
+
+    seen = {}
+
+    def coarse(steps):
+        timer = StageTimer()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        res = re_edit_3d_sv3d(SV3D(unet=unet, num_steps=steps), vae, clip, matting, img, mask,
+                              SV3D_AZIMUTH, SV3D_ELEVATION, generator=gen, timer=timer,
+                              info=seen)
+        return res, timer
+
+    with fused_gn(None):
+        coarse(2)
+        (_, timer2), secs2, _ = counted("SV3D coarse edit, 2 steps", lambda: coarse(2),
+                                        expect(2))
+        step_s = timer2.records["orbit"][0] / 2
+        steps = SV3D_STEPS if SV3D_STEPS * step_s <= SV3D_ORBIT_BUDGET_S else max(
+            2, int(SV3D_ORBIT_BUDGET_S // step_s))
+        log(f"  2-step coarse edit {secs2:.2f} s, {step_s:.3f} s per Euler step: running "
+            f"{steps} of the published {SV3D_STEPS} steps [{card}]")
+        torch.cuda.reset_peak_memory_stats()
+        ((coarse_img, tm), timer), secs, coarse_shapes = counted(
+            "SV3D coarse edit", lambda: coarse(steps), expect(steps))
+        peak = torch.cuda.max_memory_allocated()
+        if profile:  # the 2-step edit: 4 of the orbit's passes, its VAE, ViT-H and matting
+            record["sv3d_coarse_profile"] = profile_edit(lambda: coarse(2),
+                                                         "profile_sv3d_coarse.txt")
+    stages = {k: v[0] for k, v in timer.records.items()}
+    x0, y0, x1, y1 = _bbox(mask)
+    outside = np.ones((h, w), bool)
+    outside[y0 : y1 + 1, x0 : x1 + 1] = False
+    info.update(
+        steps=steps, steps_published=SV3D_STEPS, steps_cut=steps != SV3D_STEPS,
+        two_step_edit_s=secs2, two_step_orbit_s=timer2.records["orbit"][0],
+        s_per_step=stages["orbit"] / steps, orbit_s=stages["orbit"], coarse_edit_s=secs,
+        pass_flops=flops, pass_bound_ms=pass_bound_ms,
+        pass_ms=1e3 * stages["orbit"] / (2 * steps),
+        stage_ms={k: 1e3 * v for k, v in stages.items()}, peak_memory_bytes=peak,
+        view_mask_share=seen["view_mask_share"], paste_branch=seen["view_mask_share"] > 0,
+        target_share=float((tm > 0).mean()),
+        launches=expect(steps), launches_by_shape=[[*k, n] for k, n in
+                                                   sorted(coarse_shapes.items())])
+    log(f"  SV3D coarse edit ({steps} Euler steps, {2 * steps} video UNet passes at batch 21): "
+        f"{secs:.2f} s, orbit {stages['orbit']:.2f} s, {info['s_per_step']:.4f} s per Euler "
+        f"step; ViT-H token {1e3 * stages['clip']:.1f} ms, VAE encode "
+        f"{1e3 * stages['vae_encode']:.1f} ms, decode {1e3 * stages['vae_decode']:.1f} ms, "
+        f"U^2-Net matting {1e3 * stages['matting']:.1f} ms, crop "
+        f"{1e3 * stages['crop']:.1f} ms, paste {1e3 * stages['paste']:.1f} ms; peak "
+        f"{peak / 2**30:.2f} GiB; launches {expect(steps)} [{card}]")
+    log(f"  one video UNet pass: {info['pass_ms']:.1f} ms against a bf16 bound of "
+        f"{pass_bound_ms:.1f} ms ({info['pass_bound_ms'] / info['pass_ms']:.3f} of it): "
+        f"{flops['gemm_conv'] / 1e12:.2f} TFLOP of GEMMs and convolutions, "
+        f"{flops['flash_sdpa'] / 1e12:.2f} in flash_sdpa, "
+        f"{flops['plain_attention'] / 1e12:.3f} in plain attention [{card}]")
+    log(f"  view mask {info['view_mask_share']:.4f} of the 576^2 frame: "
+        + ("the paste branch ran" if info["paste_branch"] else
+           "empty, so JAX's empty-mask branch ran (background returned, empty target mask)")
+        + f"; target mask {info['target_share']:.4f} of the image")
+    if coarse_img.shape != (h, w, 3) or coarse_img.dtype != np.uint8 or tm.shape != (h, w) or \
+            not np.array_equal(coarse_img[outside], img[outside]) or \
+            (tm[outside] > 0).any() or info["paste_branch"] != bool(tm.any()):
+        raise AssertionError(f"SV3D coarse edit: {info}")
+    del unet, clip, vae, matting
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    num_step, start_step = 50, 15
+    k = num_step - start_step
+    kw = dict(guidance_scale=7.5, eta=1.0, num_step=num_step, start_step=start_step,
+              end_step=num_step, end_scale=0.0, method_type="tca", draw_mask=tm,
+              use_auto_draw=False, cons_area=tm, reduce_inp_artifacts=True, seed=42)
+    gexpect = _expected(cfg, pipe, k, k, fused=True)
+
+    def run():
+        return pipe.generation(img, mask, coarse_img, tm, "a photo of a cat", **kw)
+
+    with fused_gn(None):
+        gshapes = timed_edits(record, "sv3d_refine", run, gexpect, timed_runs, store, (h, w))
+        if profile:
+            record["sv3d_refine_profile"] = profile_edit(run, "profile_sv3d_refine.txt")
+    _gn_shapes_checked("sv3d_refine", gshapes)
+    _gn_shapes_checked("sv3d_coarse", coarse_shapes)
+    info.update(refine_s=record["sv3d_refine"]["seconds_per_edit"], refine_launches=gexpect,
+                protocol=("SV3D_p coarse edit (re_edit_3d_sv3d, azimuth 30, elevation 10, "
+                          f"{steps} EDM Euler steps, triangle CFG 1..2.5, 21 frames at 576^2; "
+                          "bf16 video UNet and VAE, f32 ViT-H/14 and u2netp, random weights), "
+                          "then GeoBench-3D regeneration on SD-1.5 512^2 (50-step DDIM, "
+                          "start 15, TCA to the end, end_scale 0, draw mask = cons_area = the "
+                          "target mask), FREEFINE_FUSED_GN unset"))
+    log(f"  SV3D edit: coarse {secs:.2f} s + refining generation "
+        f"{record['sv3d_refine']['seconds_per_edit']} s [{card}]")
+    return Counter(coarse_shapes) + Counter(gshapes)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b, 3D, G-XL and PX (kernel and tiny checks only)")
+                    help="skip phases 4 to 9b, 3D, SV3D, G-XL and PX (kernel and tiny checks "
+                         "only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
@@ -3466,6 +3940,7 @@ def main():
     for model in ("xl", "dit", "pixart"):
         phase_tiny(record, model)
     phase_tiny_3d(record)
+    phase_tiny_sv3d(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -3497,6 +3972,9 @@ def main():
         log("phase 3D: SD-1.5 512^2 depth-based 3D edit (EfficientSAM box mask, Depth-Anything "
             "depth, point-splat coarse edit, GeoBench-3D warp, generation at the 3D protocol)")
         counts["3D"] = phase_3d(record, pipe, store, args.timed_runs, args.profile)
+        log("phase SV3D: the SV3D coarse 3D edit (video UNet orbit of 21 frames at 576^2, "
+            "ViT-H token, U^2-Net matting), then generation at the 3D protocol")
+        counts["SV3D"] = phase_sv3d(record, pipe, store, args.timed_runs, args.profile)
         del pipe, case, store
         gc.collect()
         torch.cuda.empty_cache()

@@ -141,9 +141,34 @@ class PlainGroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class FrozenBatchNorm2d(nn.Module):
+    """Inference-mode BatchNorm of an NCHW map: (x - running_mean) /
+    sqrt(running_var + eps) * weight + bias in float32, output in the input
+    dtype, whatever the module's train/eval mode.  Its tensors are
+    BatchNorm2d's but for `num_batches_tracked`, which inference never
+    reads (U^2-Net's `bn_s1`)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(channels, dtype=torch.float32, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(channels, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = (1, -1, 1, 1)
+        y = (x.float() - self.running_mean.reshape(c)) / torch.sqrt(
+            self.running_var.reshape(c) + self.eps)
+        return (y * self.weight.reshape(c) + self.bias.reshape(c)).to(x.dtype)
+
+
 # the norms (and DINOv2's LayerScale) whose weight `weights.random_weights`
 # fills with 1
-NORM_TYPES = (GroupNorm32, LayerNorm32, RMSNorm, LayerScale, LayerNorm2d, PlainGroupNorm)
+NORM_TYPES = (GroupNorm32, LayerNorm32, RMSNorm, LayerScale, LayerNorm2d, PlainGroupNorm,
+              FrozenBatchNorm2d)
 
 
 class TimestepEmbedding(nn.Module):

@@ -27,20 +27,39 @@ class CLIPAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
-        b, s, e = x.shape
-        d = e // self.heads
-
-        def split(t):
-            return t.reshape(b, s, self.heads, d).transpose(1, 2)
-
-        qh, kh = split(self.q_proj(x)).float(), split(self.k_proj(x)).float()
-        vh = split(self.v_proj(x))
-        logits = torch.matmul(qh, kh.transpose(-1, -2)) / torch.sqrt(
-            torch.tensor(float(d), dtype=torch.float32)
-        )
-        probs = torch.softmax(logits + causal_mask, dim=-1).to(vh.dtype)
-        out = torch.matmul(probs, vh).transpose(1, 2).reshape(b, s, e)
+        out = clip_attention(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.heads,
+                             causal_mask)
         return self.out_proj(out)
+
+
+def clip_attention(q, k, v, heads: int, mask=None) -> torch.Tensor:
+    """The CLIP towers' attention of q, k, v [B, S, E]: float32 logits and
+    softmax (plus the additive `mask`), the probabilities cast to v's dtype
+    for the product.  -> [B, S, E]."""
+    b, s, e = q.shape
+    d = e // heads
+
+    def split(t):
+        return t.reshape(b, s, heads, d).transpose(1, 2)
+
+    qh, kh, vh = split(q).float(), split(k).float(), split(v)
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) / torch.sqrt(
+        torch.tensor(float(d), dtype=torch.float32)
+    )
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1).to(vh.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2).reshape(b, s, e)
+
+
+def clip_activation(h: torch.Tensor, activation: str) -> torch.Tensor:
+    """QuickGELU, x * sigmoid(1.702 x) (OpenAI CLIP), or with "gelu" exact
+    GELU (the OpenCLIP-trained towers)."""
+    if activation == "gelu":
+        return F.gelu(h)
+    if activation == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    raise ValueError(f"unknown CLIP MLP activation {activation!r}")
 
 
 class CLIPMLP(nn.Module):
@@ -57,10 +76,7 @@ class CLIPMLP(nn.Module):
         self.fc2 = nn.Linear(intermediate, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(x)
-        if self.activation == "gelu":
-            return self.fc2(F.gelu(h))
-        return self.fc2(h * torch.sigmoid(1.702 * h))
+        return self.fc2(clip_activation(self.fc1(x), self.activation))
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -14,7 +14,9 @@ adds:
     transposed into transformers' names); the PixArt DiT's tree (diffusers'
     `PixArtTransformer2DModel` names, the AdaLN `scale_shift_table`s) and
     the T5 tower's (transformers' `T5EncoderModel` names); DINOv2's
-    (torchhub names), Depth-Anything's and EfficientSAM's;
+    (torchhub names), Depth-Anything's and EfficientSAM's; SV3D's video
+    UNet (sgm's names), the CLIP image tower (open_clip's) and U^2-Net
+    (the official names);
   * `random_weights(model, seed)` — the random-weight scheme of the
     throughput bench: norm weights 1, other 1-D leaves 0, matrices
     N(0, 0.02) drawn in float32 from a seeded `torch.Generator` and stored
@@ -33,7 +35,9 @@ adds:
   * the perception checkpoints: `load_depth_anything` (transformers'
     `DepthAnythingForDepthEstimation` safetensors, its DINOv2 backbone
     renamed by the port's copy of `hf_dinov2_to_torchhub`) and
-    `load_efficient_sam` (the published `torch.save`d file).
+    `load_efficient_sam` (the published `torch.save`d file);
+  * SV3D: `load_sv3d` (one sv3d_p.safetensors split into the video UNet,
+    the ViT-H image tower and the VAE) and `load_u2net` (u2netp.pth).
 """
 
 from __future__ import annotations
@@ -268,16 +272,163 @@ def _t5_items(tree: Mapping):
             yield (".".join([key, *proj, "weight"]), a.T if name == "kernel" else a, where)
 
 
+def _torch_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """A flax kernel in torch's layout: conv HWIO -> OIHW, dense IO -> OI."""
+    if name == "kernel":
+        if a.ndim == 4:
+            return a.transpose(3, 2, 0, 1)
+        if a.ndim == 2:
+            return a.T
+    return a
+
+
+def _clip_image_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of a CLIP image
+    tower's flax tree (`freefine_tpu.models.clip_image`), in open_clip's
+    `VisionTransformer` names: the inverse of
+    `freefine_tpu.weights.convert_open_clip_vision`.  Each layer's q, k, v
+    projections are fused (in that order) into `attn.in_proj_weight` and
+    `attn.in_proj_bias`."""
+    bare = {"class_embedding": "class_embedding", "position_embedding": "positional_embedding",
+            "visual_projection": "proj"}
+    norms = {"pre_layrnorm": "ln_pre", "post_layernorm": "ln_post"}
+    layer = {"layer_norm1": "ln_1", "layer_norm2": "ln_2", "out_proj": "attn.out_proj",
+             "fc1": "mlp.c_fc", "fc2": "mlp.c_proj"}
+    qkv: Dict[tuple, dict] = {}
+    for path, leaf in _flatten(tree):
+        mods = [m for m in path[:-1] if m not in ("params", "LayerNorm_0")]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        if name in bare:
+            yield bare[name], a, where
+        elif mods == ["patch_embedding"]:
+            yield "conv1.weight", _torch_layout(name, a), where
+        elif mods[0] in norms:
+            yield f"{norms[mods[0]]}.{_LEAF_MAP[name]}", a, where
+        else:
+            base = f"transformer.resblocks.{mods[0].rsplit('_', 1)[1]}"
+            sub = mods[-1]
+            if sub in ("q_proj", "k_proj", "v_proj"):
+                qkv.setdefault((base, name), {})[sub[0]] = (_torch_layout(name, a), where)
+            else:
+                yield f"{base}.{layer[sub]}.{_LEAF_MAP[name]}", _torch_layout(name, a), where
+    for (base, name), parts in qkv.items():
+        fused = np.concatenate([parts[p][0] for p in "qkv"], axis=0)
+        yield (f"{base}.attn.in_proj_{'weight' if name == 'kernel' else 'bias'}", fused,
+               parts["q"][1])
+
+
+_U2NET_BN = {"bn_scale": "bn_s1.weight", "bn_bias": "bn_s1.bias",
+             "bn_mean": "bn_s1.running_mean", "bn_var": "bn_s1.running_var"}
+
+
+def _u2net_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of a U^2-Net's flax
+    tree, in the official names (`conv_s1` / `bn_s1` under each ConvBNReLU;
+    sides and `outconv` plain): the inverse of
+    `freefine_tpu.weights.convert_u2net`."""
+    for path, leaf in _flatten(tree):
+        mods = [m for m in path[:-1] if m != "params"]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        if name in _U2NET_BN:
+            yield ".".join(mods + [_U2NET_BN[name]]), a, where
+        elif mods[-1] == "conv":
+            yield ".".join(mods[:-1] + ["conv_s1", _LEAF_MAP[name]]), _torch_layout(name, a), where
+        else:
+            yield ".".join(mods + [_LEAF_MAP[name]]), _torch_layout(name, a), where
+
+
+# the flax video UNet's res-block and transformer leaves -> sgm's names
+_SGM_RES = {"norm1": "in_layers.0", "conv1": "in_layers.2", "time_emb_proj": "emb_layers.1",
+            "norm2": "out_layers.0", "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+_SGM_ATTN = {"attn1_to_q": "attn1.to_q", "attn1_to_k": "attn1.to_k", "attn1_to_v": "attn1.to_v",
+             "attn1_to_out": "attn1.to_out.0", "attn2_to_q": "attn2.to_q",
+             "attn2_to_k": "attn2.to_k", "attn2_to_v": "attn2.to_v",
+             "attn2_to_out": "attn2.to_out.0", "ff_in": "ff_in", "ff": "ff", "net_0": "net.0",
+             "net_2": "net.2", "proj": "proj", "norm_in": "norm_in", "norm1": "norm1",
+             "norm2": "norm2", "norm3": "norm3"}
+
+
+def _sgm_block_positions(channel_mult=(1, 2, 4, 4), num_res: int = 2,
+                        attention_levels=(True, True, True, False)) -> Dict[str, str]:
+    """The flax video UNet's block names -> sgm's module paths
+    (`input_blocks.i.j`, `middle_block.j`, `output_blocks.i.j`; an up
+    level's upsampler after its attention where the level has one).  The
+    port's copy of `freefine_tpu.weights_sv3d._block_positions`."""
+    pos, i, n = {}, 1, len(channel_mult)
+    for lvl in range(n):
+        for j in range(num_res):
+            pos[f"down_{lvl}_res_{j}"] = f"input_blocks.{i}.0"
+            pos[f"down_{lvl}_attn_{j}"] = f"input_blocks.{i}.1"
+            i += 1
+        if lvl < n - 1:
+            pos[f"down_{lvl}_ds"] = f"input_blocks.{i}.0.op"
+            i += 1
+    pos.update(mid_res_0="middle_block.0", mid_attn="middle_block.1", mid_res_1="middle_block.2")
+    i = 0
+    for u in range(n):
+        lvl = n - 1 - u
+        for j in range(num_res + 1):
+            pos[f"up_{u}_res_{j}"] = f"output_blocks.{i}.0"
+            pos[f"up_{u}_attn_{j}"] = f"output_blocks.{i}.1"
+            if j == num_res:
+                pos[f"up_{u}_us"] = f"output_blocks.{i}.{2 if attention_levels[lvl] else 1}.conv"
+            i += 1
+    pos.update(conv_in="input_blocks.0.0", label_emb_0="label_emb.0.0",
+               label_emb_2="label_emb.0.2", out_norm="out.0", out_conv="out.2")
+    return pos
+
+
+def _video_unet_items(tree: Mapping, cfg):
+    """(state-dict key, array, flax path) of each leaf of the flax video
+    UNet's tree (`freefine_tpu.models.video_unet`), in sgm's names (the
+    `model.diffusion_model.` prefix dropped): the inverse of
+    `freefine_tpu.weights_sv3d.convert_sv3d_unet`.  The temporal res
+    blocks' (3, 1) kernels become the checkpoint's 5-D [out, in, 3, 1, 1]."""
+    pos = _sgm_block_positions(cfg.channel_mult, cfg.num_res_blocks, cfg.attention_levels)
+    for path, leaf in _flatten(tree):
+        top, *mods = [m for m in path[:-1] if m not in ("params", "LayerNorm_0")]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        if top == "time_embed":
+            key = f"time_embed.{ {'linear_1': 0, 'linear_2': 2}[mods[0]] }"
+        elif "_res_" in top:
+            if mods and mods[0] == "time_stack":
+                key = f"{pos[top]}.time_stack.{_SGM_RES[mods[1]]}"
+                if name == "kernel" and a.ndim == 4:
+                    a = a.transpose(3, 2, 0, 1)[..., None]
+            else:
+                key = ".".join([pos[top]] + [_SGM_RES.get(m, m) for m in mods])
+        elif "attn" in top:
+            if mods[0] in ("norm", "proj_in", "proj_out", "time_mixer"):
+                key = ".".join([pos[top]] + mods)
+            elif mods[0] == "time_stack" and mods[1].startswith("time_pos_embed"):
+                key = f"{pos[top]}.time_pos_embed.{mods[1][-1]}"
+            elif mods[0] == "time_stack":
+                key = ".".join([f"{pos[top]}.time_stack.0"] + [_SGM_ATTN[m] for m in mods[1:]])
+            else:
+                key = ".".join([f"{pos[top]}.transformer_blocks.0"]
+                               + [_SGM_ATTN[m] for m in mods])
+        else:
+            key = pos[top]
+        leaf_name = "mix_factor" if name == "mix_factor" else _LEAF_MAP[name]
+        yield f"{key}.{leaf_name}", _torch_layout(name, a), where
+
+
 def _flax_items(tree: Mapping, model: nn.Module):
     """(state-dict key, array in the torch layout, flax path) of each leaf."""
+    from freefine_tpu_torch.models.clip_image import CLIPImageEncoder
     from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
     from freefine_tpu_torch.models.t5 import T5Encoder
+    from freefine_tpu_torch.models.u2net import U2Net
+    from freefine_tpu_torch.models.video_unet import VideoUNet
 
-    if isinstance(model, OpenCLIPTextHidden):
-        yield from _open_clip_items(tree)
-        return
-    if isinstance(model, T5Encoder):
-        yield from _t5_items(tree)
+    special = {OpenCLIPTextHidden: _open_clip_items, T5Encoder: _t5_items,
+               CLIPImageEncoder: _clip_image_items, U2Net: _u2net_items}
+    for cls, items in special.items():
+        if isinstance(model, cls):
+            yield from items(tree)
+            return
+    if isinstance(model, VideoUNet):
+        yield from _video_unet_items(tree, model.config)
         return
     rewrites = _rewrites_for(model)
     deconv = _DECONV_KEYS.get(rewrites)
@@ -814,4 +965,63 @@ def load_efficient_sam(model: nn.Module, path: str) -> nn.Module:
     model."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(_convert(raw.get("model", raw), model.state_dict()))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# SV3D: the sgm checkpoint and U^2-Net
+# ---------------------------------------------------------------------------
+
+_SV3D_CLIP_PREFIX = "conditioner.embedders.0.open_clip.model.visual."
+# a video decoder's temporal tensors (sgm's VideoDecoder: `time_stack`,
+# `time_mixer`, `time_mix_conv`, ...), which the image VAE has no place for
+_VIDEO_VAE_ONLY = re.compile(r"\.(time_[a-z_]+|video_time_embed)\.")
+
+
+def load_sv3d(path: str, unet_config=None, clip_config=None,
+              vae_config=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """sv3d_p.safetensors (one sgm checkpoint, read by the port's own
+    reader) -> {"unet", "clip_image", "vae"} state dicts for
+    `VideoUNet(unet_config)` (`model.diffusion_model.*`, sgm's names as they
+    are), `CLIPImageEncoder(clip_config)` (the open_clip ViT-H under
+    `conditioner.embedders.0.open_clip.model.visual.*`) and
+    `AutoencoderKL(vae_config)` (`first_stage_model.*` through the LDM VAE
+    renames).  Configs default to SV3D_p's (`sv3d_config`, `clip_vit_h14`,
+    `VAEConfig()`); each tensor is cast to its module's dtype, which the
+    config sets.  A missing or misshapen tensor raises, and so does a
+    video decoder's temporal tensor (`_VIDEO_VAE_ONLY`): the port decodes
+    with the image VAE, as the JAX package does, and would decode such a
+    checkpoint otherwise than sgm's VideoDecoder."""
+    from freefine_tpu_torch.config import VAEConfig
+    from freefine_tpu_torch.models.clip_image import CLIPImageEncoder, clip_vit_h14
+    from freefine_tpu_torch.models.vae import AutoencoderKL
+    from freefine_tpu_torch.models.video_unet import VideoUNet, sv3d_config
+
+    sd = read_safetensors(path)
+    temporal = sorted(k for k in sd
+                      if k.startswith(_LDM_VAE_PREFIX) and _VIDEO_VAE_ONLY.search(k))
+    if temporal:
+        raise ValueError(f"{path} holds a video decoder ({len(temporal)} temporal VAE tensors, "
+                         f"e.g. {temporal[:3]}); the image VAE would decode it otherwise")
+    with torch.device("meta"):
+        want = {"unet": VideoUNet(unet_config or sv3d_config()).state_dict(),
+                "clip_image": CLIPImageEncoder(clip_config or clip_vit_h14()).state_dict(),
+                "vae": AutoencoderKL(vae_config or VAEConfig()).state_dict()}
+
+    def under(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    tensors = {"unet": under(_LDM_UNET_PREFIX), "clip_image": under(_SV3D_CLIP_PREFIX),
+               "vae": _ldm_vae_to_diffusers(sd)}
+    return {name: _convert(tensors[name], want[name]) for name in want}
+
+
+def load_u2net(model: nn.Module, path: str) -> nn.Module:
+    """Fill a `U2Net` in place from the official u2net.pth / u2netp.pth (a
+    `torch.save`d state dict, read with `torch.load(weights_only=True)`),
+    each tensor cast to the model's dtype; the BatchNorms'
+    `num_batches_tracked`, which inference never reads, is ignored.  A
+    missing or misshapen tensor raises.  Returns the model."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(_convert(raw.get("state_dict", raw), model.state_dict()))
     return model

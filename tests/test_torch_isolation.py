@@ -67,7 +67,9 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.models.dinov2, freefine_tpu_torch.models.depth_anything\n"
         "import freefine_tpu_torch.models.efficient_sam, freefine_tpu_torch.ops.resize\n"
         "import freefine_tpu_torch.ops.point_splat, freefine_tpu_torch.ops.geodiff_warp\n"
-        "import freefine_tpu_torch.data.author3d\n"
+        "import freefine_tpu_torch.data.author3d, freefine_tpu_torch.data.datagen\n"
+        "import freefine_tpu_torch.models.video_unet, freefine_tpu_torch.models.sv3d\n"
+        "import freefine_tpu_torch.models.clip_image, freefine_tpu_torch.models.u2net\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2')]\n"
         "print(','.join(bad))\n"
