@@ -31,7 +31,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      10, 324 / 20 and the mid block's 81 / 20, all ragged; the VAE's f32
      S 5184 / d 512 head of a 576^2 frame; `group_norm_silu` at every video
      UNet norm, the temporal ones over the frame-folded [1, C, 21*H, W]
-     slabs, and at the 576^2 VAE slabs), plus
+     slabs, and at the 576^2 VAE slabs) and of phases FLOW and MG (DIFT's
+     UNet pass at batch 8: `flash_sdpa` and `group_norm_silu`; the
+     MotionGuidance energy's UNet at batch 2 through the forward with
+     logsumexp, dQ and dK/dV, and the VAE decoder's f32 head of 512 at
+     S 4096 through the same at batch 1, batch 2 held and timed too, with
+     the dropped-tile teeth and the library's autograd backward), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one CTA's positions, dropped must fail); `group_norm_silu`
@@ -80,7 +85,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `author_case` (masks equal but for 0.05 % of the pixels, images within
      1 level where they agree); the tiny video UNet, a 3-step tiny orbit,
      the tiny ViT, u2netp and its mask, the tiny `re_edit_3d_sv3d` and
-     `generation` on its output (FREEFINE_FUSED_GN unset);
+     `generation` on its output (FREEFINE_FUSED_GN unset); `corr_block`
+     and its gradient, the full-width RAFT at 64^2 (iters 2) and its
+     gradient to the second image, the gradient through the tiny VAE's
+     decode, the DIFT featurizer and `MotionGuidance.edit` (steps 2,
+     recursion 2, the same draws) at guidance weight 0, and at 300 on the
+     card alone (finite, moved; `phase_tiny_mg`);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -157,6 +167,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      then `generation` at phase 3D's protocol on the coarse edit (one
      warm-up, two timed edits, launches checked; path SV3D is the two
      together);
+ FLOW. RAFT at full width (`phase_flow`: iters 5, f32, random weights
+     made on the card) between two 512^2 images, the forward and the
+     forward and backward to the second image, times and peaks (no kernel
+     of the table launched); one DIFT featurisation of a 512^2 image on
+     phase 4's pipe (ensemble 8, t 261, FREEFINE_FUSED_GN unset), time,
+     peak and launches checked (path DIFT);
+ MG. `MotionGuidance.edit` on phase 4's pipe with that RAFT (`phase_mg`):
+     GeoBench's weights, the schedule cut to 2 DDIM steps x 2 recursive
+     steps (4 energy gradients); one warm-up under each GroupNorm route,
+     then the default and "0" in turns (auto, 0, 0, auto), launches
+     checked against the config; per energy gradient its device time and
+     its split across UNet, decode and RAFT (CUDA events at the `mg::`
+     ranges' boundaries), the peak, the launches by shape (path MG), the
+     gradients finite and non-zero inside the object, and the protocol's
+     500 gradients projected (labelled as a projection);
  G-XL. the full-width SDXL edit (`phase_sdxl`): `SDXLFreeFine` at
      `sdxl_pipeline_config()` (1024^2, bf16, full depth: UNet depths
      (1, 2, 10), dual text towers, added conditioning; random weights made
@@ -183,10 +208,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9, 3D, SV3D, G-XL and PX; path D is one differentiated pass,
+     4 to 9, 3D, SV3D, FLOW, MG, G-XL and PX; path D is one differentiated pass,
      paths S and B one batched call, path 3D one 3D edit with its
      perception calls, path SV3D one SV3D coarse edit and its refining
-     generation, path XL one SDXL edit, path PX one PixArt edit;
+     generation, path DIFT one DIFT featurisation, path MG one
+     MotionGuidance edit, path XL one SDXL edit, path PX one PixArt edit;
      `group_norm_silu` also has phase 9b's E and D under the default,
      E_gn_default and D_gn_default), the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
@@ -470,8 +496,11 @@ BATCH_SHARED, BATCH_CASES = 16, 8
 # here, or a shape timed here that no path launches.
 LANE_UNET_BATCHES = (BATCH_SHARED, 2 * BATCH_SHARED, 2 * BATCH_CASES, 3 * BATCH_CASES)
 LANE_VAE_BATCHES = (BATCH_SHARED + 1, BATCH_SHARED, 2 * BATCH_CASES, BATCH_CASES)
+# phase FLOW's DIFT featurisation: one UNet pass over its ensemble
+DIFT_ENSEMBLE = 8
 FLASH_SHAPES = [
-    (b, 8, s, d, "bfloat16", False) for b in sorted({1, 2, 3, 4, *LANE_UNET_BATCHES})
+    (b, 8, s, d, "bfloat16", False) for b in sorted({1, 2, 3, 4, DIFT_ENSEMBLE,
+                                                      *LANE_UNET_BATCHES})
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
 ] + [(4, 8, 4096, 40, "bfloat16", True), (4, 8, 1024, 80, "bfloat16", True)] + [
     (b, 1, 4096, 512, "float32", False) for b in sorted({2, 1, *LANE_VAE_BATCHES}, reverse=True)]
@@ -539,9 +568,16 @@ TCA_EXTRA = [(6, 4, 1000, 40, "bfloat16"), (6, 1, 64, 16, "float32"),
 # of the plain UNet (forward with logsumexp; the backward reaches the 10
 # layers upstream of the feature taps: down 6, mid 1, up block 1 3); and of
 # the differentiated TCA edit pass (phase 8): batch 3, the 10 layers outside
-# the TCA window (down 6, mid 1, up block 1 3), forward and backward.
-GRAD_SHAPES = [(b, 8, s, s, d, "bfloat16") for b in (1, 3)
+# the TCA window (down 6, mid 1, up block 1 3), forward and backward; and
+# MotionGuidance's energy gradient (phase MG): the UNet at batch 2 (every
+# layer, forward and backward) and the VAE decoder's f32 mid-block head of
+# 512 at S 4096, batch 1 (batch 2 held and timed too, a decode of two
+# images that no path runs).
+GRAD_SHAPES = [(b, 8, s, s, d, "bfloat16") for b in (1, 2, 3)
                for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+MG_VAE_GRAD_SHAPES = [(b, 1, 4096, 4096, 512, "float32") for b in (1, 2)]
+GRAD_SHAPES += MG_VAE_GRAD_SHAPES
+NOT_ON_A_PATH.add((2, 1, 4096, 4096, 512, "float32", False))
 # check-only, all masked with one fully masked batch row: ragged Sq != Sk,
 # and f32 at the tiny configuration's head dims (16, 32, 64)
 GRAD_EXTRA = [(2, 2, 1024, 1024, 80, "bfloat16"), (2, 2, 300, 77, 40, "bfloat16"),
@@ -1364,6 +1400,10 @@ def norm_calls(cfg, kind: str) -> list:
 # 3C, encode 2C, decode C).
 GN_PATH_BATCHES = {
     "generation": {"unet": (2, 3), "vae_encode": (2,), "vae_decode": (1,)},
+    # phase MG: the energy's UNet at batch 2 and decode of one image, the
+    # source's encode; phase FLOW's DIFT: the ensemble's pass, one encode
+    "MG": {"unet": (2,), "vae_encode": (1,), "vae_decode": (1,)},
+    "DIFT": {"unet": (DIFT_ENSEMBLE,), "vae_encode": (1,)},
     "bggen": {"unet": (1, 3), "vae_encode": (1,), "vae_decode": (1,)},
     "compose": {"unet": (3, 4), "vae_encode": (1,), "vae_decode": (1,)},
     "S": {"unet": (BATCH_SHARED, 1, 2 * BATCH_SHARED), "vae_encode": (BATCH_SHARED + 1,),
@@ -1885,7 +1925,9 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
              "512^2 edit; 3D: one depth-based 3D edit, EfficientSAM's box mask and "
              "Depth-Anything's depth included, its TCA launches weighted at G's edit masks; SV3D: one "
              "SV3D coarse 3D edit (the 21-frame orbit, its VAE calls) and the generation that "
-             "refines it, TCA weighted at G's edit masks; "
+             "refines it, TCA weighted at G's edit masks; DIFT: one DIFT featurisation of "
+             "a 512^2 image (ensemble 8); MG: one MotionGuidance edit of "
+             f"{MG_STEPS * MG_RECURSIVE} energy gradients, GroupNorm default; "
              "group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
              "guided edit and differentiated pass under the default) together; per path under "
              "`paths`"),
@@ -3895,11 +3937,340 @@ def phase_sv3d(record, pipe, store, timed_runs, profile):
     return Counter(coarse_shapes) + Counter(gshapes)
 
 
+# ---------------------------------------------------------------------------
+# Phases FLOW and MG: RAFT, DIFT and the MotionGuidance baseline (and their
+# tiny checks of phase 3)
+# ---------------------------------------------------------------------------
+
+# MotionGuidance on the card: the schedule cut to 2 DDIM steps of 2
+# recursive steps (4 energy gradients); GeoBench's protocol runs 50 x 10
+MG_STEPS, MG_RECURSIVE = 2, 2
+MG_PROTOCOL_GRADIENTS = 50 * 10
+# the edit of phase MG: phase 4's object translated by (40, -20) pixels
+# (a GeoBench edit_param: dx, dy, dz, rx, ry, rz, scale)
+MG_EDIT_PARAM = (40, -20, 0, 0, 0, 0, 1)
+# the side of phase FLOW's images
+FLOW_SIDE = 512
+
+
+def phase_tiny_mg(record):
+    """Phase 3's flow, RAFT, DIFT and MotionGuidance checks, CUDA against
+    the CPU with the same float32 weights (TF32 off): `corr_block` and its
+    gradient (a scatter-add on the card, whose atomics add in another
+    order every run); the full-width RAFT between two 64^2 images at iters
+    2 and its gradient to the second image; on the tiny config, the
+    gradient through `vae.decode`, the DIFT featurizer (ensemble 8, the
+    same noise) and `MotionGuidance.edit` (steps 2, recursion 2, the same
+    draws) at guidance weight 0 (its 4 energy gradients are taken and added
+    at weight 0); at the protocol's weight 300 the edit on the card must
+    be finite with 4 non-zero energy gradients, its latents' distance from
+    the CPU's reported and not held: the L1 energy's gradient is
+    discontinuous, so decodes an ulp apart can take different sides of a
+    kink and the weight carries that into the latents.  Into
+    record["tiny_mg"]."""
+    import torch
+
+    from freefine_tpu_torch import config as C
+    from freefine_tpu_torch.baselines.motion_guidance import MotionGuidance
+    from freefine_tpu_torch.models.raft import RAFT, RAFTConfig
+    from freefine_tpu_torch.ops.dift import make_sd_featurizer
+    from freefine_tpu_torch.ops.flow import corr_block
+    from freefine_tpu_torch.pipeline import FreeFine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = record["tiny_mg"] = {}
+    gen = torch.Generator().manual_seed(11)
+
+    def held(name, got, want):
+        _held(out, name, got, want, label="MG")
+
+    def both(fn, *xs):
+        """fn on the CPU tensors and on their CUDA copies: (cuda, cpu)."""
+        return fn(*(x.cuda() for x in xs)), fn(*xs)
+
+    f1, f2 = torch.randn(2, 12, 10, 16, generator=gen), torch.randn(2, 12, 10, 16, generator=gen)
+    ys, xs = torch.meshgrid(torch.arange(12.0), torch.arange(10.0), indexing="ij")
+    coords = torch.stack([xs, ys], -1)[None].repeat(2, 1, 1, 1) + 3 * torch.randn(
+        2, 12, 10, 2, generator=gen)
+    held("corr_block", *both(corr_block, f1, f2, coords))
+    cot = torch.randn(2, 12, 10, 4 * 81, generator=gen)
+
+    def corr_grads(a, b, c, w):
+        b, c = b.requires_grad_(), c.requires_grad_()
+        return torch.autograd.grad((corr_block(a, b, c) * w).sum(), (b, c))
+
+    (gb, gc), (cb, cc) = both(corr_grads, f1, f2, coords, cot)
+    held("corr_block_grad_fmap2", gb, cb)
+    held("corr_block_grad_coords", gc, cc)
+
+    raft_cpu, raft_gpu = _tiny_pair(lambda d: RAFT(RAFTConfig(iters=2), device=d), 5)
+    img1, img2 = torch.rand(1, 64, 64, 3, generator=gen), torch.rand(1, 64, 64, 3, generator=gen)
+    with torch.no_grad():
+        held("raft_flow", raft_gpu(img1.cuda(), img2.cuda()), raft_cpu(img1, img2))
+    fcot = torch.randn(1, 64, 64, 2, generator=gen)
+    grads = {}
+    for dev, model in (("cpu", raft_cpu), ("cuda", raft_gpu)):
+        y = img2.to(dev).requires_grad_()
+        grads[dev], = torch.autograd.grad((model(img1.to(dev), y) * fcot.to(dev)).sum(), y)
+    held("raft_grad_image2", grads["cuda"], grads["cpu"])
+
+    cfg = C.tiny_pipeline_config()
+    cpu = FreeFine(cfg, init_random=True, seed=0, device="cpu")
+    gpu = FreeFine(cfg, params={n: m.state_dict() for n, m in cpu.components().items()},
+                   device="cuda")
+    lh, lw = cfg.latent_height, cfg.latent_width
+    x0 = torch.randn(1, lh, lw, 4, generator=gen)
+    dcot = torch.randn(1, cfg.height, cfg.width, 3, generator=gen)
+    dec = {}
+    for dev, pipe in (("cpu", cpu), ("cuda", gpu)):
+        x = x0.to(dev).requires_grad_()
+        dec[dev], = torch.autograd.grad(pipe.vae.decode(x), x, dcot.to(dev))
+    held("vae_decode_grad", dec["cuda"], dec["cpu"])
+    img, mask = _case(cfg.height, cfg.width, 6)
+    noise = torch.randn(DIFT_ENSEMBLE, lh, lw, 4, generator=gen)
+    held("dift_features", make_sd_featurizer(gpu, noise=noise)(img, "a photo"),
+         make_sd_featurizer(cpu, noise=noise)(img, "a photo"))
+
+    draws = (torch.randn(1, lh, lw, 4, generator=gen),
+             torch.randn(2, 2, 2, 1, lh, lw, 4, generator=gen))
+    stores = {"cpu": {}, "cuda": {}}
+    for dev, pipe in (("cpu", cpu), ("cuda", gpu)):
+        _capture_latents(pipe, stores[dev])
+    raft2 = {"cpu": raft_cpu.requires_grad_(False), "cuda": raft_gpu.requires_grad_(False)}
+    param = (7, -3, 0, 0, 0, 0, 1)
+    lats = {}
+    for weight in (0.0, 300.0):
+        for dev, pipe in (("cpu", cpu), ("cuda", gpu)):
+            MotionGuidance(pipe, raft2[dev]).edit(img, param, mask, "a photo", steps=2,
+                                                  num_recursive=2, guidance_weight=weight,
+                                                  noise=draws)
+            lats[dev, weight] = stores[dev]["lat"]
+    held("motion_guidance_edit_weight_0", lats["cuda", 0.0], lats["cpu", 0.0])
+    guided = lats["cuda", 300.0]
+    moved = float((guided - lats["cuda", 0.0]).abs().max())
+    apart = float((guided - lats["cpu", 300.0]).abs().max())
+    out["motion_guidance_edit_weight_300"] = dict(
+        finite=bool(torch.isfinite(guided).all()), moved_from_weight_0=moved,
+        cuda_vs_cpu_latent_max_abs_diff=apart, held=False)
+    log(f"  tiny MG edit at weight 300 on the card: finite {out['motion_guidance_edit_weight_300']['finite']}, "
+        f"latents {moved:.3g} from the unguided edit's, {apart:.3g} from the CPU's (not held: "
+        "the L1 energy's gradient is discontinuous)")
+    if not out["motion_guidance_edit_weight_300"]["finite"] or not moved > 0:
+        raise AssertionError(f"tiny MG edit at weight 300: {out['motion_guidance_edit_weight_300']}")
+
+
+def phase_flow(record, pipe, timed_runs):
+    """Phase FLOW: RAFT at full width (hidden 128, context 128, feature maps
+    of 256 channels, 4 levels, radius 4, iters 5, f32, random weights made
+    on the card) between two 512^2 images: the forward, then the forward
+    and backward to the second image, each timed (one warm-up, then
+    `timed_runs` synchronised calls, `_timed_counted`) with its peak memory
+    and its launches (none of the kernel table's: RAFT is plain PyTorch, as
+    the JAX package left it to XLA); then one DIFT featurisation of a 512^2 image on phase
+    4's SD-1.5 pipe (`make_sd_featurizer`: ensemble 8, t 261, up block 1,
+    FREEFINE_FUSED_GN unset), timed the same way, its launches checked
+    (one UNet pass at batch 8 and the VAE encode).  Returns (RAFT, the
+    launches by shape of one featurisation: path DIFT)."""
+    import torch
+
+    from freefine_tpu_torch.models.raft import RAFT
+    from freefine_tpu_torch.ops.dift import make_sd_featurizer
+    from freefine_tpu_torch.weights import random_weights
+
+    card = record["card"]
+    info = record["flow"] = {}
+    none = {k: 0 for k in _launch_counts()[0]}
+    raft = random_weights(RAFT(device="cuda"), 7).eval().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a, b = (torch.rand(1, FLOW_SIDE, FLOW_SIDE, 3, generator=gen, device="cuda")
+            for _ in range(2))
+    cot = torch.randn(1, FLOW_SIDE, FLOW_SIDE, 2, generator=gen, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            return raft(a, b)
+
+    def fwd_bwd():
+        y = b.clone().requires_grad_()
+        return torch.autograd.grad((raft(a, y) * cot).sum(), y)[0]
+
+    base = torch.cuda.memory_allocated()
+    for name, fn in (("raft_forward", fwd), ("raft_forward_backward", fwd_bwd)):
+        torch.cuda.reset_peak_memory_stats()
+        res, ms, _ = _timed_counted(f"FLOW {name}", fn, none, timed_runs)
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(res).all() or \
+                res.shape != (1, FLOW_SIDE, FLOW_SIDE, 2 if fn is fwd else 3):
+            raise AssertionError(f"{name}: output {tuple(res.shape)}, finite "
+                                 f"{bool(torch.isfinite(res).all())}")
+        info[name] = dict(ms=ms, peak_memory_bytes=peak, peak_over_resident_bytes=peak - base,
+                          out_abs_max=float(res.abs().max()))
+        log(f"  {name} at {FLOW_SIDE}^2 (iters 5, f32): {ms} ms, peak {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} over the resident) [{card}]")
+
+    cfg = pipe.config
+    img, _, _, _ = edit_case(cfg)
+    featurize = make_sd_featurizer(pipe, ensemble_size=DIFT_ENSEMBLE)
+    n_layers, _ = cfg.unet.attn_layer_layout
+    expect = _expected(cfg, pipe, 0, 0, encodes=1, decodes=0, fused=True)
+    expect["flash_sdpa"] += n_layers
+    expect["group_norm_silu"] += len(norm_calls(cfg, "unet"))
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(None):
+        feat, ms, shapes = _timed_counted("DIFT", lambda: featurize(img, "a photo of a cat"),
+                                          expect, timed_runs)
+    peak = torch.cuda.max_memory_allocated()
+    _gn_shapes_checked("DIFT", shapes)
+    c = cfg.unet.block_out_channels[-2]
+    if feat.shape != (cfg.height, cfg.width, c) or not np.isfinite(feat).all():
+        raise AssertionError(f"DIFT features {feat.shape}, finite {np.isfinite(feat).all()}")
+    info["dift"] = dict(ms=ms, peak_memory_bytes=peak, peak_over_resident_bytes=peak - base,
+                        feature_shape=list(feat.shape), launches=expect,
+                        launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
+                        protocol="make_sd_featurizer: ensemble 8, t 261, up block 1, "
+                                 "FREEFINE_FUSED_GN unset; host clock around each call, "
+                                 "its [512, 512, C] float32 copy to the host included")
+    log(f"  DIFT featurisation of a 512^2 image (ensemble {DIFT_ENSEMBLE}, t 261): {ms} ms, "
+        f"features {list(feat.shape)}, peak {peak / 2**30:.2f} GiB, launches {expect} [{card}]")
+    return raft, shapes
+
+
+def _expected_mg(cfg, pipe, grads: int, fused: bool) -> dict:
+    """Launches of one `MotionGuidance.edit` of `grads` energy gradients,
+    worked out from the config: the source's VAE encode and the final
+    decode (one `flash_sdpa` each, and their GroupNorms); per gradient the
+    UNet at batch 2 and the decoder under autograd: every UNet layer and the
+    decoder's mid-block head through the forward with logsumexp, dQ and
+    dK/dV (the gradient reaches every layer), and with the fused GroupNorm
+    every norm of both forwards (the backward recomputes the two-pass
+    math)."""
+    n_layers, _ = cfg.unet.attn_layer_layout
+    expect = _expected(cfg, pipe, 0, 0, encodes=1, decodes=1, fused=fused)
+    for name in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+        expect[name] = grads * (n_layers + 1)
+    if fused:
+        expect["group_norm_silu"] += grads * (len(norm_calls(cfg, "unet"))
+                                              + len(norm_calls(cfg, "vae_decode")))
+    return expect
+
+
+def phase_mg(record, pipe, raft, store):
+    """Phase MG: `MotionGuidance.edit` on phase 4's SD-1.5 512^2 pipe (bf16
+    UNet and VAE, the VAE's attention in f32) with phase FLOW's full-width
+    RAFT, GeoBench's protocol
+    (CFG 7.5, eta 0, guidance weight 300, clip 200, colour 100 and flow 3,
+    the analytic flow of `MG_EDIT_PARAM` over phase 4's object) with the
+    schedule cut to MG_STEPS DDIM steps of MG_RECURSIVE recursive steps
+    (4 energy gradients).  One warm-up under each GroupNorm route, then
+    edits under the default ("auto") and "0" in turns (auto, 0, 0, auto),
+    each counted against `_expected_mg`; per energy gradient its device time
+    and its split across the UNet, the decode and RAFT with the loss
+    (`EnergyTimer`: CUDA events at the `mg::` ranges' boundaries, forward
+    and backward); the first default edit's peak memory, launches by shape
+    (path MG), gradients (finite, non-zero inside the object) and output;
+    the full protocol's 500 gradients projected from the mean.  Returns
+    the launches by shape of one default edit."""
+    import torch
+
+    from freefine_tpu_torch.baselines.motion_guidance import STAGES, EnergyTimer, MotionGuidance
+
+    card = record["card"]
+    cfg = pipe.config
+    img, mask, _, _ = edit_case(cfg)
+    mg = MotionGuidance(pipe, raft)
+    grads_n = MG_STEPS * MG_RECURSIVE
+    kw = dict(steps=MG_STEPS, num_recursive=MG_RECURSIVE, seed=42)
+    info = record["mg"] = dict(
+        protocol=("GeoBench MotionGuidance (CFG 7.5, eta 0, guidance 300, clip 200, colour "
+                  f"100, flow 3) cut to {MG_STEPS} DDIM steps x {MG_RECURSIVE} recursive "
+                  f"steps; edit_param {MG_EDIT_PARAM}; bf16 UNet and VAE, f32 RAFT (iters "
+                  "5); random weights"), runs=[])
+    shapes, grads = None, []
+    orig_grad = torch.autograd.grad
+
+    def spy(outputs, inputs, *a, **k):
+        res = orig_grad(outputs, inputs, *a, **k)
+        if res[0].shape == (1, cfg.latent_height, cfg.latent_width, 4):
+            grads.append(res[0].detach().float())
+        return res
+
+    def edit(timer=None):
+        return mg.edit(img, MG_EDIT_PARAM, mask, "a photo of a cat", timer=timer, **kw)
+
+    for mode in (None, "0"):
+        with fused_gn(mode):
+            edit()
+    for i, mode in enumerate((None, "0", "0", None)):
+        expect = _expected_mg(cfg, pipe, grads_n, fused=mode is None)
+        timer = EnergyTimer()
+        torch.cuda.reset_peak_memory_stats()
+        first = i == 0
+        if first:
+            torch.autograd.grad = spy
+        try:
+            with fused_gn(mode):
+                res, secs, sh = counted(f"MG edit (GroupNorm {mode or 'auto'})",
+                                        lambda: edit(timer), expect)
+        finally:
+            torch.autograd.grad = orig_grad
+        torch.cuda.synchronize()
+        split = timer.split_ms()
+        run = dict(fused_gn=mode or "auto", seconds=secs,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   gradient_ms=[r["total"] for r in split],
+                   split_ms={k: float(np.mean([r[k] for r in split])) for k in STAGES},
+                   launches=expect)
+        info["runs"].append(run)
+        log(f"  MG edit, GroupNorm {run['fused_gn']}: {secs:.3f} s, energy gradients "
+            f"{[round(x, 2) for x in run['gradient_ms']]} ms (mean split "
+            + ", ".join(f"{k} {v:.1f}" for k, v in run["split_ms"].items())
+            + f" ms), peak {run['peak_memory_bytes'] / 2**30:.2f} GiB, launches {expect} [{card}]")
+        if first:
+            shapes = sh
+            if res.shape != (cfg.height, cfg.width, 3) or res.dtype != np.uint8 or \
+                    not torch.isfinite(store["lat"]).all():
+                raise AssertionError(f"MG edit output {res.shape} {res.dtype}")
+            obj = torch.as_tensor(mask[4::8, 4::8] > 127, device=grads[0].device)
+            inside = [float(g[0][obj].abs().max()) for g in grads]
+            info.update(gradient_abs_max_inside_object=inside,
+                        launches_by_shape=[[*k, n] for k, n in sorted(sh.items())])
+            if len(grads) != grads_n or not all(torch.isfinite(g).all() for g in grads) or \
+                    not min(inside) > 0:
+                raise AssertionError(f"MG energy gradients: {len(grads)}, inside the object "
+                                     f"{inside}")
+    _gn_shapes_checked("MG", shapes)
+    by_mode = {m: [x for r in info["runs"] if r["fused_gn"] == m for x in r["gradient_ms"]]
+               for m in ("auto", "0")}
+    mean_auto = float(np.mean(by_mode["auto"]))
+    info.update(
+        gradient_ms_mean={m: float(np.mean(v)) for m, v in by_mode.items()},
+        projection=dict(label="projection, not a measurement: the mean device time of one "
+                              "energy gradient (GroupNorm auto) times the protocol's 50 x 10",
+                        gradients=MG_PROTOCOL_GRADIENTS,
+                        seconds=MG_PROTOCOL_GRADIENTS * mean_auto / 1e3))
+    log(f"  MG energy gradient: {mean_auto:.1f} ms (GroupNorm auto) against "
+        f"{info['gradient_ms_mean']['0']:.1f} ms (GroupNorm 0), paired; projection, not a "
+        f"measurement: {info['projection']['seconds']:.1f} s for the protocol's "
+        f"{MG_PROTOCOL_GRADIENTS} gradients [{card}]")
+    return shapes
+
+
+def save_record(record, **extra):
+    """The run's record so far, with `extra` beside it, to
+    chiprun_out/chip_smoke.json (written again after each of the early
+    phases, so that a later failure leaves their numbers behind)."""
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump({**record, **extra}, f, indent=1, default=str)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b, 3D, SV3D, G-XL and PX (kernel and tiny checks "
-                         "only)")
+                    help="skip phases 4 to 9b, 3D, SV3D, FLOW, MG, G-XL and PX (kernel and "
+                         "tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
@@ -3935,12 +4306,14 @@ def main():
 
     log("phase 2: kernels against their twins")
     checked = phase_kernels(record)
+    save_record(record, phase2={name: rows for name, (rows, _) in checked.items()})
     log("phase 3: tiny config, CUDA vs CPU")
     phase_tiny(record)
     for model in ("xl", "dit", "pixart"):
         phase_tiny(record, model)
     phase_tiny_3d(record)
     phase_tiny_sv3d(record)
+    phase_tiny_mg(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -3975,7 +4348,13 @@ def main():
         log("phase SV3D: the SV3D coarse 3D edit (video UNet orbit of 21 frames at 576^2, "
             "ViT-H token, U^2-Net matting), then generation at the 3D protocol")
         counts["SV3D"] = phase_sv3d(record, pipe, store, args.timed_runs, args.profile)
-        del pipe, case, store
+        log("phase FLOW: RAFT between two 512^2 images (forward, forward and backward), one "
+            "DIFT featurisation")
+        raft, counts["DIFT"] = phase_flow(record, pipe, args.timed_runs)
+        log(f"phase MG: MotionGuidance.edit on the SD-1.5 512^2 pipe, {MG_STEPS} steps x "
+            f"{MG_RECURSIVE} recursive steps")
+        counts["MG"] = phase_mg(record, pipe, raft, store)
+        del pipe, case, store, raft
         gc.collect()
         torch.cuda.empty_cache()
         log("phase G-XL: SDXL 1024^2 edit (SDXLFreeFine.generation)")
@@ -3994,10 +4373,7 @@ def main():
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t0
 
-    out_dir = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
+    save_record(record)
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k not in ("shapes", "checks")}
                                   for r in kernels]}))
     print(card)

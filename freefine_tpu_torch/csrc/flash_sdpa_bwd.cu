@@ -83,9 +83,22 @@
 //   * Every bf16 head dim the wrapper accepts (a multiple of 8 up to 160)
 //     maps to an instantiation (FF_BWD_CONFIGS); no other bf16 route exists.
 //
-// Route 0, float32 (the tiny configuration's head dims, d <= 128): FMA
-// pipes, one key (dQ) or one query (dK/dV) per lane, ROWS rows per warp, the
-// structure of the forward's f32 kernels before their TF32 redesign.
+// Route 0, float32 (d <= 512: the tiny configuration's head dims, and the
+// SD VAE mid-block's one head of 512 that a gradient through `vae.decode`
+// reaches): FMA pipes, one key (dQ) or one query (dK/dV) per lane, ROWS
+// rows per warp, the structure of the forward's f32 kernels before their
+// TF32 redesign.  Every operand row sits whole in shared memory (stride
+// DP + 4 floats), so the block's rows and its 32-row tile of the other
+// operand pair set the bytes: up to d 128, 4 warps of 8 rows; above
+// (DP 256 and 512), 8 warps of 2 rows, 16 rows a block (`FmaShape`).  At
+// DP 512 that is (2 * 16 + 2 * 32) rows of 516 floats plus the dS (and P)
+// tiles, 200-203 KB of the 227 KB a block may hold, where 32 rows would
+// need 264 KB; and a thread's accumulators stay at 2 x 16 floats (dQ) or
+// twice that (dK and dV), where 8 rows would need 128 or 256.  The key
+// tile stays at one key per lane.  One block an SM at d 512: the loads and
+// the products run in turn, and the logits re-read each lane's row from
+// shared memory for every query row, so the kernels are bound by shared
+// memory, not the FMA pipes (PERF.md has the time beside the bound).
 //
 // Measured times against the bound: PERF.md.
 #include "attention_bwd.cuh"
@@ -689,17 +702,26 @@ int smem_bytes(int d, bool want_dq, int nc) {
 
 }  // namespace wgb
 
-constexpr int kFmaWarps = 4, kFmaRows = 8;
+// Warps a block and rows a warp of the FMA kernels at padded head dim DP
+// (see the route notes at the top).
+template <int DP>
+struct FmaShape {
+  static constexpr int kWarps = DP <= 128 ? 4 : 8;
+  static constexpr int kRows = DP <= 128 ? 8 : 2;
+};
 
 template <int DP>
 cudaError_t launch_dq_fma(const BwdArgs& a) {
-  constexpr int kBQ = kFmaWarps * kFmaRows;
+  constexpr int kWarps = FmaShape<DP>::kWarps, kRows = FmaShape<DP>::kRows;
+  constexpr int kBQ = kWarps * kRows;
   const size_t smem = sizeof(float) * (size_t)((2 * kBQ + 2 * kBK) * (DP + 4) + kBQ * kBK);
-  auto kern = dq_fma_kernel<DP, kFmaWarps, kFmaRows>;
+  static_assert(sizeof(float) * ((2 * kBQ + 2 * kBK) * (DP + 4) + kBQ * kBK) <= 232448,
+                "shared memory of one block");
+  auto kern = dq_fma_kernel<DP, kWarps, kRows>;
   static bool attr_set = false;
   if (const cudaError_t err = set_smem(kern, smem, attr_set)) return err;
   const dim3 grid((a.sq + kBQ - 1) / kBQ, a.batch * a.heads);
-  kern<<<grid, kFmaWarps * 32, smem, a.stream>>>(
+  kern<<<grid, kWarps * 32, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.mask),
       static_cast<const float*>(a.dout), a.lse, a.delta, static_cast<float*>(a.dq), a.heads,
@@ -709,14 +731,18 @@ cudaError_t launch_dq_fma(const BwdArgs& a) {
 
 template <int DP>
 cudaError_t launch_dkv_fma(const BwdArgs& a) {
-  constexpr int kKeys = kFmaWarps * kFmaRows;
+  constexpr int kWarps = FmaShape<DP>::kWarps, kRows = FmaShape<DP>::kRows;
+  constexpr int kKeys = kWarps * kRows;
   const size_t smem =
       sizeof(float) * (size_t)((2 * kKeys + 2 * kBK) * (DP + 4) + 2 * kKeys * kBK + 2 * kBK);
-  auto kern = dkv_fma_kernel<DP, kFmaWarps, kFmaRows>;
+  static_assert(sizeof(float) * ((2 * kKeys + 2 * kBK) * (DP + 4) + 2 * kKeys * kBK + 2 * kBK)
+                    <= 232448,
+                "shared memory of one block");
+  auto kern = dkv_fma_kernel<DP, kWarps, kRows>;
   static bool attr_set = false;
   if (const cudaError_t err = set_smem(kern, smem, attr_set)) return err;
   const dim3 grid((a.sk + kKeys - 1) / kKeys, a.batch * a.heads);
-  kern<<<grid, kFmaWarps * 32, smem, a.stream>>>(
+  kern<<<grid, kWarps * 32, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.mask),
       static_cast<const float*>(a.dout), a.lse, a.delta, static_cast<float*>(a.dk),
@@ -732,6 +758,8 @@ cudaError_t dispatch_f32(const BwdArgs& a, bool want_dq) {
   FF_FMA_CASE(32)
   FF_FMA_CASE(64)
   FF_FMA_CASE(128)
+  FF_FMA_CASE(256)
+  FF_FMA_CASE(512)
 #undef FF_FMA_CASE
   return cudaErrorInvalidValue;
 }
@@ -740,19 +768,19 @@ cudaError_t dispatch_f32(const BwdArgs& a, bool want_dq) {
 
 namespace {
 
-constexpr int kRouteF32 = 0;    // float32, FMA kernels, d <= 128
+constexpr int kRouteF32 = 0;    // float32, FMA kernels, d <= 512
 constexpr int kRouteWgmma = 1;  // bf16, wgmma + TMA ring, d <= 160
 
 int bwd(const ff::BwdArgs& a, int route, bool want_dq) {
   if (a.d <= 0 || a.d % 8 != 0 || a.sq < 1 || a.sk < 1) return (int)cudaErrorInvalidValue;
   if (route == kRouteWgmma && a.d <= 160) return (int)ff::wgb::dispatch(a, want_dq);
-  if (route == kRouteF32 && a.d <= 128) return (int)ff::dispatch_f32(a, want_dq);
+  if (route == kRouteF32 && a.d <= 512) return (int)ff::dispatch_f32(a, want_dq);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype (the route): 0 = float32 (FMA kernels, d <= 128), 1 = bfloat16
+// dtype (the route): 0 = float32 (FMA kernels, d <= 512), 1 = bfloat16
 // (wgmma kernels, d <= 160); d a multiple of 8.  mask may be null.  lse and
 // delta are float32 [batch, heads, sq].  Each returns the CUDA error of its
 // launch (0 = launched).

@@ -385,11 +385,14 @@ def flash_bwd_route(dtype: torch.dtype, d: int) -> int:
 # Head dims the kernels are built for: bf16 runs on the tensor cores, float32
 # on the FMA pipes (csrc/tca_flash.cu, csrc/flash_sdpa_bwd.cu, csrc/tca_flash_bwd.cu)
 # or, for flash_sdpa, in split-TF32 products on the tensor cores (csrc/flash_sdpa.cu).
+# The flash family takes float32 up to d 512, forward and backward: the SD VAE's
+# mid-block attention is one head of 512, and a gradient through `vae.decode`
+# reaches the backward kernels at that head dim.
 _MAX_HEAD_DIM = {
     "flash_sdpa": {torch.bfloat16: 160, torch.float32: 512},
     "flash_sdpa_fwd_lse": {torch.bfloat16: 160, torch.float32: 512},
-    "flash_sdpa_bwd_dq": {torch.bfloat16: 160, torch.float32: 128},
-    "flash_sdpa_bwd_dkv": {torch.bfloat16: 160, torch.float32: 128},
+    "flash_sdpa_bwd_dq": {torch.bfloat16: 160, torch.float32: 512},
+    "flash_sdpa_bwd_dkv": {torch.bfloat16: 160, torch.float32: 512},
     "tca_flash": {torch.bfloat16: 80, torch.float32: 160},
     "tca_flash_fwd_lse": {torch.bfloat16: 80, torch.float32: 160},
     "tca_flash_bwd_dq": {torch.bfloat16: 80, torch.float32: 128},

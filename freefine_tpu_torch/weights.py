@@ -37,7 +37,9 @@ adds:
     renamed by the port's copy of `hf_dinov2_to_torchhub`) and
     `load_efficient_sam` (the published `torch.save`d file);
   * SV3D: `load_sv3d` (one sv3d_p.safetensors split into the video UNet,
-    the ViT-H image tower and the VAE) and `load_u2net` (u2netp.pth).
+    the ViT-H image tower and the VAE) and `load_u2net` (u2netp.pth);
+  * RAFT: `load_raft` (raft-things.pth or a .safetensors copy), and
+    RAFT's flax tree in `state_dict_from_flax`.
 """
 
 from __future__ import annotations
@@ -413,16 +415,42 @@ def _video_unet_items(tree: Mapping, cfg):
         yield f"{key}.{leaf_name}", _torch_layout(name, a), where
 
 
+# RAFT's flax module and leaf names -> the reference checkpoint's
+_RAFT_MODULES = {"flow_head_conv1": "flow_head.conv1", "flow_head_conv2": "flow_head.conv2",
+                 "mask_0": "mask.0", "mask_2": "mask.2", "downsample": "downsample.0",
+                 "norm3": "downsample.1"}
+_RAFT_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _raft_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of a RAFT's flax tree
+    (`freefine_tpu.models.raft`), in the reference checkpoint's names: the
+    port's copy of that module's `_torch_key`, conv kernels HWIO -> OIHW."""
+    for path, leaf in _flatten(tree):
+        mods = [m for m in path[:-1] if m != "params"]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        parts = []
+        for m in mods:
+            if m.startswith("layer") and "_" in m:
+                stage, idx = m[len("layer"):].split("_")
+                parts.append(f"layer{stage}.{idx}")
+            else:
+                parts.append(_RAFT_MODULES.get(m, m))
+        yield ".".join(parts + [_RAFT_BN[name] if name in _RAFT_BN else _LEAF_MAP[name]]), \
+            _torch_layout(name, a), where
+
+
 def _flax_items(tree: Mapping, model: nn.Module):
     """(state-dict key, array in the torch layout, flax path) of each leaf."""
     from freefine_tpu_torch.models.clip_image import CLIPImageEncoder
     from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
+    from freefine_tpu_torch.models.raft import RAFT
     from freefine_tpu_torch.models.t5 import T5Encoder
     from freefine_tpu_torch.models.u2net import U2Net
     from freefine_tpu_torch.models.video_unet import VideoUNet
 
     special = {OpenCLIPTextHidden: _open_clip_items, T5Encoder: _t5_items,
-               CLIPImageEncoder: _clip_image_items, U2Net: _u2net_items}
+               CLIPImageEncoder: _clip_image_items, U2Net: _u2net_items, RAFT: _raft_items}
     for cls, items in special.items():
         if isinstance(model, cls):
             yield from items(tree)
@@ -1024,4 +1052,37 @@ def load_u2net(model: nn.Module, path: str) -> nn.Module:
     missing or misshapen tensor raises.  Returns the model."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(_convert(raw.get("state_dict", raw), model.state_dict()))
+    return model
+
+
+def _raft_state_dict(raw: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference RAFT state dict (raft-things.pth) in the port's names:
+    the `module.` prefix stripped; the BatchNorms' `num_batches_tracked`,
+    which inference never reads, dropped; and each shortcut norm's `norm3`
+    alias dropped where its `downsample.1` twin is present (the reference
+    registers that module under both names)."""
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in raw.items()}
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        head, sep, leaf = k.rpartition(".norm3.")
+        if sep and f"{head}.downsample.1.{leaf}" in sd:
+            continue
+        out[k] = v
+    return out
+
+
+def load_raft(model: nn.Module, path: str) -> nn.Module:
+    """Fill a `RAFT` in place from the reference checkpoint: a `.pth` state
+    dict (`torch.load(weights_only=True)`) or a `.safetensors` file, in
+    `_raft_state_dict`'s names, loaded strictly (a missing, extra or
+    misshapen tensor raises); each tensor is copied into the model's dtype
+    and device.  Returns the model."""
+    if path.endswith(".safetensors"):
+        raw = read_safetensors(path)
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        raw = raw.get("state_dict", raw)
+    model.load_state_dict(_raft_state_dict(raw), strict=True)
     return model

@@ -23,6 +23,7 @@ noise draws replayed into the port's loops.
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -187,8 +188,12 @@ def test_dit_forward_matches_jax(dits, mode, learn_sigma):
                        fg_ref=build_mask_pyramid(torch.from_numpy(fg_ref), lh, lw),
                        local_region=build_mask_pyramid(torch.from_numpy(fg_retain), lh, lw),
                        context_guidance=cg))
-    want = np.asarray(JDiT(config=jcfg.unet).apply(jparams, jnp.asarray(sample), jnp.int32(501),
-                                                   jnp.asarray(ctx), **jkw))
+    # JAX's apply jitted whole (eagerly, flax compiles op by op)
+    apply = JDiT(config=jcfg.unet).apply
+    if "edit_cfg" in jkw:
+        apply = functools.partial(apply, edit_cfg=jkw.pop("edit_cfg"))
+    want = np.asarray(jax.jit(apply)(jparams, jnp.asarray(sample), jnp.int32(501),
+                                     jnp.asarray(ctx), **jkw))
     with torch.no_grad():
         got = mod(torch.from_numpy(sample).permute(0, 3, 1, 2), 501, torch.from_numpy(ctx),
                   **tkw)

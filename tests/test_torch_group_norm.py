@@ -139,8 +139,10 @@ def test_unet_forward_fused_matches_jax():
     rng = np.random.default_rng(5)
     sample = rng.normal(size=(2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)
     ctx = rng.normal(size=(2, 77, cfg.unet.cross_attention_dim)).astype(np.float32)
-    want = JUNet(config=jcfg.unet).apply(jax_params(mods["unet"], "unet", jcfg),
-                                         jnp.asarray(sample), jnp.int32(401), jnp.asarray(ctx))
+    # JAX's apply jitted whole (eagerly, flax compiles op by op)
+    want = jax.jit(JUNet(config=jcfg.unet).apply)(jax_params(mods["unet"], "unet", jcfg),
+                                                  jnp.asarray(sample), jnp.int32(401),
+                                                  jnp.asarray(ctx))
     with torch.no_grad():
         got = mods["unet"](torch.from_numpy(sample).permute(0, 3, 1, 2), 401,
                            torch.from_numpy(ctx)).permute(0, 2, 3, 1)

@@ -70,6 +70,8 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.data.author3d, freefine_tpu_torch.data.datagen\n"
         "import freefine_tpu_torch.models.video_unet, freefine_tpu_torch.models.sv3d\n"
         "import freefine_tpu_torch.models.clip_image, freefine_tpu_torch.models.u2net\n"
+        "import freefine_tpu_torch.models.raft, freefine_tpu_torch.ops.flow\n"
+        "import freefine_tpu_torch.ops.dift, freefine_tpu_torch.baselines.motion_guidance\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2')]\n"
         "print(','.join(bad))\n"

@@ -252,6 +252,16 @@ def test_sd15_flash_bwd_shapes_take_the_wgmma_route(dtype, d, sq, sk):
 
 
 @pytest.mark.parametrize("kernel", ["flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"])
+def test_vae_mid_block_bwd_takes_the_f32_fma_route(kernel):
+    """A gradient through `vae.decode` reaches the backward kernels at the
+    VAE mid-block's single f32 head of 512; 520 stays refused."""
+    assert FA._MAX_HEAD_DIM[kernel][torch.float32] == 512
+    assert FA.FLASH_BWD_ROUTES[FA.flash_bwd_route(torch.float32, 512)] == "f32_fma"
+    with pytest.raises(ValueError):
+        FA.flash_bwd_route(torch.float32, 520)
+
+
+@pytest.mark.parametrize("kernel", ["flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"])
 def test_every_admitted_flash_bwd_head_dim_has_a_route(kernel):
     for dtype, limit in FA._MAX_HEAD_DIM[kernel].items():
         want = "bf16_wgmma" if dtype == torch.bfloat16 else "f32_fma"

@@ -17,6 +17,7 @@
 """
 
 import dataclasses
+import functools
 import types
 
 import jax
@@ -230,7 +231,14 @@ def test_attention_maps_match_jax(pipes, edit):
         targs = (EditConfig(mode="edit", method="tca", local_cfg=True,
                             layer_range=tpipe._layer_range), _edit_state(cfg, (fg, tgt), False))
     t = 401
-    jeps, jmaps = jpipe.attention_maps(jnp.asarray(sample), jnp.int32(t), jctx, *jargs)
+    # JAX's probe, its UNet apply jitted whole (eagerly, flax compiles op by op)
+    unet = jpipe.unet
+    jpipe.unet = types.SimpleNamespace(apply=lambda params, *a, edit_cfg, mutable, **kw: jax.jit(
+        functools.partial(unet.apply, edit_cfg=edit_cfg, mutable=mutable))(params, *a, **kw))
+    try:
+        jeps, jmaps = jpipe.attention_maps(jnp.asarray(sample), jnp.int32(t), jctx, *jargs)
+    finally:
+        jpipe.unet = unet
     eps, maps = tpipe.attention_maps(torch.from_numpy(sample), t, ctx, *targs)
     np.testing.assert_allclose(eps.numpy(), np.asarray(jeps), atol=2e-3, rtol=0)
     assert sorted(maps) == sorted(jmaps)
