@@ -36,7 +36,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      MotionGuidance energy's UNet at batch 2 through the forward with
      logsumexp, dQ and dK/dV, and the VAE decoder's f32 head of 512 at
      S 4096 through the same at batch 1, batch 2 held and timed too, with
-     the dropped-tile teeth and the library's autograd backward), plus
+     the dropped-tile teeth and the library's autograd backward) and of
+     phases RD, DE, SG and GD (their shapes are among the above: batch 1,
+     2, 4 and 8 at every S; RegionDrag's batch-2 K/V of one stream
+     broadcast through the drag dispatch, held with teeth; GeoDiffuser's
+     batch-1 gradient to the queries alone on the card against the twin's
+     autograd; SelfGuidance's batch-2 gradient shapes are MG's), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
      scaled to each output tensor, with teeth (the twin with a key or query
      tile, or one CTA's positions, dropped must fail); `group_norm_silu`
@@ -90,7 +95,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      gradient to the second image, the gradient through the tiny VAE's
      decode, the DIFT featurizer and `MotionGuidance.edit` (steps 2,
      recursion 2, the same draws) at guidance weight 0, and at 300 on the
-     card alone (finite, moved; `phase_tiny_mg`);
+     card alone (finite, moved; `phase_tiny_mg`); the tiny RegionDrag (both
+     methods), DesignEdit (remove, pan, zoom, move; the refine removal
+     reported, not held: C11), SelfGuidance and GeoDiffuser edits, 4 steps,
+     the same draws (`phase_tiny_baselines`);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -182,6 +190,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ranges' boundaries), the peak, the launches by shape (path MG), the
      gradients finite and non-zero inside the object, and the protocol's
      500 gradients projected (labelled as a projection);
+ RD. `RegionDrag.drag_regions` on phase 4's pipe (`phase_rd`) at
+     GeoBench's protocol (50 steps, start 0.5, end 0.2; phase 4's object
+     dragged onto its coarse edit's target mask), FREEFINE_FUSED_GN unset:
+     one warm-up, two counted edits (802 `flash_sdpa`: 25 forward passes
+     at batch 1 and 25 reverse at batch 2 with the hook stream's K/V, and
+     the VAE's 2; 3102 `group_norm_silu`), s/edit, s/step, peak;
+ DE. `DesignEdit.move` (`phase_de`, 50 steps, CFG 7.5; phase 4's move as
+     fractions) the same way: the inversion of [image, image] at batch 2
+     and the 8-stream denoise, launches checked;
+ SG. `SelfGuidance.edit` (`phase_sg`, 50 DDPM steps, CFG 7.5, inversion
+     1.5, weight 15; phase 4's transform): a cut warm-up under each
+     GroupNorm route, then one full edit counted, its 33 gradients split
+     into forward and backward by CUDA events (`GradStepTimer`); then cut
+     edits of PAIRED_STEPS under the default and "0" in turns (auto, 0, 0,
+     auto; ROADMAP C2), each counted;
+ GD. `GeoDiffuser.edit` (`phase_gd`, 50 steps, lr 0.03; phase 4's edit)
+     the same way, its 48 optimisation gradients timed;
  G-XL. the full-width SDXL edit (`phase_sdxl`): `SDXLFreeFine` at
      `sdxl_pipeline_config()` (1024^2, bf16, full depth: UNet depths
      (1, 2, 10), dual text towers, added conditioning; random weights made
@@ -208,7 +233,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9, 3D, SV3D, FLOW, MG, G-XL and PX; path D is one differentiated pass,
+     4 to 9, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, G-XL and PX; path D is one
+     differentiated pass, paths RD, DE, SG and GD one baseline edit each,
      paths S and B one batched call, path 3D one 3D edit with its
      perception calls, path SV3D one SV3D coarse edit and its refining
      generation, path DIFT one DIFT featurisation, path MG one
@@ -1047,6 +1073,83 @@ def check_autograd(record):
         f"{row['err_over_tol']:.3f} of tol")
 
 
+# RegionDrag's reverse pass (phase RD): every self-attention at batch 2 [x,
+# hook], both streams attending with the hook stream's K/V, broadcast and
+# made contiguous by the drag dispatch (`ops.attention._drag_attention`)
+RD_SHARED_KV_SHAPES = [(2, 8, s, d, "bfloat16")
+                       for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+# GeoDiffuser's live edit-stream self-attention (phase GD): batch 1, the
+# queries differentiated, the base stream's K/V held constant
+GD_AUTOGRAD_SHAPES = [(1, 8, s, d, "bfloat16") for _, _, s, d, _ in RD_SHARED_KV_SHAPES]
+
+
+def check_shared_kv(record) -> list:
+    """`flash_sdpa` reached through the drag dispatch at RegionDrag's
+    batch-2 shapes: stream 1's K/V broadcast to both streams, held to the
+    twin on that broadcast, with teeth (a dropped key tile), and unlike the
+    twin on each stream's own K/V.  -> check-only rows of `flash_sdpa`."""
+    import torch
+
+    from freefine_tpu_torch.edit import EditConfig
+    from freefine_tpu_torch.ops import attention as A
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    from freefine_tpu_torch.baselines.region_drag import RegionDrag
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cfg = RegionDrag.drag_config()
+    rows = []
+    for b, h, s, d, dtype in RD_SHARED_KV_SHAPES:
+        q, k, v = _inputs(gen, b, h, s, d, dtype, 3)
+        out = A.edit_self_attention(q, k, v, h, cfg, None, 0, "down")
+        kh, vh = k[1:2].expand_as(k), v[1:2].expand_as(v)
+        ref = FA.flash_sdpa_reference(q, kh, vh, heads=h)
+        torch.cuda.synchronize()
+        row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=False,
+                   key=(b, h, s, s, d, dtype, False), path="RD: stream 1's K/V broadcast")
+        _hold("flash_sdpa", out, ref, row)
+        n = min(DROP_KEYS, s // 2)
+        _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(q, kh[:, n:], vh[:, n:], heads=h), row)
+        row["own_kv_err_over_tol"] = err_over_tol(
+            compare(FA.flash_sdpa_reference(q, k, v, heads=h), ref), dtype)
+        if not row["own_kv_err_over_tol"] > 1.0:
+            raise AssertionError(f"drag K/V check cannot tell the streams' K/V apart: {row}")
+        _log_row("flash_sdpa", row, False)
+        rows.append(row)
+    record["rd_shared_kv_check"] = rows
+    return rows
+
+
+def check_gd_autograd(record):
+    """GeoDiffuser's live self-attention at its batch-1 shapes: the gradient
+    of `masked_sdpa` to the queries alone (the keys and values detached, as
+    `geodiff_attention` holds the base stream's) on the card (the forward
+    with logsumexp, dQ and dK/dV kernels) against autograd through the plain
+    twin on the card.  SelfGuidance's batch-2 differentiated shapes are
+    MotionGuidance's UNet shapes, held by `check_grad` (GRAD_SHAPES)."""
+    import torch
+
+    from freefine_tpu_torch.ops import attention as A
+    from freefine_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for b, h, s, d, dtype in GD_AUTOGRAD_SHAPES:
+        q, k, v, do = _inputs(gen, b, h, s, d, dtype, 4)
+        grads = []
+        for fn in (lambda x: A.masked_sdpa(x, k, v, h),
+                   lambda x: FA.flash_sdpa_reference(x, k, v, heads=h)):
+            x = q.detach().clone().requires_grad_()
+            grads.append(torch.autograd.grad(fn(x), x, do)[0])
+        torch.cuda.synchronize()
+        row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=False)
+        _hold("flash_sdpa_diff autograd (GD)", grads[0], grads[1], row, tensor="dq")
+        rows.append(row)
+        log(f"  flash_sdpa_diff dq, keys and values constant (GD) {(b, h, s, d, dtype)}: "
+            f"{row['err_over_tol']:.3f} of tol")
+    record["gd_autograd_check"] = rows
+
+
 def _tca_masks(gen, b, s, kind):
     """fg and tq rows [b, s] in the head-parity layout (odd block all ones):
     "parity" random on the even block; "bggen" tq = 1 everywhere (fg, that
@@ -1404,6 +1507,15 @@ GN_PATH_BATCHES = {
     # source's encode; phase FLOW's DIFT: the ensemble's pass, one encode
     "MG": {"unet": (2,), "vae_encode": (1,), "vae_decode": (1,)},
     "DIFT": {"unet": (DIFT_ENSEMBLE,), "vae_encode": (1,)},
+    # phases RD, DE, SG and GD: RegionDrag's forward at 1 and reverse at 2;
+    # DesignEdit's move, the inversion of [image, image] at 2 and the 8
+    # streams (its remove / pan / zoom: 1 and 4); SelfGuidance's CFG passes
+    # at 2; GeoDiffuser's inversion at 1 and [base, edit] at 2; one encode
+    # (DesignEdit's move two) and one decode of one image each
+    "RD": {"unet": (1, 2), "vae_encode": (1,), "vae_decode": (1,)},
+    "DE": {"unet": (1, 2, 4, 8), "vae_encode": (1,), "vae_decode": (1,)},
+    "SG": {"unet": (2,), "vae_encode": (1,), "vae_decode": (1,)},
+    "GD": {"unet": (1, 2), "vae_encode": (1,), "vae_decode": (1,)},
     "bggen": {"unet": (1, 3), "vae_encode": (1,), "vae_decode": (1,)},
     "compose": {"unet": (3, 4), "vae_encode": (1,), "vae_decode": (1,)},
     "S": {"unet": (BATCH_SHARED, 1, 2 * BATCH_SHARED), "vae_encode": (BATCH_SHARED + 1,),
@@ -1852,6 +1964,8 @@ def phase_kernels(record):
     check_autograd(record)
     check_tca_autograd(record)
     check_gn_autograd(record)
+    out["flash_sdpa"][1].extend(check_shared_kv(record))
+    check_gd_autograd(record)
     return out
 
 
@@ -1927,7 +2041,9 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
              "SV3D coarse 3D edit (the 21-frame orbit, its VAE calls) and the generation that "
              "refines it, TCA weighted at G's edit masks; DIFT: one DIFT featurisation of "
              "a 512^2 image (ensemble 8); MG: one MotionGuidance edit of "
-             f"{MG_STEPS * MG_RECURSIVE} energy gradients, GroupNorm default; "
+             f"{MG_STEPS * MG_RECURSIVE} energy gradients, GroupNorm default; RD, DE, SG, GD: "
+             "one RegionDrag drag_regions, DesignEdit move, SelfGuidance edit and GeoDiffuser "
+             "edit at GeoBench's 50-step protocol, GroupNorm default; "
              "group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
              "guided edit and differentiated pass under the default) together; per path under "
              "`paths`"),
@@ -4256,6 +4372,374 @@ def phase_mg(record, pipe, raft, store):
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phases RD, DE, SG and GD: the RegionDrag, DesignEdit, SelfGuidance and
+# GeoDiffuser baselines (and their tiny checks of phase 3)
+# ---------------------------------------------------------------------------
+
+# the tiny baseline edits of phase 3: 4 steps each
+TINY_BASELINE_STEPS = 4
+# SelfGuidance's edit_param (dx, dy as fractions, rz degrees, sx, sy) and
+# GeoDiffuser's (dx, dy pixels) on the card: phase 4's move, rotation and scale
+SG_EDIT_PARAM = (40 / 512, -20 / 512, 0, 0, 0, 10, 1.1, 1.1, 1)
+GD_EDIT_PARAM = (40, -20, 0, 0, 0, 10, 1.1, 1.1, 1)
+# the GroupNorm pairing of the gradient baselines (C2): cut edits of this
+# many steps (SelfGuidance 3 gradients, GeoDiffuser 4), auto / 0 in turns
+PAIRED_STEPS = 4
+
+
+def phase_tiny_baselines(record):
+    """Phase 3's RegionDrag, DesignEdit, SelfGuidance and GeoDiffuser
+    checks: each tiny edit (4 steps) on CUDA against the CPU with the same
+    float32 weights and draws (TF32 off), final latents within TINY_TOL of
+    max |ref|: `drag_regions` in both methods, DesignEdit's `remove`, `pan`,
+    `zoom` and `move`; and one differentiated step of each gradient
+    baseline: SelfGuidance's silhouette energy through the sow pass and
+    GeoDiffuser's weighted geodiff losses through the [base, edit] UNet,
+    each with its gradient to the edit latent.  Run and reported, not
+    held: DesignEdit's removal with a refine mask (its proximal step
+    thresholds deltas of about 1e-4 on the tiny config, ROADMAP C11) and
+    the whole `SelfGuidance.edit` and `GeoDiffuser.edit` (their gradient
+    steps carry one level of one input pixel into 1e-2 of the latents'
+    max on the CPU alone, reported beside them; ROADMAP C12).  Into
+    record["tiny_baselines"]."""
+    import torch
+
+    from freefine_tpu_torch import config as C
+    from freefine_tpu_torch.baselines import DesignEdit, GeoDiffuser, RegionDrag, SelfGuidance
+    from freefine_tpu_torch.baselines.region_drag import region_pair_to_pts
+    from freefine_tpu_torch.baselines.self_guidance import silhouette_loss
+    from freefine_tpu_torch.pipeline import FreeFine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = record["tiny_baselines"] = {}
+    cfg = C.tiny_pipeline_config()
+    cpu = FreeFine(cfg, init_random=True, seed=0, device="cpu")
+    gpu = FreeFine(cfg, params={n: m.state_dict() for n, m in cpu.components().items()},
+                   device="cuda")
+    stores = {"cpu": {}, "cuda": {}}
+    for dev, pipe in (("cpu", cpu), ("cuda", gpu)):
+        _capture_latents(pipe, stores[dev])
+    pipes = {"cpu": cpu, "cuda": gpu}
+    h, w = cfg.height, cfg.width
+    lh, lw = cfg.latent_height, cfg.latent_width
+    img, mask = _case(h, w, 6)
+    trg = np.roll(mask, (h // 8, w // 8), axis=(0, 1))
+    trg[h // 2: h // 2 + h // 8, w // 4: w // 2] = 255   # larger: repeated source points
+    gen = torch.Generator().manual_seed(19)
+    steps = TINY_BASELINE_STEPS
+    k = int(0.5 * steps)
+    n_pts = int(2 ** np.ceil(np.log2(len(region_pair_to_pts(mask, trg, 1 / 8)[1]))))
+
+    def run(name, fn, held=True, why="C11"):
+        lats = {}
+        for dev in ("cpu", "cuda"):
+            fn(pipes[dev], img)
+            lats[dev] = stores[dev]["lat"]
+        if held:
+            _held(out, name, lats["cuda"], lats["cpu"], label="baseline")
+            return
+        err = float((lats["cuda"] - lats["cpu"]).abs().max() / lats["cpu"].abs().max())
+        nudged = img.copy()
+        nudged[0, 0, 0] ^= 1
+        fn(cpu, nudged)
+        own = float((stores["cpu"]["lat"] - lats["cpu"]).abs().max() / lats["cpu"].abs().max())
+        out[name] = dict(max_abs_err_of_max_ref=err, cpu_one_level_of_one_pixel=own, held=False,
+                         finite=bool(torch.isfinite(lats["cuda"]).all()))
+        log(f"  tiny baseline {name} CUDA vs CPU: {err:.3g} of max |ref|; the CPU's own edit "
+            f"moves {own:.3g} when one input pixel moves one level (not held: {why})")
+        if not out[name]["finite"]:
+            raise AssertionError(f"tiny baseline {name}: {out[name]}")
+
+    for method, n_blur in (("encode_then_cp", n_pts), ("cp_then_encode", 2 * n_pts)):
+        fwd = [torch.randn(1, lh, lw, 4, generator=gen) for _ in range(k)]
+        noise = (fwd, torch.randn(n_blur, 4, generator=gen))
+        run(f"region_drag_{method}", lambda p, im: RegionDrag(p).drag_regions(
+            im, mask, trg, "a photo", steps=steps, start_t=0.5, end_t=0.25, method=method,
+            noise=noise))
+    for name, fn in (
+            ("design_remove", lambda d, im: d.remove(im, mask, "a wall", steps=steps)),
+            ("design_pan", lambda d, im: d.pan(im, [("right", 0.25), ("down", 0.125)], "a room",
+                                               steps=steps)),
+            ("design_zoom", lambda d, im: d.zoom(im, (0.75, 0.75), "a room", steps=steps)),
+            ("design_move", lambda d, im: d.move(im, mask, dx=0.25, dy=0.125, prompt="a cat",
+                                                 steps=steps))):
+        run(name, lambda p, im, fn=fn: fn(DesignEdit(p), im))
+    refine = np.zeros_like(mask)
+    refine[4: h // 3, w // 2:] = 255
+    run("design_remove_refine", lambda p, im: DesignEdit(p).remove(
+        im, mask, "a wall", steps=steps, refine_mask=refine), held=False)
+    sg_param = (0.1, -0.05, 0, 0, 0, 15, 1.2, 0.9, 1)
+    gd_param = (9, -5, 0, 0, 0, 20, 1.1, 1.1, 1)
+    sg_noise = torch.randn(steps, 2, 1, lh, lw, 4, generator=gen)
+    run("self_guidance_edit", lambda p, im: SelfGuidance(p).edit(
+        im, "a photo of a cat", "cat", sg_param, steps=steps, noise=sg_noise), held=False,
+        why="C12")
+    run("geo_diffuser_edit", lambda p, im: GeoDiffuser(p).edit(im, mask, gd_param, steps=steps),
+        held=False, why="C12")
+
+    # one differentiated step of each, held
+    lat = torch.randn(3, 1, lh, lw, 4, generator=gen)
+    ctx_text = "a photo of a cat"
+    steps_of = {}
+    for dev, pipe in pipes.items():
+        x0, x1, x2 = (t.to(pipe.device) for t in lat)
+        ctx2 = torch.cat([pipe.encode_text([" "]), pipe.encode_text([ctx_text])])
+        sg = SelfGuidance(pipe)
+        select = torch.as_tensor(sg.token_select(ctx_text, "cat"), device=pipe.device)
+        with torch.no_grad():
+            _, ref_maps, _ = sg.apply_sow(torch.cat([x0, x0]), 601, ctx2, select)
+            _, _, ori_feats = sg.apply_sow(torch.cat([x1, x1]), 601, ctx2, select)
+        z = x2.clone().requires_grad_()
+        _, maps, feats = sg.apply_sow(torch.cat([z, z]), 601, ctx2, select)
+        sg_loss = silhouette_loss(maps, ref_maps, ori_feats, feats, 0.8, 15.0, 0.9, 1.2, -0.05,
+                                  0.1, token_valid=select.sum(-1) > 0)
+        sg_grad, = torch.autograd.grad(sg_loss, z)
+        gd = GeoDiffuser(pipe)
+        state, _ = gd.edit_state(mask, gd_param)
+        state.share_gate = 1.0
+        z = x2.clone().requires_grad_()
+        ctx = pipe.encode_text([""])
+        _, gd_loss, _ = gd._unet_losses(gd.edit_config(), torch.cat([x0, z]), 601,
+                                        torch.cat([ctx, ctx]), state, 1.0)
+        gd_grad, = torch.autograd.grad(gd_loss, z)
+        steps_of[dev] = (sg_loss, sg_grad, gd_loss, gd_grad)
+    for i, name in enumerate(("self_guidance_energy", "self_guidance_energy_grad",
+                              "geo_diffuser_loss", "geo_diffuser_loss_grad")):
+        if "grad" in name and not steps_of["cpu"][i].abs().max() > 0:
+            raise AssertionError(f"tiny baseline {name}: zero on the CPU")
+        _held(out, name, steps_of["cuda"][i].detach(), steps_of["cpu"][i].detach(),
+              label="baseline")
+
+
+def _expected_passes(cfg, pipe, *, no_grad=(), grad=(), encodes=1, decodes=1,
+                     fused=True) -> dict:
+    """Launches of a baseline edit worked out from the config: `no_grad`
+    and `grad` list (UNet passes, self-attentions launched per layer) of
+    the forward-only and the differentiated passes; a differentiated
+    layer runs the forward with logsumexp, dQ and dK/dV once, the rest of
+    its self-attentions the plain kernel; with the fused GroupNorm every
+    norm of every UNet forward; one VAE attention (and its norms) per
+    encode and decode."""
+    n_layers, _ = cfg.unet.attn_layer_layout
+    expect = _expected(cfg, pipe, 0, 0, encodes=encodes, decodes=decodes, fused=fused)
+    passes = 0
+    for n, per_layer in no_grad:
+        expect["flash_sdpa"] += n * n_layers * per_layer
+        passes += n
+    for n, per_layer in grad:
+        expect["flash_sdpa"] += n * n_layers * (per_layer - 1)
+        for name in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+            expect[name] += n * n_layers
+        passes += n
+    if fused:
+        expect["group_norm_silu"] += passes * len(norm_calls(cfg, "unet"))
+    return expect
+
+
+def _expected_rd(cfg, pipe, steps=50, start_t=0.5) -> dict:
+    """RegionDrag's SDE edit: k = start_t * steps forward passes at batch 1
+    and k reverse passes at batch 2."""
+    k = int(start_t * steps)
+    return _expected_passes(cfg, pipe, no_grad=[(2 * k, 1)])
+
+
+def _expected_de_move(cfg, pipe, steps=50) -> dict:
+    """DesignEdit's move: two encodes, the inversion of [image, image] and
+    the 8-stream denoise, a pass each per step."""
+    return _expected_passes(cfg, pipe, no_grad=[(2 * steps, 1)], encodes=2)
+
+
+def _expected_sg(cfg, pipe, steps=50, fused=True) -> dict:
+    """SelfGuidance: the inversion, the reference maps' pass, per step the
+    original stream's pass, and the edit stream's, differentiated on the
+    gated steps (`guidance_gates`) and forward only on the others."""
+    from freefine_tpu_torch.baselines.self_guidance import guidance_gates
+
+    n1 = int(guidance_gates(steps).sum())
+    return _expected_passes(cfg, pipe, no_grad=[(steps + 1 + steps + steps - n1, 1)],
+                            grad=[(n1, 1)], fused=fused)
+
+
+def _expected_gd(cfg, pipe, steps=50, optimize_steps=0.95, fused=True) -> dict:
+    """GeoDiffuser: the inversion (one self-attention a layer); per
+    optimisation step the differentiated pass (a layer's live output
+    differentiated, its warped and base outputs forward only); per step
+    the denoise pass (all three forward only)."""
+    n_opt = int(np.sum(np.arange(steps) < optimize_steps * steps))
+    return _expected_passes(cfg, pipe, no_grad=[(steps, 1), (steps, 3)], grad=[(n_opt, 3)],
+                            fused=fused)
+
+
+def _baseline_record(record, key, ms, shapes, expect, peak, steps, extra=None):
+    card = record["card"]
+    info = record[key] = dict(seconds_per_edit=[m / 1e3 for m in ms],
+                              seconds_per_step=[m / 1e3 / steps for m in ms],
+                              peak_memory_bytes=peak, launches=expect,
+                              launches_by_shape=[[*k, n] for k, n in sorted(shapes.items())],
+                              **(extra or {}))
+    _gn_shapes_checked(key, shapes)
+    log(f"  {key}: s/edit {[round(x, 3) for x in info['seconds_per_edit']]}, s/step "
+        f"{[round(x, 4) for x in info['seconds_per_step']]} (of {steps}), peak "
+        f"{peak / 2**30:.2f} GiB, launches {expect} [{card}]")
+    return info
+
+
+def _edit_checked(key, store, res, hw):
+    import torch
+
+    if res.shape != (*hw, 3) or res.dtype != np.uint8 or not torch.isfinite(store["lat"]).all():
+        raise AssertionError(f"{key}: output {res.shape} {res.dtype}, finite latents "
+                             f"{bool(torch.isfinite(store['lat']).all())}")
+
+
+def phase_rd(record, pipe, store, timed_runs):
+    """Phase RD: `RegionDrag.drag_regions` on phase 4's SD-1.5 512^2 pipe at
+    GeoBench's protocol (50 steps, start 0.5, end 0.2, noise scale 1, CFG
+    1), the region pair phase 4's object and its coarse edit's target mask,
+    FREEFINE_FUSED_GN unset; one warm-up, then `timed_runs` counted edits.
+    Returns the launches by shape of one edit (path RD)."""
+    import torch
+
+    from freefine_tpu_torch.baselines import RegionDrag
+
+    cfg = pipe.config
+    img, mask, _, tm = edit_case(cfg)
+    rd = RegionDrag(pipe)
+    expect = _expected_rd(cfg, pipe)
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(None):
+        res, ms, shapes = _timed_counted(
+            "RD edit", lambda: rd.drag_regions(img, mask, tm, "a photo of a cat", seed=42),
+            expect, timed_runs)
+    _edit_checked("RD", store, res, (cfg.height, cfg.width))
+    _baseline_record(record, "rd", ms, shapes, expect, torch.cuda.max_memory_allocated(), 50,
+                     dict(protocol="drag_regions: 50 steps, start 0.5, end 0.2, noise scale 1, "
+                                   "method encode_then_cp; GroupNorm default"))
+    return shapes
+
+
+def phase_de(record, pipe, store, timed_runs):
+    """Phase DE: `DesignEdit.move` on phase 4's pipe at GeoBench's protocol
+    (50 steps, CFG 7.5; the layer moved by phase 4's (40, -20) pixels as
+    fractions of the size), FREEFINE_FUSED_GN unset; one warm-up, then
+    `timed_runs` counted edits.  Returns the launches by shape (path DE)."""
+    import torch
+
+    from freefine_tpu_torch.baselines import DesignEdit
+
+    cfg = pipe.config
+    img, mask, _, _ = edit_case(cfg)
+    de = DesignEdit(pipe)
+    expect = _expected_de_move(cfg, pipe)
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(None):
+        res, ms, shapes = _timed_counted(
+            "DE edit", lambda: de.move(img, mask, dx=40 / cfg.width, dy=20 / cfg.height,
+                                       prompt="a photo of a cat"), expect, timed_runs)
+    _edit_checked("DE", store, res, (cfg.height, cfg.width))
+    _baseline_record(record, "de", ms, shapes, expect, torch.cuda.max_memory_allocated(), 50,
+                     dict(protocol="move: 50 steps, CFG 7.5, streams [original, inpaint, "
+                                   "canvas, layer] x CFG (UNet batch 8); GroupNorm default"))
+    return shapes
+
+
+def _gradient_baseline(record, key, pipe, store, edit, expected):
+    """A gradient baseline's full-protocol edit after a warm-up (a cut edit),
+    its differentiated steps split into forward and backward by CUDA events
+    (`GradStepTimer`), then the GroupNorm pairing (C2): cut edits of
+    PAIRED_STEPS under the default and "0" in turns (auto, 0, 0, auto),
+    each counted.  Returns the launches by shape of the full edit."""
+    import torch
+
+    from freefine_tpu_torch.utils.profiling import GradStepTimer
+
+    cfg = pipe.config
+    hw = (cfg.height, cfg.width)
+    for mode in (None, "0"):
+        with fused_gn(mode):
+            edit(PAIRED_STEPS, None)
+    timer = GradStepTimer()
+    expect = expected(50, True)
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(None):
+        res, secs, shapes = counted(f"{key} edit", lambda: edit(50, timer), expect)
+    torch.cuda.synchronize()
+    _edit_checked(key, store, res, hw)
+    split = timer.split_ms()
+    n = len(split)
+    info = _baseline_record(
+        record, key.lower(), [secs * 1e3], shapes, expect, torch.cuda.max_memory_allocated(),
+        50, dict(differentiated_steps=n,
+                 step_ms={k: float(np.mean([r[k] for r in split])) for k in
+                          ("forward", "backward", "total")},
+                 step_ms_all=[r["total"] for r in split]))
+    if n != expect["flash_sdpa_bwd_dq"] // cfg.unet.attn_layer_layout[0]:
+        raise AssertionError(f"{key}: {n} differentiated steps timed, launches {expect}")
+    log(f"  {key} differentiated step: forward {info['step_ms']['forward']:.1f} ms, backward "
+        f"{info['step_ms']['backward']:.1f} ms (mean of {n}) [{record['card']}]")
+    runs = []
+    for mode in (None, "0", "0", None):
+        timer = GradStepTimer()
+        with fused_gn(mode):
+            counted(f"{key} cut edit (GroupNorm {mode or 'auto'})",
+                    lambda: edit(PAIRED_STEPS, timer), expected(PAIRED_STEPS, mode is None))
+        torch.cuda.synchronize()
+        runs.append(dict(fused_gn=mode or "auto",
+                         step_ms=[r["total"] for r in timer.split_ms()],
+                         forward_ms=[r["forward"] for r in timer.split_ms()],
+                         backward_ms=[r["backward"] for r in timer.split_ms()]))
+    by_mode = {m: [x for r in runs if r["fused_gn"] == m for x in r["step_ms"]]
+               for m in ("auto", "0")}
+    info["gn_paired"] = dict(runs=runs, steps=PAIRED_STEPS,
+                             step_ms_mean={m: float(np.mean(v)) for m, v in by_mode.items()})
+    log(f"  {key} differentiated step, paired (auto, 0, 0, auto): "
+        f"{info['gn_paired']['step_ms_mean']['auto']:.1f} ms (GroupNorm auto) against "
+        f"{info['gn_paired']['step_ms_mean']['0']:.1f} ms (GroupNorm 0) [{record['card']}]")
+    return shapes
+
+
+def phase_sg(record, pipe, store):
+    """Phase SG: `SelfGuidance.edit` on phase 4's pipe at GeoBench's
+    protocol (50 DDPM steps, CFG 7.5, a CFG-1.5 inversion, guidance weight
+    15, appearance 0.8; the silhouette transform of phase 4's edit), its
+    33 gated steps differentiated through the batch-2 UNet (rows 3-5 and,
+    under the default, row 9's forward).  Returns path SG's launches."""
+    from freefine_tpu_torch.baselines import SelfGuidance
+
+    cfg = pipe.config
+    img, _, _, _ = edit_case(cfg)
+    sg = SelfGuidance(pipe)
+
+    def edit(steps, timer):
+        return sg.edit(img, "a photo of a cat", "cat", SG_EDIT_PARAM, steps=steps, seed=42,
+                       timer=timer)
+
+    return _gradient_baseline(record, "SG", pipe, store, edit,
+                              lambda steps, fused: _expected_sg(cfg, pipe, steps, fused))
+
+
+def phase_gd(record, pipe, store):
+    """Phase GD: `GeoDiffuser.edit` on phase 4's pipe at GeoBench's protocol
+    (50 steps, lr 0.03, optimisation on the first 0.95, base pinned for
+    0.6, sharing for 0.97, the adaptive removal controller; phase 4's
+    object moved, rotated and scaled), its 48 optimisation steps
+    differentiated through the batch-2 UNet in geodiff mode (rows 3-5 at
+    batch 1, row 1 and row 9's forward).  Returns path GD's launches."""
+    from freefine_tpu_torch.baselines import GeoDiffuser
+
+    cfg = pipe.config
+    img, mask, _, _ = edit_case(cfg)
+    gd = GeoDiffuser(pipe)
+
+    def edit(steps, timer):
+        return gd.edit(img, mask, GD_EDIT_PARAM, steps=steps, timer=timer)
+
+    return _gradient_baseline(record, "GD", pipe, store, edit,
+                              lambda steps, fused: _expected_gd(cfg, pipe, steps, fused=fused))
+
+
 def save_record(record, **extra):
     """The run's record so far, with `extra` beside it, to
     chiprun_out/chip_smoke.json (written again after each of the early
@@ -4269,8 +4753,8 @@ def save_record(record, **extra):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b, 3D, SV3D, FLOW, MG, G-XL and PX (kernel and "
-                         "tiny checks only)")
+                    help="skip phases 4 to 9b, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, G-XL and "
+                         "PX (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
@@ -4314,6 +4798,7 @@ def main():
     phase_tiny_3d(record)
     phase_tiny_sv3d(record)
     phase_tiny_mg(record)
+    phase_tiny_baselines(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -4354,7 +4839,18 @@ def main():
         log(f"phase MG: MotionGuidance.edit on the SD-1.5 512^2 pipe, {MG_STEPS} steps x "
             f"{MG_RECURSIVE} recursive steps")
         counts["MG"] = phase_mg(record, pipe, raft, store)
-        del pipe, case, store, raft
+        del raft
+        log("phase RD: RegionDrag.drag_regions on the SD-1.5 512^2 pipe (50 steps, start 0.5, "
+            "end 0.2)")
+        counts["RD"] = phase_rd(record, pipe, store, args.timed_runs)
+        log("phase DE: DesignEdit.move on the SD-1.5 512^2 pipe (50 steps, CFG 7.5)")
+        counts["DE"] = phase_de(record, pipe, store, args.timed_runs)
+        log("phase SG: SelfGuidance.edit on the SD-1.5 512^2 pipe (50 steps, CFG 7.5, "
+            "inversion 1.5, weight 15)")
+        counts["SG"] = phase_sg(record, pipe, store)
+        log("phase GD: GeoDiffuser.edit on the SD-1.5 512^2 pipe (50 steps, lr 0.03)")
+        counts["GD"] = phase_gd(record, pipe, store)
+        del pipe, case, store
         gc.collect()
         torch.cuda.empty_cache()
         log("phase G-XL: SDXL 1024^2 edit (SDXLFreeFine.generation)")

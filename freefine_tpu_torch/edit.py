@@ -2,12 +2,14 @@
 
 `EditConfig` is the static description of the editing mode; `EditState`
 carries the per-call tensors (mask pyramids keyed by attention sequence
-length, per-step scalars).  Mirrors `freefine_tpu.edit` for the modes
-'none', 'edit' (geometric edit), 'bggen' (background generation) and
-'compose' (multi-image composition).
+length, per-step scalars).  Mirrors `freefine_tpu.edit` for every mode:
+'none', 'edit' (geometric edit), 'bggen' (background generation),
+'compose' (multi-image composition) and the baselines' 'drag' (RegionDrag),
+'design' (DesignEdit) and 'geodiff' (GeoDiffuser).
 
 Stream layouts: edit / bggen the deduped [u_e, r, c_e] (or legacy
-[u_e, u_r, c_e, c_r]); compose [e, r_1 .. r_N, c_e].
+[u_e, u_r, c_e, c_r]); compose [e, r_1 .. r_N, c_e]; drag [x, hook];
+design [u_1 .. u_n, c_1 .. c_n]; geodiff [base, edit].
 """
 
 from __future__ import annotations
@@ -22,17 +24,30 @@ DEFAULT_LAYER_RANGE = (10, 16)
 TCA_SCOPE = ("up",)
 # UNet stages whose self-attention ssa / sdsa share (all of them).
 STYLE_ALIGN_SCOPE = ("down", "mid", "up")
-MODES = ("none", "edit", "bggen", "compose")
+MODES = ("none", "edit", "bggen", "compose", "drag", "design", "geodiff")
 METHODS = (None, "tca", "mmsa", "ssa", "sdsa")
 
 
 @dataclasses.dataclass(frozen=True)
 class EditConfig:
-    """mode 'none' (vanilla), 'edit', 'bggen' or 'compose'; method 'tca',
+    """mode 'none' (vanilla), 'edit', 'bggen', 'compose', or a baseline's:
+    'drag' (every stream attends with stream `kv_source_stream`'s K/V in
+    the self-attentions of `tca_scope` and `layer_range`, gated by
+    `EditState.share_gate` where a state is given), 'design' (stream
+    `kv_source_stream` computes its self-attention keys from hidden states
+    zeroed outside `EditState.local_region`, the gate scaling the zeroing)
+    or 'geodiff' (`ops.attention.geodiff_attention` in every attention
+    whose sequence length `EditState.warp_coords` holds); method 'tca',
     'mmsa' (masked reference attention, blended or not with self-attention)
     or 'ssa' / 'sdsa' (StyleAligned shared attention, sdsa with the
-    appended reference keys masked).  The JAX modes drag, design and
-    geodiff are not ported yet.
+    appended reference keys masked).
+
+    tca_scope     : the UNet stages whose self-attention TCA (and drag)
+                    modulates.
+    kv_source_stream : drag, the stream whose K/V every stream attends
+                    with; design, the stream whose keys are masked.
+    geodiff_loss_seq : geodiff, the losses are computed at sequence lengths
+                    >= this, the removal and amodal losses at exactly it.
 
     num_sources   : compose, the N reference images.
     prompt_length : compose, region prompts including the trailing "".
@@ -68,6 +83,9 @@ class EditConfig:
     method: Optional[str] = None
     local_cfg: bool = True
     layer_range: Tuple[int, int] = DEFAULT_LAYER_RANGE
+    tca_scope: Tuple[str, ...] = TCA_SCOPE
+    kv_source_stream: int = 1
+    geodiff_loss_seq: int = 1024
     num_sources: int = 0
     prompt_length: int = 0
     shared_ref: bool = False
@@ -79,9 +97,7 @@ class EditConfig:
 
     def __post_init__(self):
         if self.mode not in MODES:
-            raise NotImplementedError(
-                f"edit mode {self.mode!r} is not ported yet (ROADMAP A13-A14)"
-            )
+            raise ValueError(f"unknown edit mode {self.mode!r}")
         if self.method not in METHODS:
             raise ValueError(f"unknown edit method {self.method!r}")
 
@@ -120,10 +136,13 @@ class EditState:
                    each TCA-gated layer (the capture pass writes it).
     token_select : [T, L] one-hot rows (zero rows padding) selecting the
                    tokens whose cross-attention maps `sow_token_attn` keeps.
+    warp_coords  : geodiff, {S: [h, w, 2]} the inverse warp's absolute
+                   (y, x) source coordinates at each attention grid.
     intermediates : where the instruments write, the port's form of flax's
                    "intermediates" collection: {(module path..., name):
-                   [tensor per call]} (name "attn_probs" or
-                   "token_attn_{place}").
+                   [tensor per call]} (name "attn_probs",
+                   "token_attn_{place}", "geodiff_{loss}", or the UNet's
+                   ("guidance_feature",)).
 
     Case axis: the batched lanes stack C cases, and every mask pyramid
     entry gains a leading case axis ([C, S]; compose [C, N, S]).  The UNet
@@ -140,6 +159,7 @@ class EditState:
     share_gate: float = 1.0
     ref_kv: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None
     token_select: Optional[torch.Tensor] = None
+    warp_coords: Optional[Dict[int, torch.Tensor]] = None
     intermediates: Optional[Dict[tuple, list]] = None
 
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from freefine_tpu_torch.edit import TCA_SCOPE, EditConfig, EditState
+from freefine_tpu_torch.edit import EditConfig, EditState
 from freefine_tpu_torch.ops import attention as attn_ops
 from freefine_tpu_torch.ops.group_norm import group_norm_reference, group_norm_silu_diff, use_fused
 
@@ -283,7 +283,14 @@ class EditAttention(nn.Module):
     the backbone sets `path` to the layer's module path.  A cross-attention
     given IP-Adapter layers (`add_ip_layers`) adds, where
     `edit_cfg.ip_scale > 0`, ip_scale * attention over the image tokens
-    `context_image` through its own to_k_ip / to_v_ip, before to_out."""
+    `context_image` through its own to_k_ip / to_v_ip, before to_out.
+    Mode 'design': the self-attention keys of stream
+    `edit_cfg.kv_source_stream` come from hidden states zeroed where
+    `edit_state.local_region` is 0, scaled by the gate (queries and values
+    unmasked).  Mode 'geodiff': every attention whose sequence length
+    `edit_state.warp_coords` holds runs `geodiff_attention` and adds its
+    losses to `edit_state.intermediates` under (`path`...,
+    "geodiff_{loss}")."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, is_cross: bool, dtype,
                  device=None, qkv_bias: bool = False):
@@ -315,8 +322,15 @@ class EditAttention(nn.Module):
                 context_extra: Optional[torch.Tensor] = None,
                 context_image: Optional[torch.Tensor] = None):
         ctx = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        if (edit_cfg.store_kv and not self.is_cross and place in TCA_SCOPE
+        ctx_k = ctx
+        if (edit_cfg.mode == "design" and not self.is_cross and edit_state is not None
+                and x.shape[1] in edit_state.local_region):
+            keep = edit_state.local_region[x.shape[1]].to(x.device).float()
+            rows = torch.ones(x.shape[0], x.shape[1], device=x.device)
+            rows[edit_cfg.kv_source_stream] = 1.0 - float(edit_state.share_gate) * (1.0 - keep)
+            ctx_k = ctx * rows[:, :, None].to(ctx.dtype)
+        q, k, v = self.to_q(x), self.to_k(ctx_k), self.to_v(ctx)
+        if (edit_cfg.store_kv and not self.is_cross and place in edit_cfg.tca_scope
                 and edit_cfg.block_gated(block_index)):
             edit_state.ref_kv[block_index] = (k[0], v[0])
         if edit_cfg.store_attention and q.shape[1] <= 32 * 32:
@@ -326,6 +340,18 @@ class EditAttention(nn.Module):
                 and edit_state.token_select is not None):
             edit_state.intermediates.setdefault(self.path + (f"token_attn_{place}",), []).append(
                 attn_ops.token_attention_maps(q, k, self.heads, edit_state.token_select))
+        if (edit_cfg.mode == "geodiff" and edit_state is not None
+                and edit_state.warp_coords is not None and q.shape[1] in edit_state.warp_coords):
+            seq = q.shape[1]
+            h, losses = attn_ops.geodiff_attention(
+                q, k, v, self.heads, edit_state.warp_coords[seq], edit_state.fg_ref[seq],
+                edit_state.fg_retain[seq], edit_state.share_gate, self.is_cross,
+                seq >= edit_cfg.geodiff_loss_seq, seq == edit_cfg.geodiff_loss_seq,
+                m_amodal=edit_state.local_region.get(seq))
+            for name, val in losses.items():
+                edit_state.intermediates.setdefault(self.path + (f"geodiff_{name}",),
+                                                    []).append(val)
+            return self.to_out[0](h)
         if self.is_cross:
             k_extra = v_extra = None
             if context_extra is not None:  # compose region prompts [P, L, D]

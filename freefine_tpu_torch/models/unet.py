@@ -126,7 +126,10 @@ class UNet2DCondition(nn.Module):
         Returns the noise prediction [B, C_out, H, W] in the model dtype;
         with return_features, (eps, [mid, up_0, .., up_{n-1}]): the mid-block
         output and each up block's output after its upsampler (NCHW), the
-        feature taps of energy guidance (JAX `return_features`)."""
+        feature taps of energy guidance (JAX `return_features`).  Under
+        `edit_cfg.sow_token_attn` the output of up_blocks[-1].resnets[-2]
+        (NCHW) is added to `edit_state.intermediates` under
+        ("guidance_feature",), SelfGuidance's appearance tap."""
         cfg = self.config
         dt = cfg.dtype
         sample = sample.to(dt)
@@ -170,6 +173,9 @@ class UNet2DCondition(nn.Module):
             level = nb - 1 - i
             for j, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                if edit_cfg.sow_token_attn and i == nb - 1 and j == cfg.layers_per_block - 1:
+                    # SelfGuidance's appearance tap, up_blocks[-1].resnets[-2]
+                    edit_state.intermediates.setdefault(("guidance_feature",), []).append(h)
                 if cfg.up_block_has_attn[i]:
                     h = blk.attentions[j](h, context, block_index=attn_index, place="up", **ekw)
                     attn_index += cfg.transformer_depth[level]

@@ -1,6 +1,7 @@
 """Edit-aware attention for the PyTorch port (mirrors
-`freefine_tpu.ops.attention` for the 'none', 'edit', 'bggen' and 'compose'
-modes and the tca, mmsa, ssa and sdsa methods).
+`freefine_tpu.ops.attention`: the 'none', 'edit', 'bggen' and 'compose'
+modes with the tca, mmsa, ssa and sdsa methods, and the baselines' 'drag'
+K/V replacement and 'geodiff' attention sharing with its losses).
 
 All functions take q, k, v of shape [B, S, E] with E = heads * head_dim
 and return [B, Sq, E].  Masks are per-key [B, Sk] rows (rank-1 additive
@@ -16,17 +17,23 @@ forward-with-logsumexp and backward kernels under it (energy guidance
 differentiates the plain UNet; a gradient through the edit UNet reaches
 the TCA ones).  Text
 cross-attention (`sdpa`) is plain math, as in the JAX package, where it is
-left to XLA.
+left to XLA.  `geodiff_attention` routes its three self-attentions through
+`masked_sdpa` (JAX computes them with the plain `sdpa`, the same function)
+so that no [H, S, S] probabilities are kept for the backward; its removal
+loss's full probabilities (`_probs_headwise`, at one grid) and its text
+cross-attention stay plain.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from freefine_tpu_torch.edit import STYLE_ALIGN_SCOPE, TCA_SCOPE, EditConfig, EditState
+from freefine_tpu_torch.edit import STYLE_ALIGN_SCOPE, EditConfig, EditState
 from freefine_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa_diff, tca_flash_diff
+from freefine_tpu_torch.ops.flow import map_coordinates_linear
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -223,19 +230,37 @@ def _blend_with_self(modulated: torch.Tensor, self_h: torch.Tensor, cfg: EditCon
 def edit_self_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[EditState],
                         block_index: int, place: str) -> torch.Tensor:
     """Self-attention dispatch by editing mode and method."""
+    if cfg.mode == "drag":
+        return _drag_attention(q, k, v, heads, cfg, state, block_index, place)
     if cfg.mode == "none" or cfg.method is None or state is None:
         return masked_sdpa(q, k, v, heads)
     if cfg.uses_share_attention:
         if place not in STYLE_ALIGN_SCOPE or cfg.mode == "compose":
             return masked_sdpa(q, k, v, heads)
         return _style_align_attention(q, k, v, heads, cfg, state)
-    if place not in TCA_SCOPE or not cfg.block_gated(block_index):
+    if place not in cfg.tca_scope or not cfg.block_gated(block_index):
         return masked_sdpa(q, k, v, heads)
     if cfg.mode == "edit":
         return _tca_edit(q, k, v, heads, cfg, state, block_index)
     if cfg.mode == "bggen":
         return _tca_bggen(q, k, v, heads, cfg, state, block_index)
     return _tca_compose(q, k, v, heads, cfg, state)
+
+
+def _drag_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[EditState],
+                    block_index: int, place: str) -> torch.Tensor:
+    """Stream K/V replacement (JAX's drag branch): inside `cfg.tca_scope`
+    and `layer_range` every stream attends with stream
+    `cfg.kv_source_stream`'s K/V (RegionDrag: 1, the hook latent), unless a
+    state's `share_gate` is 0; elsewhere plain self-attention.  The source
+    stream's K/V are broadcast to the batch and made contiguous, the layout
+    the kernel takes."""
+    if place not in cfg.tca_scope or not cfg.block_gated(block_index):
+        return masked_sdpa(q, k, v, heads)
+    if state is not None and not float(state.share_gate) > 0:
+        return masked_sdpa(q, k, v, heads)
+    src = cfg.kv_source_stream
+    return masked_sdpa(q, k[src:src + 1].expand_as(k), v[src:src + 1].expand_as(v), heads)
 
 
 def _tca_edit(q, k, v, heads: int, cfg: EditConfig, state: EditState,
@@ -352,6 +377,155 @@ def _style_align_attention(q, k, v, heads: int, cfg: EditConfig,
                       _split_parity(v_cat, heads), heads // 2,
                       _parity_rows(allowed, q.shape[0], cfg.ref_vanilla))
     return _merge_parity(out, heads)
+
+
+# -- GeoDiffuser attention sharing and losses --------------------------------
+
+
+def _warp_feature_map(x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """A [S, E] token map sampled bilinearly at [h, w, 2] (y, x)
+    coordinates, zeros outside (JAX's per-channel `map_coordinates` order
+    1, mode constant), in x's dtype."""
+    h, w, _ = coords.shape
+    m = x.reshape(h, w, -1).permute(2, 0, 1)
+    e = m.shape[0]
+    yy = coords[..., 0].to(torch.float32).expand(e, h, w)
+    xx = coords[..., 1].to(torch.float32).expand(e, h, w)
+    out = map_coordinates_linear(m, yy, xx, "constant")
+    return out.permute(1, 2, 0).reshape(h * w, -1).to(x.dtype)
+
+
+def _coord_distance_grid(h: int, w: int, device=None) -> torch.Tensor:
+    """[S, S] pairwise distances in affine_grid's normalised coordinates
+    (per axis 2 * delta / size), float32."""
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device) * (2.0 / h),
+                            torch.arange(w, dtype=torch.float32, device=device) * (2.0 / w),
+                            indexing="ij")
+    pts = torch.stack([ys.reshape(-1), xs.reshape(-1)], -1)
+    d2 = ((pts[:, None] - pts[None]) ** 2).sum(-1)
+    return torch.sqrt(d2 + 1e-12)
+
+
+def _interpolate_from_mask(feats: torch.Tensor, fg: torch.Tensor, dist: torch.Tensor):
+    """Inverse-distance interpolation of feats [S, E] from the 4 nearest
+    fg positions -> (interpolated [S, E], distance weights [S]).  The 4
+    are the largest inverse distances, ties to the lower index (JAX's
+    `lax.top_k`): a stable descending sort."""
+    d = dist * 256.0 + 1e5 * (1.0 - fg)[None, :]
+    inv = 1.0 / (d + 1e-4)
+    vals, idx = torch.sort(inv, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :4], idx[:, :4]
+    sel = feats[idx]
+    interp = (sel * vals[..., None]).sum(-2) / (vals.sum(-1)[..., None] + 1e-12)
+    w = torch.exp(-(1.0 / torch.clamp(vals.amax(-1), min=1e-12)) / 5.0)
+    return interp, w
+
+
+def _box_smooth_tokens(feats: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The 5 x 5 Gaussian smoothing of a [S, E] token map per channel
+    (sigma 2/3, the exponent exp(-(d / (2 sigma))^2), normalised, zero
+    padding)."""
+    d = torch.arange(5, dtype=torch.float32, device=feats.device) - 2.0
+    sigma = (5 // 2 * 2) / 6.0
+    k1 = torch.exp(-((d / (2.0 * sigma)) ** 2))
+    k2 = k1[:, None] * k1[None, :]
+    k2 = k2 / k2.sum()
+    c = feats.shape[-1]
+    m = feats.reshape(1, h, w, c).permute(0, 3, 1, 2)
+    out = F.conv2d(m, k2.to(m.dtype).expand(c, 1, 5, 5), padding=2, groups=c)
+    return out.permute(0, 2, 3, 1).reshape(feats.shape)
+
+
+def _probs_headwise(q: torch.Tensor, k: torch.Tensor, heads: int) -> torch.Tensor:
+    """Softmax probabilities of batch row 0, [H, Sq, Sk] float32."""
+    return _probs(q, k, heads)[0]
+
+
+def geodiff_attention(q, k, v, heads: int, warp_yx: torch.Tensor, m_obj: torch.Tensor,
+                      m_warp: torch.Tensor, share_gate, is_cross: bool, compute_losses: bool,
+                      compute_removal: bool, m_amodal: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """GeoDiffuser attention sharing for a [base, edit] batch (JAX's
+    `geodiff_attention`).  The output the edit should have (`edit_out`,
+    no gradient) is the base stream's queries warped by `warp_yx` inside
+    the warped object, attending to the base K/V; the edit stream's live
+    output (`replace_out`) attends with the base keys (self) or its own
+    text keys (cross) to the base values, both held constant.  Losses
+    (float32 scalars, with JAX's stop-gradients): sim (L1 over the
+    background), movement (L1 over the warped object), smooth (spatial
+    gradient L1), at `compute_removal` removal (attention correlation over
+    the vacated hole) and, given `m_amodal`, amodal.  The edit output is
+    shared inside the warped object while `share_gate` > 0.
+
+    The base stream's attention is taken without a gradient: every path
+    from the edit stream's losses to the base stream is cut, so the
+    gradient JAX carries through it is zero at the edit latent.
+    Self-attention runs `masked_sdpa` (the kernels on the card), text
+    cross-attention the plain `sdpa`.  -> ([base_out, edit_out] in q's
+    dtype, {loss name: value})."""
+    seq = q.shape[1]
+    dev = q.device
+    m_obj, m_warp = m_obj.to(dev).float(), m_warp.to(dev).float()
+    m_wo_edit = torch.clamp(1.0 - m_obj - m_warp, 0.0, 1.0)
+    m_inpaint = torch.clamp(m_obj - m_warp, 0.0, 1.0)
+    attend = sdpa if is_cross else masked_sdpa
+    q_b, q_e = q[0:1], q[1:2]
+    k_b, v_b = k[0:1].detach(), v[0:1].detach()
+
+    with torch.no_grad():
+        q_warp = _warp_feature_map(q_b[0], warp_yx.to(dev))
+        q_ref = (1.0 - m_warp[:, None]) * q_b[0] + m_warp[:, None] * q_warp
+        edit_out = attend(q_ref[None].to(q.dtype), k_b, v_b, heads).float()
+
+    k_live = k[1:2] if is_cross else k_b
+    replace_out = attend(q_e, k_live, v_b, heads).float()
+
+    losses = {}
+    if compute_losses:
+        wo = m_wo_edit[None, :, None]
+        we = m_warp[None, :, None]
+        diff = torch.abs(edit_out - replace_out)
+        e = replace_out.shape[-1]
+        losses["sim"] = torch.sum(diff * wo) / (torch.sum(wo) * e + 1e-8)
+        losses["movement"] = torch.sum(diff * we) / (torch.sum(we) * e + 1e-8)
+        h_side = warp_yx.shape[0]
+        maps = replace_out.reshape(1, h_side, -1, e)
+        losses["smooth"] = (torch.abs(maps[:, 1:] - maps[:, :-1]).mean()
+                            + torch.abs(maps[:, :, 1:] - maps[:, :, :-1]).mean())
+        if compute_removal:
+            probs_e = _probs_headwise(q_e, k_live, heads)
+            with torch.no_grad():
+                probs_b = _probs_headwise(q_b, k_b, heads)
+            corr = torch.einsum("hrk,hck->hrc", probs_e, probs_b)
+            dist = _coord_distance_grid(h_side, seq // h_side, dev)
+            c_in = corr * m_inpaint[None, None, :]
+            c_wo = corr * m_wo_edit[None, None, :]
+            # amax splits a tie's gradient evenly, as JAX's max does
+            p_in = torch.amax(c_in, -1)
+            p_wo = torch.amax(c_wo, -1)
+            idx_wo = torch.argmax(c_wo, -1)
+            d_wo = torch.exp(-dist[torch.arange(seq, device=dev)[None], idx_wo]).detach()
+            rows = m_inpaint[None, :]
+            f = probs_e.shape[0]
+            losses["removal"] = torch.sum(
+                rows * d_wo * (-torch.log(p_wo + 1e-4) + torch.log(p_in + 1e-4))
+            ) / (torch.sum(m_inpaint) * f + 1e-8)
+            if m_amodal is not None:
+                interp, iw = _interpolate_from_mask(edit_out[0], m_warp, dist)
+                interp = torch.where(m_warp[:, None] > 0.5, edit_out[0], interp)
+                interp = _box_smooth_tokens(interp, h_side, seq // h_side)
+                am = (m_amodal.to(dev).float() * iw)[:, None]
+                losses["amodal"] = torch.sum(
+                    torch.abs(interp.detach() - replace_out[0]) * am
+                ) / (torch.sum(am) * e + 1e-8)
+
+    if float(share_gate) > 0:
+        out_e = m_warp[None, :, None] * edit_out + (1.0 - m_warp[None, :, None]) * replace_out
+    else:
+        out_e = replace_out
+    with torch.no_grad():
+        base_out = attend(q_b, k_b, v_b, heads)
+    return torch.cat([base_out, out_e.to(q.dtype)], dim=0), losses
 
 
 def edit_cross_attention(q, k, v, heads: int, cfg: EditConfig, state: Optional[EditState],

@@ -8,6 +8,8 @@ not ported).
 
 `BatchedFreeFine` takes a timer as `timer=` and ends each of its stages
 with a device synchronise on CUDA, so a stage times its device work.
+`GradStepTimer` splits each differentiated step of the gradient baselines
+(SelfGuidance, GeoDiffuser) into its forward and backward by CUDA events.
 """
 
 from __future__ import annotations
@@ -51,3 +53,41 @@ class StageTimer:
             f"total={s['total_s']:6.2f}s"
             for name, s in sorted(self.summary().items())
         )
+
+
+class NoStepTimer:
+    """What a differentiating loop uses without a `GradStepTimer`."""
+
+    def begin(self) -> None:
+        pass
+
+    def mark(self, name: str) -> None:
+        pass
+
+
+class GradStepTimer:
+    """Device time of each differentiated step of a loop, split into its
+    forward and its backward: CUDA events recorded on the stream when the
+    step begins, when its loss is formed ("forward") and when its gradient
+    is taken ("end").  CUDA only; read after a synchronise."""
+
+    def __init__(self):
+        self.steps: List[dict] = []
+
+    def begin(self) -> None:
+        self._events = {}
+        self.steps.append(self._events)
+        self.mark("start")
+
+    def mark(self, name: str) -> None:
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._events[name] = ev
+
+    def split_ms(self) -> List[Dict[str, float]]:
+        """[{"forward", "backward", "total": ms}] per differentiated step."""
+        return [dict(forward=ev["start"].elapsed_time(ev["forward"]),
+                     backward=ev["forward"].elapsed_time(ev["end"]),
+                     total=ev["start"].elapsed_time(ev["end"])) for ev in self.steps]

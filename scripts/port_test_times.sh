@@ -7,10 +7,14 @@
 #   scripts/port_test_times.sh OTHER_CHECKOUT [OUT]
 #
 # One line per file: "file | other SECONDS RESULT | this SECONDS RESULT".
+# Each checkout's cache of traced JAX parameter shapes (.jax_test_cache, which
+# the port's test files fill) is emptied first, so the run starts cold, as
+# a fresh checkout does, and later files reuse what earlier ones traced.
 set -u
 other=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
 out=${2:-/dev/stdout}
+rm -rf "$other/.jax_test_cache" "$here/.jax_test_cache"
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
 run() {  # checkout file -> "seconds result"

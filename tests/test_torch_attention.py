@@ -145,12 +145,16 @@ def test_sdpa_and_key_bias_match_jax():
 
 
 def test_unported_modes_raise():
-    """drag, design and geodiff (the baselines' modes) are not ported; an
-    unknown method is an error.  bggen, compose, ssa and sdsa are ported
-    (tests/test_torch_bggen.py, tests/test_torch_compose.py)."""
+    """Every JAX mode is ported: drag, design and geodiff, the baselines'
+    (tests/test_torch_{region_drag,design_edit,geo_diffuser}.py), beside
+    bggen, compose, ssa and sdsa (tests/test_torch_bggen.py,
+    tests/test_torch_compose.py).  A mode or method outside JAX's is an
+    error."""
     for mode in ("drag", "design", "geodiff"):
-        with pytest.raises(NotImplementedError):
-            EditConfig(mode=mode, method="tca")
+        assert EditConfig(mode=mode, method=None).mode == mode
+    for mode in ("xyz", "warp"):
+        with pytest.raises(ValueError):
+            EditConfig(mode=mode, method=None)
     with pytest.raises(ValueError):
         EditConfig(mode="edit", method="xyz")
     assert EditConfig(mode="bggen", method="sdsa").uses_share_attention

@@ -48,6 +48,7 @@ from freefine_tpu_torch.models.depth_anything import (
 from freefine_tpu_torch.models.dinov2 import DINOv2, DINOv2Config
 from freefine_tpu_torch.models.layers import NORM_TYPES
 from freefine_tpu_torch.ops.resize import interpolate_bicubic, resize
+from test_torch_weights import cached_shapes
 
 torch.set_num_threads(2)
 
@@ -116,8 +117,11 @@ def np_state(sd) -> dict:
 
 
 def jax_template(jmodel, *inputs):
-    return jax.eval_shape(jmodel.init, jax.random.key(0),
-                          *(jax.ShapeDtypeStruct(np.shape(x), jnp.float32) for x in inputs))
+    """Shape tree of a JAX module's params at these inputs' shapes,
+    traced once (`cached_shapes`)."""
+    shapes = [np.shape(x) for x in inputs]
+    return cached_shapes(type(jmodel).__name__, (repr(jmodel), shapes), lambda: jax.eval_shape(
+        jmodel.init, jax.random.key(0), *(jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes)))
 
 
 class ReadKeys(dict):

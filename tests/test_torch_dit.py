@@ -53,7 +53,7 @@ from freefine_tpu_torch.models.dit import DiT2DCondition, _sincos_2d
 from freefine_tpu_torch.models.t5 import T5Config
 from freefine_tpu_torch.weights import random_weights, state_dict_from_flax
 from test_torch_bggen import _capture, jax_noise
-from test_torch_weights import FIXTURES, torch_tensors
+from test_torch_weights import FIXTURES, cached_shapes, torch_tensors
 
 torch.set_num_threads(2)
 
@@ -85,7 +85,12 @@ def dit_modules(cfg, seed: int = 0, spread: float = 1.0):
 
 
 def jax_template(kind: str, jcfg):
-    """Shape tree of the JAX module's params (no weight allocation)."""
+    """Shape tree of the JAX module's params (no weight allocation), traced
+    once per kind and config (`cached_shapes`)."""
+    return cached_shapes(f"dit-{kind}", (kind, jcfg), lambda: _trace_template(kind, jcfg))
+
+
+def _trace_template(kind: str, jcfg):
     from freefine_tpu.models.dit import DiT2DCondition as JDiT
     from freefine_tpu.models.t5 import T5Encoder as JT5
     from freefine_tpu.models.text_encoder import CLIPTextEncoder as JText

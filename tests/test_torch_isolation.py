@@ -72,6 +72,9 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.models.clip_image, freefine_tpu_torch.models.u2net\n"
         "import freefine_tpu_torch.models.raft, freefine_tpu_torch.ops.flow\n"
         "import freefine_tpu_torch.ops.dift, freefine_tpu_torch.baselines.motion_guidance\n"
+        "import freefine_tpu_torch.baselines.region_drag, freefine_tpu_torch.baselines.design_edit\n"
+        "import freefine_tpu_torch.baselines.self_guidance\n"
+        "import freefine_tpu_torch.baselines.geo_diffuser, freefine_tpu_torch.baselines\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2')]\n"
         "print(','.join(bad))\n"

@@ -24,6 +24,7 @@ through a diffusers directory written by the port's own writer.
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -58,7 +59,7 @@ from freefine_tpu_torch.weights import (
 import chip_smoke
 from freefine_tpu_torch.models.layers import GroupNorm32
 from freefine_tpu_torch.ops import flash_attention as FA
-from test_torch_weights import FIXTURES, torch_tensors
+from test_torch_weights import FIXTURES, cached_shapes, torch_tensors
 
 torch.set_num_threads(2)
 
@@ -86,7 +87,12 @@ def sdxl_modules(seed: int = 0):
 
 
 def jax_sdxl_template(kind: str, jcfg):
-    """Shape tree of the JAX SDXL module's params (no weight allocation)."""
+    """Shape tree of the JAX SDXL module's params (no weight allocation),
+    traced once per kind and config (`cached_shapes`)."""
+    return cached_shapes(f"sdxl-{kind}", (kind, jcfg), lambda: _trace_sdxl_template(kind, jcfg))
+
+
+def _trace_sdxl_template(kind: str, jcfg):
     from freefine_tpu.models.open_clip_text import OpenCLIPTextHidden as JText2
     from freefine_tpu.models.text_encoder import CLIPTextEncoder as JText
     from freefine_tpu.models.unet import UNet2DCondition as JUNet
@@ -160,8 +166,8 @@ def test_unet_forward_with_added_cond_matches_jax(xl):
     sample = rng.normal(size=(2, lh, lw, 4)).astype(np.float32)
     ctx = rng.normal(size=(2, 77, cfg.unet.cross_attention_dim)).astype(np.float32)
     added = rng.normal(size=(2, cfg.unet.addition_embed_dim)).astype(np.float32)
-    want = np.asarray(JUNet(config=jcfg.unet).apply(jp["unet"], sample, jnp.int32(501), ctx,
-                                                    added_cond=added))
+    want = np.asarray(jax.jit(JUNet(config=jcfg.unet).apply)(jp["unet"], sample, jnp.int32(501),
+                                                             ctx, added_cond=added))
     with torch.no_grad():
         got = mods["unet"](torch.from_numpy(sample).permute(0, 3, 1, 2), 501,
                            torch.from_numpy(ctx), added_cond=torch.from_numpy(added))
@@ -182,7 +188,8 @@ def test_penultimate_clip_tower_matches_jax(xl):
     assert len(mods["text"].text_model.encoder.layers) == cfg.text.num_layers - 1
     assert not hasattr(mods["text"].text_model, "final_layer_norm")
     ids = _ids(np.random.default_rng(2), 3, cfg.text.vocab_size, [5, 9, 76])
-    want = np.asarray(JText(config=jcfg.text).apply(jp["text"], ids, penultimate=True))
+    want = np.asarray(jax.jit(functools.partial(JText(config=jcfg.text).apply, penultimate=True))(
+        jp["text"], ids))
     with torch.no_grad():
         got = mods["text"](torch.from_numpy(ids).long())
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
@@ -194,7 +201,7 @@ def test_open_clip_tower_matches_jax(xl):
     cfg, jcfg, mods, jp = xl
     eot = np.array([3, 11, 76], np.int32)
     ids = _ids(np.random.default_rng(3), 3, cfg.text2.vocab_size, eot)
-    want_h, want_p = JText2(config=jcfg.text2).apply(jp["text2"], ids, eot)
+    want_h, want_p = jax.jit(JText2(config=jcfg.text2).apply)(jp["text2"], ids, eot)
     with torch.no_grad():
         got_h, got_p = mods["text2"](torch.from_numpy(ids).long(), torch.from_numpy(eot).long())
     assert got_h.shape == (3, 77, cfg.text2.width)
@@ -265,13 +272,13 @@ def test_sd21_shape_matches_jax(use_linear):
     rng = np.random.default_rng(4)
     sample = rng.normal(size=(2, cfg.latent_height, cfg.latent_width, 4)).astype(np.float32)
     ctx = rng.normal(size=(2, 77, cfg.unet.cross_attention_dim)).astype(np.float32)
-    want = np.asarray(JUNet(config=jcfg.unet).apply(jax_params(unet, "unet", jcfg), sample,
-                                                    jnp.int32(301), ctx))
+    want = np.asarray(jax.jit(JUNet(config=jcfg.unet).apply)(jax_params(unet, "unet", jcfg),
+                                                             sample, jnp.int32(301), ctx))
     with torch.no_grad():
         got = unet(torch.from_numpy(sample).permute(0, 3, 1, 2), 301, torch.from_numpy(ctx))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=ATOL, rtol=0)
     ids = _ids(rng, 2, cfg.text.vocab_size, [4, 30])
-    want = np.asarray(JText(config=jcfg.text).apply(jax_params(text, "text", jcfg), ids))
+    want = np.asarray(jax.jit(JText(config=jcfg.text).apply)(jax_params(text, "text", jcfg), ids))
     with torch.no_grad():
         got = text(torch.from_numpy(ids).long())
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)

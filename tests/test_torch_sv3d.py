@@ -56,7 +56,7 @@ from freefine_tpu_torch.models.video_unet import (
 )
 from test_torch_checkpoint import _conv1x1, _to_ldm
 from test_torch_depth import ReadKeys, assert_close, manifest, np_state
-from test_torch_weights import tiny_modules
+from test_torch_weights import cached_shapes, tiny_modules
 
 torch.set_num_threads(2)
 
@@ -111,8 +111,11 @@ def randomize_all(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 
 def shapes_template(init, *shapes):
-    return jax.eval_shape(init, jax.random.key(0),
-                          *(jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes))
+    """Shape tree of a JAX module's params (`init` its bound init) at float32
+    inputs of these shapes, traced once (`cached_shapes`)."""
+    module = init.__self__
+    return cached_shapes(type(module).__name__, (repr(module), shapes), lambda: jax.eval_shape(
+        init, jax.random.key(0), *(jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes)))
 
 
 def video_template(jcfg):

@@ -85,8 +85,9 @@ def test_t5_encoder_matches_jax(t5):
     cfg, jcfg, mod, jp = t5
     ids = _ids(np.random.default_rng(2), 3, cfg.text.max_length, cfg.text.vocab_size)
     mask = (ids != 0).astype(np.float32)
+    apply = jax.jit(JT5(config=jcfg.text).apply)
     for m in (mask, None):
-        want = np.asarray(JT5(config=jcfg.text).apply(jp, ids, m))
+        want = np.asarray(apply(jp, ids, m))
         with torch.no_grad():
             got = mod(torch.from_numpy(ids).long(),
                       None if m is None else torch.from_numpy(m)).numpy()

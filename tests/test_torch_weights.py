@@ -9,11 +9,18 @@
 
 Also home of the carry-across helpers the other test_torch_* files import:
 `jax_params(module, kind, jax_cfg)` turns a torch module's weights into
-the JAX package's params through its own converter.
+the JAX package's params through its own converter; `cached_shapes`
+keeps a JAX module's traced parameter shapes on disk for later processes.
 """
 
+import functools
+import glob
+import hashlib
+import os
 import os.path as osp
+import pickle
 
+import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,13 +38,55 @@ from freefine_tpu_torch.weights import random_weights, state_dict_from_flax
 torch.set_num_threads(2)
 
 FIXTURES = osp.join(osp.dirname(__file__), "fixtures")
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+# traced parameter shapes kept across test processes (listed in .gitignore)
+SHAPE_CACHE = osp.join(ROOT, ".jax_test_cache")
 
 
 # -- carry-across helpers ------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_sources_digest() -> str:
+    """A digest of the JAX package's sources and of jax and flax's
+    versions: what a traced shape tree depends on beside its key."""
+    h = hashlib.sha256(f"{jax.__version__} {flax.__version__}".encode())
+    for path in sorted(glob.glob(osp.join(ROOT, "freefine_tpu", "**", "*.py"), recursive=True)):
+        h.update(osp.relpath(path, ROOT).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def cached_shapes(tag: str, key, build):
+    """`build()`, a tree of `jax.ShapeDtypeStruct` (a `jax.eval_shape` of a
+    JAX module's init), kept on disk under `tag` and `repr(key)` with the
+    JAX package's sources: a test process loads what an earlier one traced
+    (a tiny UNet's init takes seconds to trace).  Written atomically, so
+    concurrent test workers do not read a partial file."""
+    name = hashlib.sha256(f"{tag} {key!r} {_jax_sources_digest()}".encode()).hexdigest()
+    path = osp.join(SHAPE_CACHE, f"shapes-{tag}-{name[:32]}.pkl")
+    try:
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    except (OSError, EOFError, pickle.UnpicklingError):
+        pass
+    tree = build()
+    os.makedirs(SHAPE_CACHE, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(tree, f)
+    os.replace(tmp, path)
+    return tree
+
+
 def jax_template(kind: str, jax_cfg):
-    """Shape tree of the JAX module's params (no weight allocation)."""
+    """Shape tree of the JAX module's params (no weight allocation), traced
+    once per kind and config (`cached_shapes`)."""
+    return cached_shapes(f"tiny-{kind}", (kind, jax_cfg), lambda: _trace_template(kind, jax_cfg))
+
+
+def _trace_template(kind: str, jax_cfg):
     from freefine_tpu.models.text_encoder import CLIPTextEncoder as JText
     from freefine_tpu.models.unet import UNet2DCondition as JUNet
     from freefine_tpu.models.vae import AutoencoderKL as JVAE
