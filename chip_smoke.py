@@ -38,8 +38,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      S 4096 through the same at batch 1, batch 2 held and timed too, with
      the dropped-tile teeth and the library's autograd backward) and of
      phases RD, DE, SG and GD (their shapes are among the above: batch 1,
-     2, 4 and 8 at every S; RegionDrag's batch-2 K/V of one stream
-     broadcast through the drag dispatch, held with teeth; GeoDiffuser's
+     2, 4 and 8 at every S; RegionDrag's batch-2 K/V of stream 1 and
+     DragDiffusion's MasaCtrl K/V of stream 0 broadcast through the drag
+     dispatch, held with teeth; GeoDiffuser's
      batch-1 gradient to the queries alone on the card against the twin's
      autograd; SelfGuidance's batch-2 gradient shapes are MG's), plus
      fully masked, ragged, Sk = 2 Sq (sdsa) and f32 cases, within limits
@@ -98,7 +99,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      card alone (finite, moved; `phase_tiny_mg`); the tiny RegionDrag (both
      methods), DesignEdit (remove, pan, zoom, move; the refine removal
      reported, not held: C11), SelfGuidance and GeoDiffuser edits, 4 steps,
-     the same draws (`phase_tiny_baselines`);
+     the same draws (`phase_tiny_baselines`); the tiny DiffusionHandles
+     edit at 4 and 5 input channels and the tiny drag with a 2-step LoRA,
+     one null-text, guided, LoRA (gradient and Adam update) and drag-loop
+     gradient each (`phase_tiny_dh_dd`; the drag with the union mask
+     reported, not held: C12);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -207,6 +212,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      auto; ROADMAP C2), each counted;
  GD. `GeoDiffuser.edit` (`phase_gd`, 50 steps, lr 0.03; phase 4's edit)
      the same way, its 48 optimisation gradients timed;
+ DH. `DiffusionHandles.edit` (`phase_dh`) on phase 4's pipe at GeoBench's
+     protocol (prompt "", 50 steps, null-text inversion 10 gradient steps a
+     step, 3 latent steps a guided step to step 38, weights 1.5 / 1.25, CFG
+     7.5), Depth-Anything ViT-L's depth normalised as GeoBench does: a cut
+     warm-up, one full edit counted (1 + 15 x rows 3-5 a null-text step;
+     every layer a guided step), its stages and steps timed, then one
+     null-text step paired under GroupNorm auto and 0 (C2);
+ DD. `DragDiffusion.drag` (`phase_dd`, LoRA rank 16 80 steps, inversion
+     0.7, up to 80 drag iterations, MasaCtrl from step 4; at most 30
+     points of phase 4's move, the union mask) the same way, the drag
+     loop's iterations read from the call, after a drag with every handle
+     on its target that must stop at its first iteration with no update
+     (its launches counted too); then one LoRA step paired (C2);
  G-XL. the full-width SDXL edit (`phase_sdxl`): `SDXLFreeFine` at
      `sdxl_pipeline_config()` (1024^2, bf16, full depth: UNet depths
      (1, 2, 10), dual text towers, added conditioning; random weights made
@@ -233,8 +251,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edits a session can miss a call this short);
  11. the result lines: the `kernels` JSON line (launches and per-edit times
      per path: each shape's time weighted by its launches counted in phases
-     4 to 9, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, G-XL and PX; path D is one
-     differentiated pass, paths RD, DE, SG and GD one baseline edit each,
+     4 to 9, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, DH, DD, G-XL and PX; path D
+     is one differentiated pass, paths RD, DE, SG, GD, DH and DD one
+     baseline edit each,
      paths S and B one batched call, path 3D one 3D edit with its
      perception calls, path SV3D one SV3D coarse edit and its refining
      generation, path DIFT one DIFT featurisation, path MG one
@@ -1084,38 +1103,43 @@ GD_AUTOGRAD_SHAPES = [(1, 8, s, d, "bfloat16") for _, _, s, d, _ in RD_SHARED_KV
 
 
 def check_shared_kv(record) -> list:
-    """`flash_sdpa` reached through the drag dispatch at RegionDrag's
-    batch-2 shapes: stream 1's K/V broadcast to both streams, held to the
-    twin on that broadcast, with teeth (a dropped key tile), and unlike the
-    twin on each stream's own K/V.  -> check-only rows of `flash_sdpa`."""
+    """`flash_sdpa` reached through the drag dispatch at the batch-2 shapes
+    of RegionDrag (stream 1's K/V broadcast to both streams) and of
+    DragDiffusion's MasaCtrl denoise (stream 0's), held to the twin on that
+    broadcast, with teeth (a dropped key tile), and unlike the twin on each
+    stream's own K/V.  -> check-only rows of `flash_sdpa`."""
     import torch
 
-    from freefine_tpu_torch.edit import EditConfig
+    from freefine_tpu_torch.baselines.drag_diffusion import DragDiffusion
+    from freefine_tpu_torch.baselines.region_drag import RegionDrag
     from freefine_tpu_torch.ops import attention as A
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    from freefine_tpu_torch.baselines.region_drag import RegionDrag
-
     gen = torch.Generator(device="cuda").manual_seed(13)
-    cfg = RegionDrag.drag_config()
     rows = []
-    for b, h, s, d, dtype in RD_SHARED_KV_SHAPES:
-        q, k, v = _inputs(gen, b, h, s, d, dtype, 3)
-        out = A.edit_self_attention(q, k, v, h, cfg, None, 0, "down")
-        kh, vh = k[1:2].expand_as(k), v[1:2].expand_as(v)
-        ref = FA.flash_sdpa_reference(q, kh, vh, heads=h)
-        torch.cuda.synchronize()
-        row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=False,
-                   key=(b, h, s, s, d, dtype, False), path="RD: stream 1's K/V broadcast")
-        _hold("flash_sdpa", out, ref, row)
-        n = min(DROP_KEYS, s // 2)
-        _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(q, kh[:, n:], vh[:, n:], heads=h), row)
-        row["own_kv_err_over_tol"] = err_over_tol(
-            compare(FA.flash_sdpa_reference(q, k, v, heads=h), ref), dtype)
-        if not row["own_kv_err_over_tol"] > 1.0:
-            raise AssertionError(f"drag K/V check cannot tell the streams' K/V apart: {row}")
-        _log_row("flash_sdpa", row, False)
-        rows.append(row)
+    for label, cfg in (("RD", RegionDrag.drag_config()),
+                       ("DD", DragDiffusion.masactrl_config())):
+        src = cfg.kv_source_stream
+        lo, _ = cfg.layer_range
+        for b, h, s, d, dtype in RD_SHARED_KV_SHAPES:
+            q, k, v = _inputs(gen, b, h, s, d, dtype, 3)
+            out = A.edit_self_attention(q, k, v, h, cfg, None, lo, "up")
+            kh, vh = k[src:src + 1].expand_as(k), v[src:src + 1].expand_as(v)
+            ref = FA.flash_sdpa_reference(q, kh, vh, heads=h)
+            torch.cuda.synchronize()
+            row = dict(batch=b, heads=h, seq_q=s, seq_k=s, head_dim=d, dtype=dtype, masked=False,
+                       key=(b, h, s, s, d, dtype, False),
+                       path=f"{label}: stream {src}'s K/V broadcast")
+            _hold("flash_sdpa", out, ref, row)
+            n = min(DROP_KEYS, s // 2)
+            _teeth("flash_sdpa", ref, FA.flash_sdpa_reference(q, kh[:, n:], vh[:, n:], heads=h),
+                   row)
+            row["own_kv_err_over_tol"] = err_over_tol(
+                compare(FA.flash_sdpa_reference(q, k, v, heads=h), ref), dtype)
+            if not row["own_kv_err_over_tol"] > 1.0:
+                raise AssertionError(f"drag K/V check cannot tell the streams' K/V apart: {row}")
+            _log_row("flash_sdpa", row, False)
+            rows.append(row)
     record["rd_shared_kv_check"] = rows
     return rows
 
@@ -2043,7 +2067,11 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
              "a 512^2 image (ensemble 8); MG: one MotionGuidance edit of "
              f"{MG_STEPS * MG_RECURSIVE} energy gradients, GroupNorm default; RD, DE, SG, GD: "
              "one RegionDrag drag_regions, DesignEdit move, SelfGuidance edit and GeoDiffuser "
-             "edit at GeoBench's 50-step protocol, GroupNorm default; "
+             "edit at GeoBench's 50-step protocol, GroupNorm default; DH: one "
+             "DiffusionHandles edit at GeoBench's protocol (500 null-text and 114 guided "
+             "gradients) with its Depth-Anything depth call; DD: one DragDiffusion drag at "
+             "GeoBench's protocol (80 LoRA steps, the drag loop, the MasaCtrl denoise), "
+             "GroupNorm default; "
              "group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
              "guided edit and differentiated pass under the default) together; per path under "
              "`paths`"),
@@ -3575,8 +3603,8 @@ def _bbox(mask) -> tuple:
 
 def counted(key, fn, expect):
     """fn() with the launch counters set to 0 just before and read just
-    after; they must equal `expect`.  -> (output, seconds, launches by
-    shape)."""
+    after; they must equal `expect` (or `expect()`, called after fn).  ->
+    (output, seconds, launches by shape)."""
     import torch
 
     from freefine_tpu_torch.ops import flash_attention as FA
@@ -3590,6 +3618,8 @@ def counted(key, fn, expect):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, shapes = _launch_counts()
+    if callable(expect):  # worked out from what the call reports
+        expect = expect()
     if launches != expect:
         raise AssertionError(f"{key}: launch counts {launches} != expected {expect}")
     return out, secs, shapes
@@ -4740,6 +4770,523 @@ def phase_gd(record, pipe, store):
                               lambda steps, fused: _expected_gd(cfg, pipe, steps, fused=fused))
 
 
+# ---------------------------------------------------------------------------
+# Phases DH and DD: the DiffusionHandles and DragDiffusion baselines (and
+# their tiny checks of phase 3)
+# ---------------------------------------------------------------------------
+
+# DiffusionHandles' 2D edit on the card: phase 4's object moved by a fifth
+# of its extent to the right and a tenth up, rotated 10 degrees and scaled
+# 1.1 (GeoBench's 9 parameters, the translations relative to the extent)
+DH_EDIT_PARAM = (0.2, -0.1, 0, 0, 0, 10, 1.1, 1.1, 1)
+DH_PROTOCOL = dict(prompt="", steps=50, nti_iters=10, num_optsteps=3, fg_weight=1.5,
+                   bg_weight=1.25, guidance_max_step=38, guidance_scale=7.5)
+# DragDiffusion's GeoBench points: phase 4's move of (40, -20) pixels
+DD_EDIT_PARAM = (40, -20, 0, 0, 0, 0, 1, 1, 1)
+DD_PROMPT = "image of object"
+DD_PROTOCOL = dict(inversion_strength=0.7, n_pix_step=80, latent_lr=0.01, r_m=1, r_p=3,
+                   lam=0.1, train_lora_steps=80, lora_rank=16, lora_lr=5e-4, max_points=32,
+                   seed=42)
+# C2's pairing of one null-text gradient step and one LoRA step: this many
+# steps per call, the calls under GroupNorm auto and 0 in turns
+C2_PAIRED_STEPS = 3
+# the tiny edits of phase 3
+TINY_DH_PARAM = (0.1, -0.05, 0, 0, 0, 10, 1.1, 1.1, 1)
+TINY_DH = dict(prompt="a photo", steps=2, nti_iters=2, num_optsteps=2, guidance_max_step=1)
+TINY_DD = dict(n_pix_step=3, max_points=32, seed=42)
+
+
+def _tiny_dd_lora(pipe, rank=2, steps=2):
+    """A LoRA's initialisation and per-step draws made on the CPU, so CUDA
+    and the CPU train the same one."""
+    import torch
+
+    from freefine_tpu_torch.baselines import drag_diffusion as DDM
+
+    gen = torch.Generator().manual_seed(23)
+    init = DDM.init_lora(pipe.unet, rank, gen)
+    cfg = pipe.config
+    draws = [(int(torch.randint(0, 1000, (), generator=gen)),
+              torch.randn(1, cfg.latent_height, cfg.latent_width, 4, generator=gen))
+             for _ in range(steps)]
+    return init, draws
+
+
+def phase_tiny_dh_dd(record):
+    """Phase 3's DiffusionHandles and DragDiffusion checks, CUDA against the
+    CPU with the same float32 weights (TF32 off), within TINY_TOL of max
+    |ref|: one null-text gradient to the unconditional embedding, one
+    guided-pass latent gradient (off the recorded latent), one LoRA step's
+    gradient to every factor and its Adam update (held where the CPU's
+    gradient passes 1e-3 of its max: there the first step is lr times its
+    sign; the rest counted), one drag-loop gradient (the anchor off its zero
+    residual); the whole tiny DiffusionHandles edit at 4 and at 5 input
+    channels at the protocol's loss weights, and the whole tiny drag with
+    a 2-step LoRA and no mask.  Reported beside the CPU's own one-level
+    sensitivity, not held (ROADMAP C12): the drag with the union mask, on
+    this case a point where Adam's sign-like steps carry a rounding
+    difference.  Also reported: each first gradient's L1 residual, the
+    no-grad pass against the differentiated one on each device (ROADMAP
+    C13).  Into record["tiny_dh_dd"]."""
+    import dataclasses
+
+    import torch
+
+    from freefine_tpu_torch import config as C
+    from freefine_tpu_torch.baselines import DiffusionHandles, DragDiffusion
+    from freefine_tpu_torch.baselines import diffusion_handles as DHM
+    from freefine_tpu_torch.baselines import drag_diffusion as DDM
+    from freefine_tpu_torch.baselines.eval import _drag_points_from_case
+    from freefine_tpu_torch.pipeline import FreeFine
+    from freefine_tpu_torch.schedulers.ddim import DDIMSchedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = record["tiny_dh_dd"] = {}
+    cfg = C.tiny_pipeline_config()
+    pairs, stores = {}, {}
+    for ch in (4, 5):
+        c = cfg if ch == 4 else dataclasses.replace(
+            cfg, unet=dataclasses.replace(cfg.unet, in_channels=5))
+        cpu = FreeFine(c, init_random=True, seed=0, device="cpu")
+        gpu = FreeFine(c, params={n: m.state_dict() for n, m in cpu.components().items()},
+                       device="cuda")
+        pairs[ch] = {"cpu": cpu, "cuda": gpu}
+        for pipe in (cpu, gpu):
+            stores[id(pipe)] = {}
+            _capture_latents(pipe, stores[id(pipe)])
+    h, w = cfg.height, cfg.width
+    lh = cfg.latent_height
+    img, mask = _case(h, w, 6)
+    rng = np.random.default_rng(6)
+    depth = rng.uniform(2.0, 6.0, (h, w)).astype(np.float32)
+    tm = np.roll(mask, (-h // 16, w // 8), axis=(0, 1))
+    handles, targets = _drag_points_from_case(mask, tm, (w // 8, -h // 16, 0, 0, 0, 0, 1),
+                                              seed=42)
+    union = ((mask > 0) | (tm > 0)).astype(np.float32)
+    init, draws = _tiny_dd_lora(pairs[4]["cpu"])
+
+    def latent_of(pipe, run, image):
+        run(pipe, image)
+        return stores[id(pipe)]["lat"]
+
+    def whole(name, ch, run, held=True):
+        got, want = (latent_of(pairs[ch][d], run, img) for d in ("cuda", "cpu"))
+        if held:
+            _held(out, name, got, want, label="baseline")
+            return
+        err = float((got - want).abs().max() / want.abs().max())
+        nudged = img.copy()
+        nudged[0, 0, 0] ^= 1
+        own = float((latent_of(pairs[ch]["cpu"], run, nudged) - want).abs().max()
+                    / want.abs().max())
+        out[name] = dict(max_abs_err_of_max_ref=err, cpu_one_level_of_one_pixel=own, held=False,
+                         finite=bool(torch.isfinite(got).all()))
+        log(f"  tiny baseline {name} CUDA vs CPU: {err:.3g} of max |ref|; the CPU's own edit "
+            f"moves {own:.3g} when one input pixel moves one level (not held: C12)")
+        if not out[name]["finite"]:
+            raise AssertionError(f"tiny baseline {name}: {out[name]}")
+
+    def dh_run(**kw):
+        return lambda p, im: DiffusionHandles(p).edit(im, depth, mask, TINY_DH_PARAM,
+                                                      **TINY_DH, **kw)
+
+    def dd_run(m):
+        def run(p, im):
+            lora = DDM.train_lora(p, im, DD_PROMPT, rank=2, steps=2, init=init, draws=draws)
+            return DragDiffusion(p).drag(im, handles, targets, DD_PROMPT, mask=m, lora=lora,
+                                         **TINY_DD)
+        return run
+
+    whole("diffusion_handles_edit_4ch", 4, dh_run())
+    whole("diffusion_handles_edit_5ch", 5, dh_run())
+    whole("drag_diffusion_drag_no_mask", 4, dd_run(None), held=False)
+    whole("drag_diffusion_drag_union_mask", 4, dd_run(union), held=False)
+
+    # one differentiated step of each gradient, held
+    gen = torch.Generator().manual_seed(29)
+    z, z_other, target = (torch.randn(1, lh, lh, 4, generator=gen) for _ in range(3))
+    sched = DDIMSchedule.create(num_inference_steps=50)
+    t = int(sched.timesteps[5])
+    corr_np = DHM.process_correspondences(
+        DHM.compute_correspondence(depth, mask > 0, TINY_DH_PARAM, device="cpu"), h, grid=lh)
+    steps_of = {}
+    for dev, pipe in pairs[5].items():
+        put = (lambda x, d=pipe.device: x.to(d))
+        ctx = pipe.encode_text(["a photo"])
+        dch = DiffusionHandles(pipe).edited_disparity(depth, mask > 0, DHM.compute_correspondence(
+            depth, mask > 0, TINY_DH_PARAM, device="cpu"))
+        with torch.no_grad():
+            eps_c = pipe.unet_apply(DHM._with_depth(put(z), dch), t, ctx)
+        u = pipe.encode_text([""]).requires_grad_()
+        nti = DHM.nti_loss(pipe, sched, put(z), t, u, eps_c, put(target), 7.5, dch)
+        nti_grad, = torch.autograd.grad(nti, u)
+        dh = DiffusionHandles(pipe)
+        with torch.no_grad():
+            _, feats = dh._unet(put(z_other), t, ctx, dch, True)
+        corr = {k: torch.as_tensor(v, device=pipe.device) for k, v in corr_np.items()}
+        zz = put(z).requires_grad_()
+        fgw, bgw = np.full(3, 112.5, np.float32), np.full(3, 46.875, np.float32)
+        gl = dh.guidance_loss(zz, t, ctx, dch, dh._tap(feats), corr, fgw, bgw)
+        g_grad, = torch.autograd.grad(gl, zz)
+        steps_of[dev] = [nti, nti_grad, gl, g_grad]
+    lat0 = torch.randn(1, lh, lh, 4, generator=gen)
+    noise = torch.randn(1, lh, lh, 4, generator=gen)
+    b_gen = torch.Generator().manual_seed(31)
+    moved = {k: {"a": ab["a"], "b": 0.05 * torch.randn(ab["b"].shape, generator=b_gen)}
+             for k, ab in init.items()}
+    keys = sorted(moved)
+    for dev, pipe in pairs[4].items():
+        put = (lambda x, d=pipe.device: x.to(d))
+        ctx = pipe.encode_text([DD_PROMPT])
+        lora = {k: {n: put(x).clone().requires_grad_() for n, x in ab.items()}
+                for k, ab in moved.items()}
+        alphas = torch.as_tensor(sched.alphas_cumprod, device=pipe.device)
+        loss = DDM.lora_loss(pipe, lora, put(lat0), ctx, 437, put(noise), alphas)
+        factors = [lora[k][n] for k in keys for n in ("a", "b")]
+        grads = torch.autograd.grad(loss, factors)
+        opt = torch.optim.Adam(factors, lr=5e-4, betas=(0.9, 0.999), eps=1e-8)
+        old = [f.detach().clone() for f in factors]
+        for f, g in zip(factors, grads):
+            f.grad = g
+        opt.step()
+        flat_g = torch.cat([g.reshape(-1) for g in grads])
+        update = torch.cat([(f.detach() - o).reshape(-1) for f, o in zip(factors, old)])
+        # one drag-loop gradient: the motion loss and the anchor (union
+        # mask), x_prev_0 taken at another latent (off the zero residual)
+        dd = DragDiffusion(pipe)
+        weights = DDM.merge_lora(pipe.unet, {k: {n: x.detach() for n, x in ab.items()}
+                                             for k, ab in lora.items()})
+        sup = (h // 2, w // 2)
+        with torch.no_grad():
+            eps0, _ = dd.features(weights, put(z_other), t, ctx, sup)
+            x_prev_0 = DDM.ddim_prev(sched, eps0, t, put(z_other))
+        hs = torch.as_tensor(np.stack([handles[:, 1] / 2, handles[:, 0] / 2], -1),
+                             dtype=torch.float32, device=pipe.device)
+        ts = torch.as_tensor(np.stack([targets[:, 1] / 2, targets[:, 0] / 2], -1),
+                             dtype=torch.float32, device=pipe.device)
+        anchor = dd.anchor_mask(DDM.resize(torch.as_tensor(union, device=pipe.device), sup,
+                                           "nearest"), (lh, lh))
+        code = put(z).requires_grad_()
+        eps, f1 = dd.features(weights, code, t, ctx, sup)
+        ml = dd.motion_loss(sched, eps, f1, code, t, hs, ts, x_prev_0, anchor, 1, 0.1)
+        ml_grad, = torch.autograd.grad(ml, code)
+        steps_of[dev] += [loss, flat_g, update, ml, ml_grad]
+    # C13: the first gradient's L1 residuals, a latent's no-grad pass (the
+    # record's taps, the drag's x_prev_0) against its differentiated pass
+    for dev, pipe in pairs[4].items():
+        zz = z.to(pipe.device)
+        ctx = pipe.encode_text(["a photo"])
+        dh, dd = DiffusionHandles(pipe), DragDiffusion(pipe)
+        sup = (h // 2, w // 2)
+        passes = []
+        for code in (zz, zz.clone().requires_grad_()):
+            with torch.set_grad_enabled(code.requires_grad):
+                taps = dh._tap(dh._unet(code, t, ctx, None, True)[1])
+                eps, _ = dd.features(None, code, t, ctx, sup)
+                passes.append([x.detach() for x in (*taps, DDM.ddim_prev(sched, eps, t, code))])
+        diff = [(a - b).abs() for a, b in zip(*passes)]
+        out[f"first_gradient_residual_{dev}"] = dict(
+            taps_max=max(float(d.max()) for d in diff[:3]),
+            taps_nonzero=[int((d > 0).sum()) for d in diff[:3]],
+            taps_numel=[int(d.numel()) for d in diff[:3]],
+            x_prev_max=float(diff[3].max()), x_prev_nonzero=int((diff[3] > 0).sum()),
+            x_prev_numel=int(diff[3].numel()))
+        log(f"  tiny baseline first-gradient residual on {dev}: "
+            f"{out[f'first_gradient_residual_{dev}']}")
+    names = ("null_text_loss", "null_text_grad_u", "guided_loss", "guided_grad_latent",
+             "lora_loss", "lora_grad_factors", "lora_adam_update", "drag_loss",
+             "drag_grad_latent")
+    cpu_g = steps_of["cpu"][names.index("lora_grad_factors")]
+    sure = cpu_g.abs() > 1e-3 * cpu_g.abs().max()
+    out["lora_adam_update_entries_held"] = [int(sure.sum()), int(sure.numel())]
+    for i, name in enumerate(names):
+        got, want = steps_of["cuda"][i].detach().cpu(), steps_of["cpu"][i].detach()
+        if name == "lora_adam_update":
+            got, want = got[sure], want[sure]
+        if "grad" in name and not want.abs().max() > 0:
+            raise AssertionError(f"tiny baseline {name}: zero on the CPU")
+        _held(out, name, got, want, label="baseline")
+
+
+def _expected_dh(cfg, pipe, steps=50, iters=10, optsteps=3, gms=38, fused=True) -> dict:
+    """DiffusionHandles' launches, worked out from the config: no-grad UNet
+    passes (the inversion; per null-text step the conditional noise and the
+    closing step; the record's two per guided step; the guided pass's two
+    per step), the guided gradients (every layer differentiated), and per
+    null-text gradient every layer but the first, which runs ahead of the
+    text and so takes no gradient."""
+    n_layers, _ = cfg.unet.attn_layer_layout
+    g = min(gms, steps)
+    nti = steps * iters
+    expect = _expected_passes(cfg, pipe, no_grad=[(5 * steps + 2 * g, 1)],
+                              grad=[(g * optsteps, 1)], fused=fused)
+    expect["flash_sdpa"] += nti
+    for name in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+        expect[name] += nti * (n_layers - 1)
+    if fused:
+        expect["group_norm_silu"] += nti * len(norm_calls(cfg, "unet"))
+    return expect
+
+
+def _expected_dd(cfg, pipe, info, lora_steps=80, n_actual=35, fused=True) -> dict:
+    """DragDiffusion's launches, worked out from the config and the drag
+    loop's count (`info`): two encodes (LoRA, drag) and a decode; the
+    LoRA steps and the drag iterations that stepped differentiated (every
+    layer); the iteration that stopped, forward under autograd only; the
+    no-grad passes: the inversion, the drag's reference pass and the
+    MasaCtrl denoise (batch 2, one self-attention a layer)."""
+    n_layers, _ = cfg.unet.attn_layer_layout
+    expect = _expected_passes(cfg, pipe, no_grad=[(2 * n_actual + 1, 1)],
+                              grad=[(lora_steps + info["updates"], 1)], encodes=2, fused=fused)
+    stopped = info["iterations"] - info["updates"]
+    expect["flash_sdpa_fwd_lse"] += stopped * n_layers
+    if fused:
+        expect["group_norm_silu"] += stopped * len(norm_calls(cfg, "unet"))
+    return expect
+
+
+def _step_ms(timer) -> dict:
+    split = timer.split_ms()
+    return {k: float(np.mean([r[k] for r in split])) for k in ("forward", "backward", "total")}
+
+
+def _c2_pairs(key, step, expected):
+    """C2: `C2_PAIRED_STEPS` differentiated steps (`step(timer)`) per call,
+    the calls under GroupNorm auto and 0 in turns (auto, 0, 0, auto) after
+    one warm-up call under each, each call counted against
+    `expected(fused)`."""
+    import torch
+
+    from freefine_tpu_torch.utils.profiling import GradStepTimer
+
+    def call(timer):
+        for _ in range(C2_PAIRED_STEPS):
+            step(timer)
+
+    for mode in (None, "0"):
+        with fused_gn(mode):
+            call(GradStepTimer())
+    runs = []
+    for mode in (None, "0", "0", None):
+        timer = GradStepTimer()
+        with fused_gn(mode):
+            counted(f"{key} paired steps (GroupNorm {mode or 'auto'})", lambda: call(timer),
+                    expected(mode is None))
+        torch.cuda.synchronize()
+        runs.append(dict(fused_gn=mode or "auto", **{
+            f"{k}_ms": [r[k] for r in timer.split_ms()] for k in ("total", "forward",
+                                                                   "backward")}))
+    mean = {m: float(np.mean([x for r in runs if r["fused_gn"] == m for x in r["total_ms"]]))
+            for m in ("auto", "0")}
+    log(f"  {key} step, paired (auto, 0, 0, auto): {mean['auto']:.1f} ms (GroupNorm auto) "
+        f"against {mean['0']:.1f} ms (GroupNorm 0)")
+    return dict(runs=runs, steps_per_call=C2_PAIRED_STEPS, step_ms_mean=mean)
+
+
+def _step_launches(cfg, pipe, differentiated_layers, fused):
+    """Launches of one differentiated batch-1 UNet step: the layers ahead of
+    the gradient plain, the rest through rows 3-5, every norm with the fused
+    GroupNorm."""
+    n_layers, _ = cfg.unet.attn_layer_layout
+    expect = _expected(cfg, pipe, 0, 0, encodes=0, decodes=0)
+    expect["flash_sdpa"] = C2_PAIRED_STEPS * (n_layers - differentiated_layers)
+    for name in ("flash_sdpa_fwd_lse", "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+        expect[name] = C2_PAIRED_STEPS * differentiated_layers
+    if fused:
+        expect["group_norm_silu"] = C2_PAIRED_STEPS * len(norm_calls(cfg, "unet"))
+    return expect
+
+
+def phase_dh(record, pipe, store):
+    """Phase DH: `DiffusionHandles.edit` on phase 4's SD-1.5 512^2 pipe at
+    GeoBench's protocol (prompt "", 50 DDIM steps, null-text inversion of
+    10 gradient steps a step, 3 latent steps a guided step through step 38,
+    foreground 1.5, background 1.25, CFG 7.5; `DH_EDIT_PARAM`), the depth
+    Depth-Anything ViT-L's (random weights made on the card, as in phase
+    3D) normalised by `geobench_dh_depth`, FREEFINE_FUSED_GN unset: the
+    depth call counted, a cut warm-up edit, one full edit counted against
+    `_expected_dh`, its stages and differentiated steps timed (null-text
+    and guided, forward and backward by CUDA events), its peak; then C2's
+    pairing of one null-text gradient step.  Returns path DH's launches
+    (the depth call's included)."""
+    from collections import Counter
+
+    import torch
+
+    from freefine_tpu_torch.baselines import DiffusionHandles
+    from freefine_tpu_torch.baselines import diffusion_handles as DHM
+    from freefine_tpu_torch.baselines.eval import geobench_dh_depth
+    from freefine_tpu_torch.data.author3d import make_depth_fn
+    from freefine_tpu_torch.models.depth_anything import depth_anything_vitl
+    from freefine_tpu_torch.schedulers.ddim import DDIMSchedule
+    from freefine_tpu_torch.utils.profiling import GradStepTimer, StageTimer
+
+    cfg = pipe.config
+    card = record["card"]
+    img, mask, _, _ = edit_case(cfg)
+    none = {k: 0 for k in _launch_counts()[0]}
+    predict = make_depth_fn("depth_anything", encoder="vitl", seed=0)
+    predict(img)
+    depth_expect = {**none, "flash_sdpa": depth_anything_vitl().backbone.depth}
+    raw, depth_s, depth_shapes = counted("DH depth", lambda: predict(img), depth_expect)
+    del predict
+    torch.cuda.empty_cache()
+    depth = geobench_dh_depth(raw, mask)
+    dh = DiffusionHandles(pipe)
+    with fused_gn(None):
+        dh.edit(img, depth, mask, DH_EDIT_PARAM, steps=2, nti_iters=1, num_optsteps=1,
+                guidance_max_step=1)
+    timer, grads = StageTimer(), {"nti": GradStepTimer(), "guided": GradStepTimer()}
+    p = DH_PROTOCOL
+    expect = _expected_dh(cfg, pipe, p["steps"], p["nti_iters"], p["num_optsteps"],
+                          p["guidance_max_step"])
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(None):
+        res, secs, shapes = counted("DH edit", lambda: dh.edit(
+            img, depth, mask, DH_EDIT_PARAM, timer=timer, grad_timers=grads, **p), expect)
+    _edit_checked("DH", store, res, (cfg.height, cfg.width))
+    n_nti, n_guided = len(grads["nti"].steps), len(grads["guided"].steps)
+    if (n_nti, n_guided) != (p["steps"] * p["nti_iters"],
+                             p["guidance_max_step"] * p["num_optsteps"]):
+        raise AssertionError(f"DH: {n_nti} null-text and {n_guided} guided steps timed")
+    stages = {k: v["total_s"] for k, v in timer.summary().items()}
+    info = _baseline_record(
+        record, "dh", [secs * 1e3], shapes, expect, torch.cuda.max_memory_allocated(),
+        p["steps"], dict(protocol=f"DiffusionHandles.edit {p}, edit_param {DH_EDIT_PARAM}; "
+                                  "bf16 SD-1.5, random weights; GroupNorm default",
+                         stages_s=stages, null_text_step_ms=_step_ms(grads["nti"]),
+                         guided_step_ms=_step_ms(grads["guided"]),
+                         null_text_steps=n_nti, guided_steps=n_guided,
+                         depth_s=depth_s, depth_range=[float(depth.min()), float(depth.max())],
+                         depth_launches=[[*k, n] for k, n in sorted(depth_shapes.items())]))
+    log(f"  DH stages {({k: round(v, 2) for k, v in stages.items()})} s; null-text step "
+        f"{info['null_text_step_ms']} ms, guided step {info['guided_step_ms']} ms (forward, "
+        f"backward, total; means of {n_nti} and {n_guided}) [{card}]")
+
+    sched = DDIMSchedule.create(num_inference_steps=50)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    lh = cfg.latent_height
+    z, target = (torch.randn(1, lh, lh, 4, generator=gen, device="cuda") for _ in range(2))
+    t = int(sched.timesteps[10])
+    ctx = pipe.encode_text([""])
+    with torch.no_grad():
+        eps_c = pipe.unet_apply(z, t, ctx)
+    u0 = pipe.encode_text([""])
+
+    def nti_step(timer):
+        u = u0.detach().requires_grad_()
+        timer.begin()
+        loss = DHM.nti_loss(pipe, sched, z, t, u, eps_c, target, 7.5)
+        timer.mark("forward")
+        torch.autograd.grad(loss, u)
+        timer.mark("end")
+
+    n_layers, _ = cfg.unet.attn_layer_layout
+    info["gn_paired"] = _c2_pairs("DH null-text", nti_step, lambda fused: _step_launches(
+        cfg, pipe, n_layers - 1, fused))
+    return dict(Counter(shapes) + Counter(depth_shapes))
+
+
+def phase_dd(record, pipe, store):
+    """Phase DD: `DragDiffusion.drag` on phase 4's SD-1.5 512^2 pipe at
+    GeoBench's protocol (a LoRA of rank 16 trained 80 Adam steps at lr
+    5e-4 on "image of object"; inversion strength 0.7, at most 80 drag
+    iterations at latent lr 0.01, r_m 1, r_p 3, lam 0.1; the MasaCtrl
+    denoise from step 4): at most 30 handles of phase 4's object and their
+    targets by `_drag_points_from_case` (`DD_EDIT_PARAM`), the union of
+    the object and its target mask, `max_points` 32, FREEFINE_FUSED_GN
+    unset.  A cut warm-up, then one full drag counted against
+    `_expected_dd` (the drag loop's iterations read from the call), its
+    stages and differentiated steps timed (LoRA and drag, forward and
+    backward by CUDA events), its peak; then C2's pairing of one LoRA
+    step.  Before it, a drag with every handle on its target (a 2-step
+    LoRA) must stop at its first iteration with no update, its launches
+    counted against `_expected_dd` too.  Returns path DD's launches."""
+    import torch
+
+    from freefine_tpu_torch.baselines import DragDiffusion
+    from freefine_tpu_torch.baselines import drag_diffusion as DDM
+    from freefine_tpu_torch.baselines.eval import _drag_points_from_case
+    from freefine_tpu_torch.schedulers.ddim import DDIMSchedule
+    from freefine_tpu_torch.utils.profiling import GradStepTimer, StageTimer
+
+    cfg = pipe.config
+    card = record["card"]
+    img, mask, _, tm = edit_case(cfg)
+    handles, targets = _drag_points_from_case(mask, tm, DD_EDIT_PARAM, seed=42)
+    union = ((mask > 0) | (tm > 0)).astype(np.float32)
+    dd = DragDiffusion(pipe)
+    p = DD_PROTOCOL
+    with fused_gn(None):
+        dd.drag(img, handles, targets, DD_PROMPT, mask=union,
+                **{**p, "train_lora_steps": 2, "n_pix_step": 2})
+    n_actual = round(p["inversion_strength"] * 50)
+    # the loop's stop: every handle on its target, so the first iteration
+    # runs its forward only and no update is taken (2 LoRA steps)
+    stop = {}
+    with fused_gn(None):
+        res, _, _ = counted("DD drag stopped at its first iteration", lambda: dd.drag(
+            img, handles, handles, DD_PROMPT, mask=union, info=stop,
+            **{**p, "train_lora_steps": 2}), lambda: _expected_dd(cfg, pipe, stop, 2, n_actual))
+    if stop != {"iterations": 1, "updates": 0}:
+        raise AssertionError(f"DD: the drag with every handle on its target ran {stop}")
+    _edit_checked("DD stopped", store, res, (cfg.height, cfg.width))
+    timer, grads, info = StageTimer(), {"lora": GradStepTimer(), "drag": GradStepTimer()}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with fused_gn(None):
+        res, secs, shapes = counted("DD drag", lambda: dd.drag(
+            img, handles, targets, DD_PROMPT, mask=union, timer=timer, grad_timers=grads,
+            info=info, **p), lambda: _expected_dd(cfg, pipe, info, p["train_lora_steps"],
+                                                  n_actual))
+    expect = _expected_dd(cfg, pipe, info, p["train_lora_steps"], n_actual)
+    _edit_checked("DD", store, res, (cfg.height, cfg.width))
+    stages = {k: v["total_s"] for k, v in timer.summary().items()}
+    if len(grads["lora"].steps) != p["train_lora_steps"] or \
+            len(grads["drag"].steps) != info["updates"]:
+        raise AssertionError(f"DD: steps timed {len(grads['lora'].steps)}, "
+                             f"{len(grads['drag'].steps)}; {info}")
+    out = _baseline_record(
+        record, "dd", [secs * 1e3], shapes, expect, torch.cuda.max_memory_allocated(), 50,
+        dict(protocol=f"DragDiffusion.drag {p}, {len(handles)} points of edit_param "
+                      f"{DD_EDIT_PARAM}, the union mask; bf16 SD-1.5, random weights; "
+                      "GroupNorm default",
+             points=len(handles), stages_s=stages, drag_iterations=info["iterations"],
+             drag_updates=info["updates"], stopped_early=info["iterations"] < p["n_pix_step"]
+             or info["updates"] < info["iterations"],
+             lora_step_ms=_step_ms(grads["lora"]),
+             drag_step_ms=_step_ms(grads["drag"]) if info["updates"] else None,
+             lora_s_per_step=stages["lora"] / p["train_lora_steps"],
+             drag_s_per_iteration=stages["drag"] / max(info["iterations"], 1)))
+    log(f"  DD stages {({k: round(v, 2) for k, v in stages.items()})} s; {len(handles)} points, "
+        f"drag iterations {info['iterations']} ({info['updates']} stepped); LoRA step "
+        f"{out['lora_step_ms']} ms, drag step {out['drag_step_ms']} ms [{card}]")
+
+    sched = DDIMSchedule.create(num_inference_steps=50)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    lh = cfg.latent_height
+    lat, noise = (torch.randn(1, lh, lh, 4, generator=gen, device="cuda") for _ in range(2))
+    ctx = pipe.encode_text([DD_PROMPT])
+    init = DDM.init_lora(pipe.unet, p["lora_rank"], gen)
+    lora = {k: {"a": ab["a"], "b": 0.01 * torch.randn(ab["b"].shape, generator=gen,
+                                                        device="cuda")}
+            for k, ab in init.items()}
+    alphas = torch.as_tensor(sched.alphas_cumprod, device="cuda")
+
+    def lora_step(timer):
+        lo = {k: {n: x.detach().requires_grad_() for n, x in ab.items()} for k, ab in lora.items()}
+        timer.begin()
+        loss = DDM.lora_loss(pipe, lo, lat, ctx, 437, noise, alphas)
+        timer.mark("forward")
+        torch.autograd.grad(loss, [x for ab in lo.values() for x in ab.values()])
+        timer.mark("end")
+
+    n_layers, _ = cfg.unet.attn_layer_layout
+    out["gn_paired"] = _c2_pairs("DD LoRA", lora_step, lambda fused: _step_launches(
+        cfg, pipe, n_layers, fused))
+    return shapes
+
+
 def save_record(record, **extra):
     """The run's record so far, with `extra` beside it, to
     chiprun_out/chip_smoke.json (written again after each of the early
@@ -4753,8 +5300,8 @@ def save_record(record, **extra):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--skip-sd15", action="store_true",
-                    help="skip phases 4 to 9b, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, G-XL and "
-                         "PX (kernel and tiny checks only)")
+                    help="skip phases 4 to 9b, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, DH, DD, "
+                         "G-XL and PX (kernel and tiny checks only)")
     ap.add_argument("--timed-runs", type=int, default=2)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
@@ -4799,6 +5346,7 @@ def main():
     phase_tiny_sv3d(record)
     phase_tiny_mg(record)
     phase_tiny_baselines(record)
+    phase_tiny_dh_dd(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -4850,6 +5398,13 @@ def main():
         counts["SG"] = phase_sg(record, pipe, store)
         log("phase GD: GeoDiffuser.edit on the SD-1.5 512^2 pipe (50 steps, lr 0.03)")
         counts["GD"] = phase_gd(record, pipe, store)
+        log("phase DH: DiffusionHandles.edit on the SD-1.5 512^2 pipe (50 steps, null-text "
+            "inversion 10 a step, 3 latent steps a guided step to step 38; Depth-Anything's "
+            "depth)")
+        counts["DH"] = phase_dh(record, pipe, store)
+        log("phase DD: DragDiffusion.drag on the SD-1.5 512^2 pipe (LoRA rank 16, 80 steps; "
+            "inversion 0.7, 80 drag iterations, MasaCtrl denoise)")
+        counts["DD"] = phase_dd(record, pipe, store)
         del pipe, case, store
         gc.collect()
         torch.cuda.empty_cache()

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from freefine_tpu_torch.conditioning import Cond
 from freefine_tpu_torch.edit import EditConfig, EditState, build_mask_pyramid, nearest_resize
 from freefine_tpu_torch.masks import dilate
-from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, _f32
+from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, ddim_prev
 
 # ---------------------------------------------------------------------------
 # Host-side pixel warps
@@ -201,7 +201,6 @@ class DesignEdit:
         ecfg = EditConfig(mode="design", method=None, local_cfg=False, kv_source_stream=n + 1)
         rm = remove[None, :, :, None]
         fgm0 = fg_mask[None, :, :, None]
-        one = np.float32(1.0)
         x = lat
         for i, t in enumerate(schedule.timesteps):
             t = int(t)
@@ -216,11 +215,7 @@ class DesignEdit:
             eps = u.float() + guidance_scale * delta
 
             # DDIM step, eta 0
-            a_t = schedule.alpha_at(t)
-            a_p = schedule.alpha_prev_strict(t - schedule.step_delta)
-            x32 = x.float()
-            x0 = (x32 - _f32(np.sqrt(one - a_t)) * eps) / _f32(np.sqrt(a_t))
-            x_new = _f32(np.sqrt(a_p)) * x0 + _f32(np.sqrt(one - a_p)) * eps
+            x_new = ddim_prev(schedule, eps, t, x)
 
             # proximal realignment: the background stream's hole joins its
             # edit mask and the canvas stream is left free

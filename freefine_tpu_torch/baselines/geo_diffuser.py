@@ -31,7 +31,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from freefine_tpu_torch.edit import (
     EditConfig,
@@ -41,7 +40,8 @@ from freefine_tpu_torch.edit import (
 )
 from freefine_tpu_torch.masks import dilate
 from freefine_tpu_torch.ops.geometry import edit_affine_matrix, invert_affine, mask_bbox_center
-from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, _f32
+from freefine_tpu_torch.ops.resize import resize
+from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, _f32, ddim_prev
 from freefine_tpu_torch.utils.profiling import NoStepTimer
 
 LOSS_WEIGHTS = {
@@ -223,11 +223,7 @@ class GeoDiffuser:
             # the denoise step, with attention sharing
             with torch.no_grad():
                 eps, _, _ = self._unet_losses(ecfg, lat, t, ctx2, st, rem_mult)
-            a_t = schedule.alpha_at(t)
-            a_p = schedule.alpha_prev_strict(t - schedule.step_delta)
-            x32, e32 = lat.float(), eps.float()
-            x0 = (x32 - _f32(np.sqrt(one - a_t)) * e32) / _f32(np.sqrt(a_t))
-            lat = (_f32(np.sqrt(a_p)) * x0 + _f32(np.sqrt(one - a_p)) * e32).to(lat.dtype)
+            lat = ddim_prev(schedule, eps, t, lat).to(lat.dtype)
         return lat
 
     @torch.no_grad()
@@ -266,8 +262,7 @@ class GeoDiffuser:
                          axis=1).astype(np.float32)
         # the decaying step: lr * (N - i) * 50 / N
         lr_sched = (lr * (n - i) * (50.0 / n)).astype(np.float32)
-        # jax.image.resize(..., "nearest"): torch's "nearest-exact"
-        m_warp_lat = F.interpolate(mw_t[None, None], size=(lh, lw), mode="nearest-exact")[0, 0]
+        m_warp_lat = resize(mw_t, (lh, lw), "nearest")
         phase, expected = adaptive_removal_schedule(steps, removal_in=removal_loss_value)
         adapt_sched = np.stack([np.full(steps, 1.0 if adaptive else 0.0, np.float32),
                                 phase.astype(np.float32), expected], axis=1)

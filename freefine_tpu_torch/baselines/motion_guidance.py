@@ -34,9 +34,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from freefine_tpu_torch.ops.flow import map_coordinates_linear
+from freefine_tpu_torch.ops.resize import resize
 from freefine_tpu_torch.schedulers.ddim import DDIMSchedule
 
 
@@ -324,10 +324,9 @@ class MotionGuidance:
         flow = torch.as_tensor(gen_flow(edit_param, mask), device=dev)
         if edit_mask is None:
             em = torch.zeros(shape[:3] + (1,), device=dev)
-        else:  # jax.image.resize(..., "nearest"): torch's "nearest-exact"
+        else:
             m = torch.as_tensor(np.asarray(edit_mask, np.float32), device=dev)
-            em = F.interpolate(m[None, None], size=(lh, lw), mode="nearest-exact")[0, 0]
-            em = em[None, :, :, None]
+            em = resize(m, (lh, lw), "nearest")[None, :, :, None]
         g = (np.ones(steps, np.float32) if guidance_schedule is None
              else np.asarray(guidance_schedule[:steps], np.float32))
 

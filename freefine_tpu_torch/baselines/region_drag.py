@@ -37,9 +37,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from freefine_tpu_torch.edit import EditConfig, none_config
+from freefine_tpu_torch.ops.resize import resize
 from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, _f32
 
 # ---------------------------------------------------------------------------
@@ -374,10 +374,9 @@ class RegionDrag:
         cp_gates = (np.asarray(ts_bwd) >= end_step_t).astype(np.float32)
         if mask is None:
             mask_l = torch.ones(1, lh, lw, 1, device=dev)
-        else:  # jax.image.resize(..., "nearest"): torch's "nearest-exact"
+        else:
             m = torch.as_tensor(np.asarray(mask, np.float32), device=dev)
-            mask_l = F.interpolate(m[None, None], size=(lh, lw), mode="nearest-exact")[0, 0]
-            mask_l = mask_l[None, :, :, None]
+            mask_l = resize(m, (lh, lw), "nearest")[None, :, :, None]
 
         out = self._backward(schedule, start, hooks, noises, ctx, as_t(copy_src), as_t(paste_tgt), ts_bwd,
                              cp_gates, mask_l, sde)

@@ -35,6 +35,7 @@ import torch
 from freefine_tpu_torch.data.datagen import generate_azimuth_angles
 from freefine_tpu_torch.models.layers import timestep_embedding
 from freefine_tpu_torch.models.video_unet import VideoUNet
+from freefine_tpu_torch.ops.resize import nearest_index as resize_nearest_index
 from freefine_tpu_torch.ops.resize import resize
 
 
@@ -192,14 +193,6 @@ def crop_object_square(img: np.ndarray, mask: np.ndarray, out_size: int = 576,
     canvas[oy : oy + h, ox : ox + w] = obj
     out = resize(torch.as_tensor(canvas, device=device), (out_size, out_size), "linear")
     return np.clip(out.cpu().numpy(), 0, 255).astype(np.uint8), (x0, y0, x1, y1)
-
-
-def resize_nearest_index(n_in: int, n_out: int) -> np.ndarray:
-    """The source index of each output sample of `jax.image.resize`'s
-    "nearest": floor((i + 0.5) * n_in / n_out) in float32 (torch's
-    "nearest-exact", not its "nearest")."""
-    pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
-    return np.floor(pos / np.float32(n_out)).astype(np.int64)
 
 
 def paste_novel_view_back(

@@ -6,9 +6,10 @@ The volume is one batched matrix product, the pyramid average pooling, and
 the lookup a bilinear gather.  The gather is `map_coordinates_linear`, a
 step-for-step copy of `jax.scipy.ndimage.map_coordinates(order=1)`: floor
 the coordinate, weight the two neighbours by (1 - frac, frac), zero (or,
-in mode "mirror", reflect about the edge pixels' centres) the neighbours
-outside the image, multiply the two axes' weights before the value and add
-the four corners in JAX's order.  `F.grid_sample` is not used: its
+in mode "mirror", reflect about the edge pixels' centres; in mode
+"nearest", clamp them to the border) the neighbours outside the image,
+multiply the two axes' weights before the value and add the four corners
+in JAX's order.  `F.grid_sample` is not used: its
 normalise-and-back round trip moves integer coordinates by an ulp, and with
 them which corners carry weight.  Under autograd the gather's backward is a
 scatter-add (atomics on CUDA, so a gradient varies in its last bits from
@@ -66,6 +67,8 @@ def _linear_nodes(coord: torch.Tensor, size: int, mode: str):
     for i, w in ((index, lower_w), (index + 1, upper_w)):
         if mode == "constant":
             nodes.append((i.clamp(0, size - 1), (i >= 0) & (i < size), w))
+        elif mode == "nearest":  # the border pixel's value outside
+            nodes.append((i.clamp(0, size - 1), None, w))
         else:  # mirror: reflect about the edge pixels' centres
             s = size - 1
             nodes.append((torch.abs(torch.remainder(i + s, 2 * s) - s), None, w))
@@ -76,9 +79,10 @@ def map_coordinates_linear(img: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor
                            mode: str = "constant") -> torch.Tensor:
     """`jax.scipy.ndimage.map_coordinates(img[n], [yy[n], xx[n]], order=1,
     mode=mode, cval=0)` for each n: img [N, H, W], yy/xx [N, ...] -> [N, ...].
-    mode "constant" (zeros outside) or "mirror"."""
-    if mode not in ("constant", "mirror"):
-        raise ValueError(f"mode {mode!r}: 'constant' or 'mirror'")
+    mode "constant" (zeros outside), "nearest" (the index clamped to the
+    border) or "mirror"."""
+    if mode not in ("constant", "nearest", "mirror"):
+        raise ValueError(f"mode {mode!r}: 'constant', 'nearest' or 'mirror'")
     n, h, w = img.shape
     flat = img.reshape(n, h * w)
     total = None

@@ -32,6 +32,14 @@ def _resize(f: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def abs_l1(x: torch.Tensor) -> torch.Tensor:
+    """|x| for an L1 term under autograd, with `jnp.abs`'s gradient: +1
+    where x >= 0, -1 below (`torch.abs` takes 0 at x = 0).  An L1 term at
+    an exact zero residual (a tap against its own record, a latent against
+    its own reference) so pushes as the JAX package's does."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _compute_type(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)  # bf16 up, f64 kept
 

@@ -13,7 +13,10 @@ Two conventions, each exact on its own terms:
     with three kernels (the triangle, Keys' cubic with a = -0.5, Lanczos of
     radius 3), each stretched by the inverse scale when shrinking if
     `antialias` (JAX's default), columns renormalised, samples outside the
-    input zeroed.  `F.interpolate` matches none of these when shrinking.
+    input zeroed.  `F.interpolate` matches none of these when shrinking;
+  * `jax.image.resize(..., "nearest")`, a gather of input row
+    floor((i + 0.5) * n_in / n_out) computed in float32 (`nearest_index`:
+    half-pixel centres, torch's "nearest-exact", not its "nearest").
 
 Every weight matrix is built in float32 on the tensor's device and applied
 with one contraction per resized axis; axes whose size does not change are left
@@ -119,15 +122,28 @@ def resize_weights(in_size: int, out_size: int, method: str, antialias: bool = T
     return torch.where(inside[None, :], k, torch.zeros_like(k))
 
 
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The source index of each output sample of `jax.image.resize`'s
+    "nearest": floor((i + 0.5) * n_in / n_out) in float32."""
+    pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
+    return np.floor(pos / np.float32(n_out)).astype(np.int64)
+
+
 def resize(x: torch.Tensor, size: Sequence[int], method: str, antialias: bool = True,
            axes: Sequence[int] = (0, 1)) -> torch.Tensor:
     """`jax.image.resize` of `x`'s `axes` to `size` (one entry per axis)
-    with "linear", "cubic" or "lanczos3", in float32, on x's device; an
-    axis whose size does not change is not resampled."""
+    with "linear", "cubic", "lanczos3" or "nearest" (a gather, which
+    ignores `antialias`), in float32, on x's device; an axis whose size
+    does not change is not resampled."""
     y = x.float()
     for axis, n in zip(axes, size):
         axis %= y.ndim
-        if y.shape[axis] != int(n):
+        if y.shape[axis] == int(n):
+            continue
+        if method == "nearest":
+            idx = torch.from_numpy(nearest_index(y.shape[axis], int(n))).to(y.device)
+            y = torch.index_select(y, axis, idx)
+        else:
             y = _apply(y, resize_weights(y.shape[axis], int(n), method, antialias, y.device),
                        axis)
     return y

@@ -30,7 +30,6 @@ for CUDA on a machine without it raises.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Optional, Sequence, Union
 
@@ -59,6 +58,7 @@ from freefine_tpu_torch.ops.resize import resize_lanczos3
 from freefine_tpu_torch.ops.guidance import energy_guidance
 from freefine_tpu_torch.schedulers.ddim import DDIMSchedule, ctrl_step, inv_step, method_and_gates
 from freefine_tpu_torch.utils.attn_store import collect_maps
+from freefine_tpu_torch.utils.profiling import synced_stage
 from freefine_tpu_torch.utils.vis import latent_to_preview
 from freefine_tpu_torch.weights import random_weights
 
@@ -618,17 +618,22 @@ class FreeFine:
 
     def unet_apply(self, lat, t, ctx, ecfg: Optional[EditConfig] = None,
                    state: Optional[EditState] = None, return_features: bool = False,
-                   ctx_extra=None):
+                   ctx_extra=None, weights: Optional[dict] = None):
         """NHWC latents -> NHWC noise prediction (model dtype); with
         return_features, (eps, features) with NHWC features (the plain
         UNet's taps that energy guidance reads).  ctx: the conditioning
         (`Cond`, or a context [B, L, D]); ctx_extra: the compose region
-        prompts [P, L, D] (of a `Cond`, its context alone)."""
+        prompts [P, L, D] (of a `Cond`, its context alone); weights: {state
+        dict key: tensor} in place of those parameters for this call
+        (`torch.func.functional_call`; DragDiffusion's LoRA-merged
+        projections), the module's own parameters left as they are."""
         kw = {} if ecfg is None else dict(edit_cfg=ecfg, edit_state=state)
         cond = Cond.of(ctx)
         extra = None if ctx_extra is None else Cond.of(ctx_extra).ctx
-        out = self.unet(lat.permute(0, 3, 1, 2), t, cond.ctx, return_features=return_features,
-                        context_extra=extra, added_cond=cond.added, **kw)
+        args = (lat.permute(0, 3, 1, 2), t, cond.ctx)
+        kw.update(return_features=return_features, context_extra=extra, added_cond=cond.added)
+        out = (self.unet(*args, **kw) if weights is None
+               else torch.func.functional_call(self.unet, weights, args, kw))
         if return_features:
             eps, feats = out
             return eps.permute(0, 2, 3, 1), [f.permute(0, 2, 3, 1) for f in feats]
@@ -1252,16 +1257,6 @@ class BatchedFreeFine:
     def __init__(self, pipe: FreeFine):
         self.pipe = pipe
 
-    @contextlib.contextmanager
-    def _stage(self, timer, name: str):
-        if timer is None:
-            yield
-            return
-        with timer.stage(name):
-            yield
-            if self.pipe.device.type == "cuda":
-                torch.cuda.synchronize(self.pipe.device)
-
     def _uncond_and_conds(self, texts):
         """One text-encode call for [""] + the per-case prompts: the ""
         `Cond` row and the prompts' [C, ...]."""
@@ -1303,18 +1298,18 @@ class BatchedFreeFine:
             raise ValueError(method_type)
         pipe = self.pipe
         n = len(cases)
-        with self._stage(timer, "prep_images"):
+        with synced_stage(timer, "prep_images", self.pipe.device):
             coarse = np.stack([pipe._prep_image(c["coarse_input"]) for c in cases])
             ori = np.stack([pipe._prep_image(c["ori_img"]) for c in cases])
-        with self._stage(timer, "vae_encode"):
+        with synced_stage(timer, "vae_encode", self.pipe.device):
             lats = pipe.image_to_latent(np.concatenate([coarse, ori]))
             lat2 = torch.stack([lats[:n], lats[n:]], dim=1)          # [C, 2, lh, lw, 4]
-        with self._stage(timer, "text_encode"):
+        with synced_stage(timer, "text_encode", self.pipe.device):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
             u = uncond.expand(n)
             text2 = Cond.stack([u, u], 1)                            # inversion [C, 2, ...]
             text3 = Cond.stack([u, u, conds], 1)                     # deduped CFG [C, 3, ...]
-        with self._stage(timer, "mask_prep"):
+        with synced_stage(timer, "mask_prep", self.pipe.device):
             states, cfg_masks, var_masks = edit_mask_states(
                 pipe.config, pipe.device, cases, use_auto_draw, reduce_inp_artifacts)
         method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
@@ -1326,10 +1321,10 @@ class BatchedFreeFine:
             guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
             local_perturbation=local_perturbation,
         )
-        with self._stage(timer, "edit"):
+        with synced_stage(timer, "edit", self.pipe.device):
             out = fn(lat2, text2, text3, states, cg, gates, cfg_masks, var_masks,
                      self._noise(seed, noise, n))
-        with self._stage(timer, "decode"):
+        with synced_stage(timer, "decode", self.pipe.device):
             imgs = pipe.latent_to_image(out[:, 0])
         return list(imgs)
 
@@ -1365,16 +1360,16 @@ class BatchedFreeFine:
         ori0 = _one_source(cases, "generation_shared_source")
         pipe = self.pipe
         n = len(cases)
-        with self._stage(timer, "prep_images"):
+        with synced_stage(timer, "prep_images", self.pipe.device):
             coarse = np.stack([pipe._prep_image(c["coarse_input"]) for c in cases])
             ori = pipe._prep_image(ori0)
-        with self._stage(timer, "vae_encode"):
+        with synced_stage(timer, "vae_encode", self.pipe.device):
             lats = pipe.image_to_latent(np.concatenate([coarse, ori[None]]))
             lat_coarse, lat_ref = lats[:n], lats[n]
-        with self._stage(timer, "text_encode"):
+        with synced_stage(timer, "text_encode", self.pipe.device):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
             text_pair = Cond.stack([uncond.expand(n), conds], 1)
-        with self._stage(timer, "mask_prep"):
+        with synced_stage(timer, "mask_prep", self.pipe.device):
             states, cfg_masks, var_masks = edit_mask_states(
                 pipe.config, pipe.device, cases, use_auto_draw, reduce_inp_artifacts)
         method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
@@ -1387,10 +1382,10 @@ class BatchedFreeFine:
             start_step=start_step, guidance_scale=guidance_scale, eta=eta,
             local_text_edit=local_text_edit, local_perturbation=local_perturbation,
         )
-        with self._stage(timer, "edit"):
+        with synced_stage(timer, "edit", self.pipe.device):
             out = fn(lat_coarse, lat_ref, uncond, text_pair, states, cg, gates, cfg_masks,
                      var_masks, self._noise(seed, noise, n))
-        with self._stage(timer, "decode"):
+        with synced_stage(timer, "decode", self.pipe.device):
             imgs = pipe.latent_to_image(out)
         return list(imgs)
 
@@ -1416,16 +1411,16 @@ class BatchedFreeFine:
             raise ValueError(method_type)
         pipe = self.pipe
         n = len(cases)
-        with self._stage(timer, "prep_images"):
+        with synced_stage(timer, "prep_images", self.pipe.device):
             ori = np.stack([pipe._prep_image(c["ori_img"]) for c in cases])
-        with self._stage(timer, "vae_encode"):
+        with synced_stage(timer, "vae_encode", self.pipe.device):
             lat1 = pipe.image_to_latent(ori)[:, None]                # [C, 1, lh, lw, 4]
-        with self._stage(timer, "text_encode"):
+        with synced_stage(timer, "text_encode", self.pipe.device):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
             u = uncond.expand(n)
             text1 = u[:, None]
             text3 = Cond.stack([u, u, conds], 1)
-        with self._stage(timer, "mask_prep"):
+        with synced_stage(timer, "mask_prep", self.pipe.device):
             states, lvars = bggen_mask_states(pipe.config, pipe.device, cases)
         method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
                                              end_scale)
@@ -1436,10 +1431,10 @@ class BatchedFreeFine:
             guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
             local_perturbation=local_perturbation,
         )
-        with self._stage(timer, "edit"):
+        with synced_stage(timer, "edit", self.pipe.device):
             out = fn(lat1, text1, text3, states, cg, gates, lvars, lvars,
                      self._noise(seed, noise, n))
-        with self._stage(timer, "decode"):
+        with synced_stage(timer, "decode", self.pipe.device):
             imgs = pipe.latent_to_image(out[:, 0])
         return list(imgs)
 
@@ -1469,14 +1464,14 @@ class BatchedFreeFine:
         ori0 = _one_source(cases, "background_generation_shared_source")
         pipe = self.pipe
         n = len(cases)
-        with self._stage(timer, "prep_images"):
+        with synced_stage(timer, "prep_images", self.pipe.device):
             ori = pipe._prep_image(ori0)
-        with self._stage(timer, "vae_encode"):
+        with synced_stage(timer, "vae_encode", self.pipe.device):
             lat_ref = pipe.image_to_latent(ori[None])[0]
-        with self._stage(timer, "text_encode"):
+        with synced_stage(timer, "text_encode", self.pipe.device):
             uncond, conds = self._uncond_and_conds([c["guidance_text"] for c in cases])
             text_pair = Cond.stack([uncond.expand(n), conds], 1)
-        with self._stage(timer, "mask_prep"):
+        with synced_stage(timer, "mask_prep", self.pipe.device):
             states, lvars = bggen_mask_states(pipe.config, pipe.device, cases)
         method, cg, gates = method_and_gates(method_type, start_step, end_step, num_step,
                                              end_scale)
@@ -1488,10 +1483,10 @@ class BatchedFreeFine:
             start_step=start_step, guidance_scale=guidance_scale, eta=eta,
             local_text_edit=local_text_edit, local_perturbation=local_perturbation,
         )
-        with self._stage(timer, "edit"):
+        with synced_stage(timer, "edit", self.pipe.device):
             out = fn(lat_ref, uncond, text_pair, states, cg, gates, lvars, lvars,
                      self._noise(seed, noise, n))
-        with self._stage(timer, "decode"):
+        with synced_stage(timer, "decode", self.pipe.device):
             imgs = pipe.latent_to_image(out)
         return list(imgs)
 
@@ -1529,12 +1524,12 @@ class BatchedFreeFine:
         if any(len(c["img_lists"]) != ns or len(c["guidance_text_list"]) != n_prompts
                for c in cases):
             raise ValueError("batched composition cases must share the source and prompt counts")
-        with self._stage(timer, "prep_images"):
+        with synced_stage(timer, "prep_images", self.pipe.device):
             imgs = np.stack([pipe._prep_image(im) for c in cases
                              for im in [c["coarse_input"], *c["img_lists"]]])
-        with self._stage(timer, "vae_encode"):
+        with synced_stage(timer, "vae_encode", self.pipe.device):
             lats = pipe.image_to_latent(imgs).reshape(n, ns + 1, lh, lw, 4)
-        with self._stage(timer, "text_encode"):
+        with synced_stage(timer, "text_encode", self.pipe.device):
             uncond, conds = self._uncond_and_conds(
                 [p for c in cases for p in c["guidance_text_list"]])
             conds = conds.reshape(n, n_prompts)
@@ -1544,7 +1539,7 @@ class BatchedFreeFine:
             text_emb = Cond.cat([u, conds[:, :ns], pad, u], 1)       # [C, N+2, ...]
             text_extra = Cond.cat([conds, u], 1).ctx                 # [C, P, L, D]
             text_inv = u.expand(n, ns + 1)
-        with self._stage(timer, "mask_prep"):
+        with synced_stage(timer, "mask_prep", self.pipe.device):
             def masks(ms):
                 return [torch.as_tensor(m, device=pipe.device) for m in _stack_masks_np(ms, h, w)]
 
@@ -1573,9 +1568,9 @@ class BatchedFreeFine:
             guidance_scale=guidance_scale, eta=eta, local_text_edit=local_text_edit,
             local_perturbation=local_perturbation,
         )
-        with self._stage(timer, "edit"):
+        with synced_stage(timer, "edit", self.pipe.device):
             out = fn(lats, text_inv, text_emb, text_extra, states, cg, gates,
                      torch.stack(cfg_masks), torch.stack(var_masks), self._noise(seed, noise, n))
-        with self._stage(timer, "decode"):
+        with synced_stage(timer, "decode", self.pipe.device):
             imgs = pipe.latent_to_image(out[:, 0])
         return list(imgs)

@@ -103,6 +103,19 @@ def inv_step(
     return x_next.to(dtype), pred_x0.to(dtype)
 
 
+def ddim_prev(schedule: DDIMSchedule, model_output: torch.Tensor, timestep: int,
+              x: torch.Tensor) -> torch.Tensor:
+    """One deterministic DDIM step x_t -> x_{t-delta} (eta 0, the strict
+    `t_prev > 0` test), in float32; the caller casts."""
+    one = np.float32(1.0)
+    t = int(timestep)
+    alpha_t = schedule.alpha_at(t)
+    alpha_prev = schedule.alpha_prev_strict(t - schedule.step_delta)
+    eps = model_output.float()
+    pred_x0 = (x.float() - _f32(np.sqrt(one - alpha_t)) * eps) / _f32(np.sqrt(alpha_t))
+    return _f32(np.sqrt(alpha_prev)) * pred_x0 + _f32(np.sqrt(one - alpha_prev)) * eps
+
+
 def ctrl_step(
     schedule: DDIMSchedule,
     model_output: torch.Tensor,

@@ -9,7 +9,9 @@ not ported).
 `BatchedFreeFine` takes a timer as `timer=` and ends each of its stages
 with a device synchronise on CUDA, so a stage times its device work.
 `GradStepTimer` splits each differentiated step of the gradient baselines
-(SelfGuidance, GeoDiffuser) into its forward and backward by CUDA events.
+(SelfGuidance, GeoDiffuser, DiffusionHandles, DragDiffusion) into its
+forward and backward by CUDA events; `synced_stage` times a baseline's
+stages on a `StageTimer`, each ended by a device synchronise.
 """
 
 from __future__ import annotations
@@ -55,6 +57,22 @@ class StageTimer:
         )
 
 
+@contextlib.contextmanager
+def synced_stage(timer, name: str, device) -> Iterator[None]:
+    """`timer.stage(name)` around the body, the device synchronised before
+    the stage ends (a CUDA device's work is then inside the stage); no
+    timing without a timer."""
+    if timer is None:
+        yield
+        return
+    with timer.stage(name):
+        yield
+        if getattr(device, "type", device) == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+
+
 class NoStepTimer:
     """What a differentiating loop uses without a `GradStepTimer`."""
 
@@ -62,6 +80,9 @@ class NoStepTimer:
         pass
 
     def mark(self, name: str) -> None:
+        pass
+
+    def cancel(self) -> None:
         pass
 
 
@@ -85,6 +106,10 @@ class GradStepTimer:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         self._events[name] = ev
+
+    def cancel(self) -> None:
+        """Drop the step begun last (a step that took no gradient)."""
+        self.steps.pop()
 
     def split_ms(self) -> List[Dict[str, float]]:
         """[{"forward", "backward", "total": ms}] per differentiated step."""

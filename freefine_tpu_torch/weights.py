@@ -17,6 +17,8 @@ adds:
     (torchhub names), Depth-Anything's and EfficientSAM's; SV3D's video
     UNet (sgm's names), the CLIP image tower (open_clip's) and U^2-Net
     (the official names);
+  * `lora_from_flax(lora)` — a JAX LoRA's factors keyed by the adapted
+    UNet weights' state-dict keys (DragDiffusion);
   * `random_weights(model, seed)` — the random-weight scheme of the
     throughput bench: norm weights 1, other 1-D leaves 0, matrices
     N(0, 0.02) drawn in float32 from a seeded `torch.Generator` and stored
@@ -494,6 +496,23 @@ def state_dict_from_flax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Ten
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f"{len(missing)} model keys absent from the flax tree, e.g. {missing[:5]}")
+    return out
+
+
+def lora_from_flax(lora: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA ({joined flax path ".../attn1/to_q/kernel": {"a": [in, r],
+    "b": [r, out]}}, as `freefine_tpu.baselines.drag_diffusion.init_lora`
+    draws it) -> the port's form (`baselines.drag_diffusion`): keyed by the
+    adapted weight's state-dict key ("...attn1.to_q.weight",
+    "...to_out.0.weight"), the factors float32 tensors as they are, since
+    the port merges W + (a @ b)^T into torch's [out, in] weight."""
+    out = {}
+    for key, ab in lora.items():
+        path = tuple(key.split("/"))
+        if path[-1] != "kernel":
+            raise KeyError(f"LoRA factors of {key}: not a dense kernel")
+        out[_flax_key(path, _UNET_REWRITES)] = {
+            n: torch.from_numpy(np.array(ab[n], np.float32)) for n in ("a", "b")}
     return out
 
 

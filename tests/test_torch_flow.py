@@ -135,3 +135,36 @@ def test_map_coordinates_mirror_matches_jax():
         i, [y, x], order=1, mode="mirror"))(*(jnp.asarray(a) for a in (img, yy, xx)))
     got = F.map_coordinates_linear(*(torch.from_numpy(a) for a in (img, yy, xx)), mode="mirror")
     assert_close(got, want)
+
+
+def test_map_coordinates_nearest_matches_jax_with_its_gradient():
+    """Mode "nearest" (DragDiffusion's patch sampler): values and the
+    gradient to the image bit for bit where a corner's weight is an exact
+    zero (integral coordinates), within TOL elsewhere."""
+    rng = np.random.default_rng(11)
+    img = rng.standard_normal((3, 7, 9)).astype(np.float32)
+    yy = rng.uniform(-4, 11, (3, 5, 6)).astype(np.float32)
+    xx = rng.uniform(-4, 13, (3, 5, 6)).astype(np.float32)
+    yy[:, 0], xx[:, 0] = np.round(yy[:, 0]), np.round(xx[:, 0])
+    cot = rng.standard_normal(yy.shape).astype(np.float32)
+
+    def jrun(i, y, x):
+        return jax.vmap(lambda a, b, c: jax.scipy.ndimage.map_coordinates(
+            a, [b, c], order=1, mode="nearest"))(i, y, x)
+
+    args = [jnp.asarray(a) for a in (img, yy, xx)]
+    want = jrun(*args)
+    want_grad = jax.grad(lambda i: jnp.sum(jrun(i, *args[1:]) * cot))(args[0])
+    t_img = torch.from_numpy(img).requires_grad_()
+    got = F.map_coordinates_linear(t_img, torch.from_numpy(yy), torch.from_numpy(xx),
+                                   mode="nearest")
+    assert_close(got, want)
+    got_grad, = torch.autograd.grad(torch.sum(got * torch.from_numpy(cot)), t_img)
+    assert_close(got_grad, want_grad)
+    assert np.array_equal(got_grad.numpy() == 0, np.asarray(want_grad) == 0)
+    # every coordinate past the border reads the border pixel
+    far = F.map_coordinates_linear(torch.from_numpy(img), torch.full((3, 1), -3.0),
+                                   torch.full((3, 1), 20.0), mode="nearest")
+    assert np.array_equal(far[:, 0].numpy(), img[:, 0, -1])
+    with pytest.raises(ValueError):
+        F.map_coordinates_linear(t_img, torch.from_numpy(yy), torch.from_numpy(xx), mode="wrap")

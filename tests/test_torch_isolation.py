@@ -75,6 +75,9 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.baselines.region_drag, freefine_tpu_torch.baselines.design_edit\n"
         "import freefine_tpu_torch.baselines.self_guidance\n"
         "import freefine_tpu_torch.baselines.geo_diffuser, freefine_tpu_torch.baselines\n"
+        "import freefine_tpu_torch.baselines.diffusion_handles\n"
+        "import freefine_tpu_torch.baselines.drag_diffusion, freefine_tpu_torch.baselines.eval\n"
+        "import freefine_tpu_torch.metrics.md\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2')]\n"
         "print(','.join(bad))\n"
