@@ -8,6 +8,11 @@ Every phase that runs the models names its GroupNorm route
 (FREEFINE_FUSED_GN "0" or "1"), except the checks of the default ("auto"):
 phase 3's and phase 9b's.
 
+The timed phases run one warm-up and `--timed-runs` timed edits or calls
+each, 1 by default (2 until the script outgrew its time); where a phase
+below says "two timed edits" or "0, 1, 1, 0", that is --timed-runs 2, and
+the default runs one edit, or the pair 0, 1.
+
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels from
      `freefine_tpu_torch/csrc` (one nvcc per source, in parallel) and print
@@ -103,7 +108,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      edit at 4 and 5 input channels and the tiny drag with a 2-step LoRA,
      one null-text, guided, LoRA (gradient and Adam update) and drag-loop
      gradient each (`phase_tiny_dh_dd`; the drag with the union mask
-     reported, not held: C12);
+     reported, not held: C12); InceptionV3-FID (its only width, batch 2),
+     a tiny BLIP ImageReward and a tiny OpenCLIPText (`phase_tiny_ev`);
   4. the full-width SD-1.5 512^2 edit: `re_edit_2d`, then `generation` with
      50 DDIM steps, start 35, guidance 7.5, eta 1.0, TCA, bf16 random
      weights, with FREEFINE_FUSED_GN 0 and 1 in turns (one warm-up each, then
@@ -204,24 +210,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  DE. `DesignEdit.move` (`phase_de`, 50 steps, CFG 7.5; phase 4's move as
      fractions) the same way: the inversion of [image, image] at batch 2
      and the 8-stream denoise, launches checked;
- SG. `SelfGuidance.edit` (`phase_sg`, 50 DDPM steps, CFG 7.5, inversion
-     1.5, weight 15; phase 4's transform): a cut warm-up under each
-     GroupNorm route, then one full edit counted, its 33 gradients split
+ SG. `SelfGuidance.edit` (`phase_sg`, CFG 7.5, inversion 1.5, weight 15;
+     phase 4's transform; the protocol's 50 DDPM steps cut in depth to
+     GRADIENT_BASELINE_STEPS, 20): a cut warm-up under each GroupNorm
+     route, then one 20-step edit counted, its gated gradients split
      into forward and backward by CUDA events (`GradStepTimer`); then cut
      edits of PAIRED_STEPS under the default and "0" in turns (auto, 0, 0,
      auto; ROADMAP C2), each counted;
- GD. `GeoDiffuser.edit` (`phase_gd`, 50 steps, lr 0.03; phase 4's edit)
-     the same way, its 48 optimisation gradients timed;
+ GD. `GeoDiffuser.edit` (`phase_gd`, lr 0.03; phase 4's edit; 20 of the
+     protocol's 50 steps) the same way, its optimisation gradients timed;
  DH. `DiffusionHandles.edit` (`phase_dh`) on phase 4's pipe at GeoBench's
-     protocol (prompt "", 50 steps, null-text inversion 10 gradient steps a
-     step, 3 latent steps a guided step to step 38, weights 1.5 / 1.25, CFG
-     7.5), Depth-Anything ViT-L's depth normalised as GeoBench does: a cut
-     warm-up, one full edit counted (1 + 15 x rows 3-5 a null-text step;
+     protocol cut in depth (`DH_CUT`: prompt "", 50 steps, null-text
+     inversion 2 gradient steps a step for the protocol's 10, 1 latent step
+     a guided step for its 3, to step 38, weights 1.5 / 1.25, CFG 7.5),
+     Depth-Anything ViT-L's depth normalised as GeoBench does: a shorter
+     warm-up, one cut edit counted (1 + 15 x rows 3-5 a null-text step;
      every layer a guided step), its stages and steps timed, then one
      null-text step paired under GroupNorm auto and 0 (C2);
- DD. `DragDiffusion.drag` (`phase_dd`, LoRA rank 16 80 steps, inversion
-     0.7, up to 80 drag iterations, MasaCtrl from step 4; at most 30
-     points of phase 4's move, the union mask) the same way, the drag
+ DD. `DragDiffusion.drag` (`phase_dd`, `DD_CUT`: LoRA rank 16 20 steps for
+     the protocol's 80, inversion 0.7, up to 20 drag iterations for its 80,
+     MasaCtrl from step 4; at most 30 points of phase 4's move, the union
+     mask) the same way, the drag
      loop's iterations read from the call, after a drag with every handle
      on its target that must stop at its first iteration with no update
      (its launches counted too); then one LoRA step paired (C2);
@@ -244,6 +253,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      line, launches checked against the counts worked out from the config
      (692 `flash_sdpa`, 150 `tca_flash`, 52 `group_norm_silu`, in the VAE
      alone) and every launch shape among phase 2's (path PX);
+ EV. GeoBench's scoring (`phase_ev`): every metric encoder at its published
+     width, random weights made on the card (f32; InceptionV3's
+     convolutions and ImageReward's head He-scaled), written as
+     safetensors and timed, one at a
+     time; a synthetic results set written by `write_png` (4 sources x 2
+     cases at 512^2, 70 real images); the FID family's unpadded tail batch
+     against the zero-padded one the card runs; `metrics.main` at every metric but MD under
+     PyTorch's TF32 defaults, counted (row 1's launches by shape from the
+     configs), each metric's value and seconds, the peak; the same main on
+     one source image's cases on the card and with --device cpu, each
+     metric held within EV_TOL (path EV);
  10. one call of `group_norm_silu` at every path shape under
      torch.profiler: one `gn::` kernel launch per call (after the timed
      edits, which a profiler session could slow; with --profile before
@@ -308,7 +328,14 @@ GN_ABS_OF_MAX = {"bfloat16": 2.0**-6, "float32": 2e-6}
 GN_REL_TOL = {"bfloat16": 1.5e-4, "float32": 2e-6}
 LIMITS = {"group_norm_silu": (GN_ABS_OF_MAX, GN_REL_TOL)}
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print and flush; a phase's first line carries the seconds since the
+    script started."""
+    if a and isinstance(a[0], str) and a[0].startswith("phase "):
+        a = (f"[{time.perf_counter() - _T0:.1f} s]", *a)
     print(*a, flush=True)
 
 
@@ -582,6 +609,19 @@ SV3D_FLASH_SHAPES = [(21, 5, 5184, 64, "bfloat16", False), (21, 10, 1296, 64, "b
                      (21, 20, 324, 64, "bfloat16", False), (21, 20, 81, 64, "bfloat16", False),
                      (1, 1, 5184, 512, "float32", False)]
 FLASH_SHAPES += SV3D_FLASH_SHAPES
+# Phase EV (GeoBench's scoring, `metrics.main`), float32, heads of 64, as
+# (batch, heads, seq_q, seq_k, head_dim, dtype, masked): SUBC's DINO-v1
+# ViT-B/16 at 224^2 (1 + 14^2 tokens, 12 heads, one image a call); IRS's BLIP:
+# the ViT-L/16 (16 heads), BERT's self-attention over the 35 text tokens under
+# their padding's key mask (below one key tile) and its cross-attention from
+# them to the 197 image tokens; FID_DINO / FID_KD's DINOv2 ViT-B/14 at 224^2
+# (1 + 16^2 tokens) over batches of EV_BATCH (a short one zero-padded on the
+# card): the 8 generated images, and the real folder's full batch and tail.
+EV_IMAGES, EV_CASES, EV_REAL, EV_BATCH = 4, 2, 70, 64
+EV_FLASH_SHAPES = [(1, 12, 197, 197, 64, "float32", False), (1, 16, 197, 197, 64, "float32", False),
+                   (1, 12, 35, 35, 64, "float32", True), (1, 12, 35, 197, 64, "float32", False),
+                   (EV_BATCH, 12, 257, 257, 64, "float32", False)]
+FLASH_SHAPES += EV_FLASH_SHAPES
 # check-only (batch, heads, seq_q, seq_k, head_dim, dtype), masked with one
 # fully masked batch row: ragged lengths, and sdsa's [own; ref] keys
 # (Sk = 2 Sq) after the parity split (batch 2*3, 4 heads), which no timed
@@ -734,9 +774,11 @@ def check_flash(gen, shape, timed: bool):
 
     from freefine_tpu_torch.ops import flash_attention as FA
 
-    if timed:
+    if timed and len(shape) == 6:
         b, h, sq, d, dtype, masked = shape
         sk = sq
+    elif timed:  # phase EV's, Sq and Sk apart
+        b, h, sq, sk, d, dtype, masked = shape
     else:
         b, h, sq, sk, d, dtype = shape
         masked = True
@@ -764,7 +806,7 @@ def check_flash(gen, shape, timed: bool):
         _teeth("flash_sdpa", ref, twin(q, k[:, n:], v[:, n:],
                                        None if mask is None else mask[:, n:]), row)
         itemsize = q.element_size()
-        nbytes = 4 * b * sq * h * d * itemsize + (0 if mask is None else 4 * b * sk)
+        nbytes = 2 * b * (sq + sk) * h * d * itemsize + (0 if mask is None else 4 * b * sk)
         row.update(bound(nbytes, 4.0 * b * h * sq * sk * d, float(b * h * sq * sk), dtype))
         n = 3 if sq >= 4096 else 10
         row["kernel_ms"] = cuda_ms(lambda: FA.flash_sdpa(q, k, v, mask, heads=h), n)
@@ -1767,7 +1809,8 @@ def gn_launches_per_call(rows):
     shape, into each row; fails unless it is one `gn::` kernel.  The shapes
     go in groups of about 1 GiB of inputs (`_gn_call_groups`), one
     torch.profiler session a group (up to three if a session records no
-    device event at all): the inputs are made and each shape called once
+    device event at all, or fewer or more than the group's calls): the
+    inputs are made and each shape called once
     before the session, then each shape is called once, synchronised,
     inside it, so the session's device events in order of start are the
     calls' kernels in order of call (the device clock's offset from the
@@ -1794,7 +1837,10 @@ def gn_launches_per_call(rows):
                 bias, num_groups=g, eps=eps, apply_silu=silu))
             calls[-1]()
         torch.cuda.synchronize()
-        for attempt in range(3):  # a session now and then records no device event at all
+        # a session now and then records no device event at all, or drops
+        # one (5 of 6 calls seen); a call that launches other than one
+        # kernel does so in every session and still fails below
+        for attempt in range(3):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for call in calls:
                     call()
@@ -1802,7 +1848,7 @@ def gn_launches_per_call(rows):
             kernels = sorted((e for e in prof.events()
                               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
                              key=lambda e: e.time_range.start)
-            if kernels:
+            if len(kernels) == len(group):
                 break
         del calls
         if len(kernels) != len(group):
@@ -2067,11 +2113,14 @@ def summarize(name, source, replaces, rows, checks, counts_by_path):
              "a 512^2 image (ensemble 8); MG: one MotionGuidance edit of "
              f"{MG_STEPS * MG_RECURSIVE} energy gradients, GroupNorm default; RD, DE, SG, GD: "
              "one RegionDrag drag_regions, DesignEdit move, SelfGuidance edit and GeoDiffuser "
-             "edit at GeoBench's 50-step protocol, GroupNorm default; DH: one "
-             "DiffusionHandles edit at GeoBench's protocol (500 null-text and 114 guided "
-             "gradients) with its Depth-Anything depth call; DD: one DragDiffusion drag at "
-             "GeoBench's protocol (80 LoRA steps, the drag loop, the MasaCtrl denoise), "
-             "GroupNorm default; "
+             "edit at GeoBench's 50-step protocol (SG and GD cut to "
+             f"{GRADIENT_BASELINE_STEPS} steps), GroupNorm default; DH: one "
+             "DiffusionHandles edit at GeoBench's 50 steps cut to 2 null-text and 1 guided "
+             "gradient steps a step (100 and 38 gradients; the protocol's 500 and 114) with "
+             "its Depth-Anything depth call; DD: one DragDiffusion drag cut to 20 LoRA steps "
+             "and at most 20 drag iterations (the protocol's 80 and 80), the MasaCtrl "
+             "denoise, GroupNorm default; EV: one metrics.main call at every metric but MD "
+             f"({EV_IMAGES * EV_CASES} edits, {EV_REAL} real images); "
              "group_norm_silu also E_gn_default and D_gn_default, phase 9b's "
              "guided edit and differentiated pass under the default) together; per path under "
              "`paths`"),
@@ -4675,8 +4724,15 @@ def phase_de(record, pipe, store, timed_runs):
     return shapes
 
 
+# the steps of the edit phases SG and GD count and time (the protocol's 50
+# took 17.5 and 33.1 s on the H100 before this cut; PERF.md keeps them)
+GRADIENT_BASELINE_STEPS = 20
+
+
 def _gradient_baseline(record, key, pipe, store, edit, expected):
-    """A gradient baseline's full-protocol edit after a warm-up (a cut edit),
+    """A gradient baseline's edit of GRADIENT_BASELINE_STEPS steps of the
+    protocol's schedule (cut in depth from its 50) after a warm-up (a cut
+    edit),
     its differentiated steps split into forward and backward by CUDA events
     (`GradStepTimer`), then the GroupNorm pairing (C2): cut edits of
     PAIRED_STEPS under the default and "0" in turns (auto, 0, 0, auto),
@@ -4691,17 +4747,18 @@ def _gradient_baseline(record, key, pipe, store, edit, expected):
         with fused_gn(mode):
             edit(PAIRED_STEPS, None)
     timer = GradStepTimer()
-    expect = expected(50, True)
+    steps = GRADIENT_BASELINE_STEPS
+    expect = expected(steps, True)
     torch.cuda.reset_peak_memory_stats()
     with fused_gn(None):
-        res, secs, shapes = counted(f"{key} edit", lambda: edit(50, timer), expect)
+        res, secs, shapes = counted(f"{key} edit", lambda: edit(steps, timer), expect)
     torch.cuda.synchronize()
     _edit_checked(key, store, res, hw)
     split = timer.split_ms()
     n = len(split)
     info = _baseline_record(
         record, key.lower(), [secs * 1e3], shapes, expect, torch.cuda.max_memory_allocated(),
-        50, dict(differentiated_steps=n,
+        steps, dict(differentiated_steps=n,
                  step_ms={k: float(np.mean([r[k] for r in split])) for k in
                           ("forward", "backward", "total")},
                  step_ms_all=[r["total"] for r in split]))
@@ -4732,10 +4789,11 @@ def _gradient_baseline(record, key, pipe, store, edit, expected):
 
 def phase_sg(record, pipe, store):
     """Phase SG: `SelfGuidance.edit` on phase 4's pipe at GeoBench's
-    protocol (50 DDPM steps, CFG 7.5, a CFG-1.5 inversion, guidance weight
-    15, appearance 0.8; the silhouette transform of phase 4's edit), its
-    33 gated steps differentiated through the batch-2 UNet (rows 3-5 and,
-    under the default, row 9's forward).  Returns path SG's launches."""
+    protocol cut to GRADIENT_BASELINE_STEPS DDPM steps (CFG 7.5, a CFG-1.5
+    inversion, guidance weight 15, appearance 0.8; the silhouette transform
+    of phase 4's edit), its gated steps differentiated through the batch-2
+    UNet (rows 3-5 and, under the default, row 9's forward).  Returns path
+    SG's launches."""
     from freefine_tpu_torch.baselines import SelfGuidance
 
     cfg = pipe.config
@@ -4752,9 +4810,9 @@ def phase_sg(record, pipe, store):
 
 def phase_gd(record, pipe, store):
     """Phase GD: `GeoDiffuser.edit` on phase 4's pipe at GeoBench's protocol
-    (50 steps, lr 0.03, optimisation on the first 0.95, base pinned for
-    0.6, sharing for 0.97, the adaptive removal controller; phase 4's
-    object moved, rotated and scaled), its 48 optimisation steps
+    cut to GRADIENT_BASELINE_STEPS steps (lr 0.03, optimisation on the first
+    0.95, base pinned for 0.6, sharing for 0.97, the adaptive removal
+    controller; phase 4's object moved, rotated and scaled), its optimisation steps
     differentiated through the batch-2 UNet in geodiff mode (rows 3-5 at
     batch 1, row 1 and row 9's forward).  Returns path GD's launches."""
     from freefine_tpu_torch.baselines import GeoDiffuser
@@ -4787,6 +4845,13 @@ DD_PROMPT = "image of object"
 DD_PROTOCOL = dict(inversion_strength=0.7, n_pix_step=80, latent_lr=0.01, r_m=1, r_p=3,
                    lam=0.1, train_lora_steps=80, lora_rank=16, lora_lr=5e-4, max_points=32,
                    seed=42)
+# The edits phases DH and DD count and time, cut in depth (the protocol's
+# full edits took 117.7 and 35.8 s on the H100; PERF.md keeps those
+# numbers): 2 null-text gradient steps a step and 1 latent step a guided
+# step (100 and 38 gradients for 500 and 114); 20 LoRA steps and at most 20
+# drag iterations (for 80 and 80).  Every step is the protocol's.
+DH_CUT = dict(DH_PROTOCOL, nti_iters=2, num_optsteps=1)
+DD_CUT = dict(DD_PROTOCOL, n_pix_step=20, train_lora_steps=20)
 # C2's pairing of one null-text gradient step and one LoRA step: this many
 # steps per call, the calls under GroupNorm auto and 0 in turns
 C2_PAIRED_STEPS = 3
@@ -5100,12 +5165,13 @@ def _step_launches(cfg, pipe, differentiated_layers, fused):
 
 def phase_dh(record, pipe, store):
     """Phase DH: `DiffusionHandles.edit` on phase 4's SD-1.5 512^2 pipe at
-    GeoBench's protocol (prompt "", 50 DDIM steps, null-text inversion of
-    10 gradient steps a step, 3 latent steps a guided step through step 38,
-    foreground 1.5, background 1.25, CFG 7.5; `DH_EDIT_PARAM`), the depth
+    GeoBench's protocol cut in depth (`DH_CUT`: prompt "", 50 DDIM steps,
+    null-text inversion of 2 gradient steps a step for the protocol's 10, 1
+    latent step a guided step for its 3 through step 38, foreground 1.5,
+    background 1.25, CFG 7.5; `DH_EDIT_PARAM`), the depth
     Depth-Anything ViT-L's (random weights made on the card, as in phase
     3D) normalised by `geobench_dh_depth`, FREEFINE_FUSED_GN unset: the
-    depth call counted, a cut warm-up edit, one full edit counted against
+    depth call counted, a cut warm-up edit, one `DH_CUT` edit counted against
     `_expected_dh`, its stages and differentiated steps timed (null-text
     and guided, forward and backward by CUDA events), its peak; then C2's
     pairing of one null-text gradient step.  Returns path DH's launches
@@ -5138,7 +5204,7 @@ def phase_dh(record, pipe, store):
         dh.edit(img, depth, mask, DH_EDIT_PARAM, steps=2, nti_iters=1, num_optsteps=1,
                 guidance_max_step=1)
     timer, grads = StageTimer(), {"nti": GradStepTimer(), "guided": GradStepTimer()}
-    p = DH_PROTOCOL
+    p = DH_CUT
     expect = _expected_dh(cfg, pipe, p["steps"], p["nti_iters"], p["num_optsteps"],
                           p["guidance_max_step"])
     torch.cuda.reset_peak_memory_stats()
@@ -5190,13 +5256,14 @@ def phase_dh(record, pipe, store):
 
 def phase_dd(record, pipe, store):
     """Phase DD: `DragDiffusion.drag` on phase 4's SD-1.5 512^2 pipe at
-    GeoBench's protocol (a LoRA of rank 16 trained 80 Adam steps at lr
-    5e-4 on "image of object"; inversion strength 0.7, at most 80 drag
-    iterations at latent lr 0.01, r_m 1, r_p 3, lam 0.1; the MasaCtrl
+    GeoBench's protocol cut in depth (`DD_CUT`: a LoRA of rank 16 trained
+    20 Adam steps for the protocol's 80 at lr 5e-4 on "image of object";
+    inversion strength 0.7, at most 20 drag iterations for its 80 at
+    latent lr 0.01, r_m 1, r_p 3, lam 0.1; the MasaCtrl
     denoise from step 4): at most 30 handles of phase 4's object and their
     targets by `_drag_points_from_case` (`DD_EDIT_PARAM`), the union of
     the object and its target mask, `max_points` 32, FREEFINE_FUSED_GN
-    unset.  A cut warm-up, then one full drag counted against
+    unset.  A cut warm-up, then one `DD_CUT` drag counted against
     `_expected_dd` (the drag loop's iterations read from the call), its
     stages and differentiated steps timed (LoRA and drag, forward and
     backward by CUDA events), its peak; then C2's pairing of one LoRA
@@ -5217,7 +5284,7 @@ def phase_dd(record, pipe, store):
     handles, targets = _drag_points_from_case(mask, tm, DD_EDIT_PARAM, seed=42)
     union = ((mask > 0) | (tm > 0)).astype(np.float32)
     dd = DragDiffusion(pipe)
-    p = DD_PROTOCOL
+    p = DD_CUT
     with fused_gn(None):
         dd.drag(img, handles, targets, DD_PROMPT, mask=union,
                 **{**p, "train_lora_steps": 2, "n_pix_step": 2})
@@ -5287,6 +5354,378 @@ def phase_dd(record, pipe, store):
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase EV: GeoBench's scoring (`metrics.main`)
+# ---------------------------------------------------------------------------
+
+EV_TASK = "111111011"  # every metric but MD (its SIFT keypoints need cv2)
+EV_METRICS = ("FID", "IRS", "HPS", "BGC", "SUBC", "WRAP_E", "FID_DINO", "FID_KD")
+EV_SIDE = 512
+EV_SUBSET_REAL = 4
+# CUDA against the CPU, one source image's two cases against EV_SUBSET_REAL
+# real images, the same files and weights; relative for the FID family,
+# absolute for the rest.  The CUDA run keeps PyTorch's defaults: cuDNN's
+# convolutions (InceptionV3) in TF32, matmuls in float32, row 1's f32 route
+# split-TF32 (float32's accuracy).  The FID family's covariances of 2 and 4
+# samples are singular, and a feature's TF32 rounding moves their distance
+# more than a cosine's: 2e-2.
+EV_TOL = {"FID": 2e-2, "FID_DINO": 2e-2, "FID_KD": 2e-2, "IRS": 1e-3, "HPS": 1e-4,
+          "BGC": 1e-4, "SUBC": 1e-4, "WRAP_E": 1e-12}
+EV_RELATIVE = ("FID", "FID_DINO", "FID_KD")
+# a tail batch's rows against the same images' rows in a zero-padded batch:
+# ViT features (float32) and InceptionV3's (TF32 convolutions, whose cuDNN
+# algorithms may differ between batch sizes), of max |ref|
+EV_TAIL_TOL = {"dinov2_vitb14": 1e-4, "inception_fid": 5e-3}
+
+
+def _expected_ev(n_gen: int, n_real: int, batch: int = EV_BATCH):
+    """Row 1's launches by shape in one `metrics.main` call at EV_TASK,
+    worked out from the encoders' configs: per generated image the BLIP
+    ViT-L's layers and BERT's self- and cross-attention per layer (IRS) and
+    two DINO-v1 encodes (SUBC); the DINOv2 B/14 over the generated and the
+    real images in batches of `batch` (a short one padded to it on the
+    card), each batch one launch a layer (FID_DINO and FID_KD share the
+    features).  InceptionV3 (FID), CLIP B/32
+    (BGC) and the ViT-H and OpenCLIP-H towers (HPS) launch none."""
+    from collections import Counter
+
+    from freefine_tpu_torch.metrics.consistency import dino_vitb16_config
+    from freefine_tpu_torch.models.blip import BlipConfig
+    from freefine_tpu_torch.models.dinov2 import dinov2_vitb14
+
+    blip, v1, v2 = BlipConfig(), dino_vitb16_config(), dinov2_vitb14()
+    d = blip.vision_width // blip.vision_heads
+    img = (blip.image_size // blip.patch_size) ** 2 + 1
+    txt = blip.max_text_len
+    shapes = Counter()
+    shapes[("flash_sdpa", 1, blip.vision_heads, img, img, d, "float32", False)] += \
+        n_gen * blip.vision_layers
+    shapes[("flash_sdpa", 1, blip.text_heads, txt, txt, d, "float32", True)] += \
+        n_gen * blip.text_layers
+    shapes[("flash_sdpa", 1, blip.text_heads, txt, img, d, "float32", False)] += \
+        n_gen * blip.text_layers
+    s1 = (224 // v1.patch_size) ** 2 + 1
+    shapes[("flash_sdpa", 1, v1.heads, s1, s1, v1.dim // v1.heads, "float32", False)] += \
+        2 * n_gen * v1.depth
+    s2 = (224 // v2.patch_size) ** 2 + 1
+    for n in (n_gen, n_real):
+        shapes[("flash_sdpa", batch, v2.heads, s2, s2, v2.dim // v2.heads, "float32",
+                False)] += -(-n // batch) * v2.depth
+    totals = {k: 0 for k in _launch_counts()[0]}
+    totals["flash_sdpa"] = sum(shapes.values())
+    return totals, dict(shapes)
+
+
+def ev_results_set(root: str) -> dict:
+    """A synthetic GeoBench results set under `root`, every file written by
+    `utils.image_io.write_png`: EV_IMAGES source images of EV_SIDE^2 (smooth
+    random colour fields) with an object mask each, EV_CASES cases each
+    (the object shifted: target mask, coarse input, a generated image), the
+    results JSON, a real-image folder of EV_REAL images; and the CPU check's
+    subset: the first image's cases and EV_SUBSET_REAL real images."""
+    from freefine_tpu_torch.utils.image_io import write_png
+
+    rng = np.random.default_rng(71)
+    side = EV_SIDE
+    yy, xx = np.mgrid[:side, :side]
+
+    def field(h, w):
+        a = np.cumsum(rng.integers(0, 9, (h, w, 3)), axis=1) + np.cumsum(
+            rng.integers(0, 9, (h, 1, 3)), axis=0)
+        return (a % 256).astype(np.uint8)
+
+    data = {}
+    for i in range(EV_IMAGES):
+        src = field(side, side)
+        cy, cx, r = side // 2 + 20 * i, side // 3 + 15 * i, side // 6
+        obj = ((yy - cy) ** 2 + ((xx - cx) * 1.3) ** 2) < r ** 2
+        base = {"ori_img_path": f"{root}/src_{i}.png", "ori_mask_path": f"{root}/mask_{i}.png"}
+        write_png(base["ori_img_path"], src, level=1)
+        write_png(base["ori_mask_path"], (obj * 255).astype(np.uint8), level=1)
+        cases = {}
+        for c in range(EV_CASES):
+            dx = 30 + 40 * c
+            tgt = np.roll(obj, dx, axis=1)
+            moved = np.roll(src, dx, axis=1)
+            coarse = np.where(tgt[..., None], moved, src)
+            gen = np.clip(coarse.astype(int) + rng.integers(-12, 13, coarse.shape), 0, 255)
+            case = dict(base, edit_param=[dx, 0, 0, 0, 0, 0, 1],
+                        edit_prompt=f"move the object slightly by {dx} pixels",
+                        gen_img_path=f"{root}/gen_{i}_{c}.png",
+                        coarse_input_path=f"{root}/coarse_{i}_{c}.png",
+                        tgt_mask_path=f"{root}/tgt_{i}_{c}.png")
+            write_png(case["gen_img_path"], gen.astype(np.uint8), level=1)
+            write_png(case["coarse_input_path"], coarse, level=1)
+            write_png(case["tgt_mask_path"], (tgt * 255).astype(np.uint8), level=1)
+            cases[str(c)] = case
+        data[str(i)] = {"4v_caption": f"a photo of object {i} on a table",
+                        "instances": {"0": cases}}
+    for folder, n in (("real", EV_REAL), ("real_subset", EV_SUBSET_REAL)):
+        os.makedirs(f"{root}/{folder}")
+        for j in range(n):
+            write_png(f"{root}/{folder}/real_{j:03d}.png", field(side, side), level=1)
+    paths = {"full": f"{root}/results.json", "subset": f"{root}/results_subset.json"}
+    with open(paths["full"], "w") as f:
+        json.dump(data, f)
+    with open(paths["subset"], "w") as f:
+        json.dump({"0": data["0"]}, f)
+    return dict(paths, real=f"{root}/real", real_subset=f"{root}/real_subset")
+
+
+def _ev_inputs(name: str):
+    """A timing input of each encoder on the card: a batch of EV_BATCH for
+    the FID family's, one image (or prompt) for the rest."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    img = torch.randn(1, 224, 224, 3, generator=gen, device="cuda")
+    if name == "inception_fid":
+        return (torch.randn(EV_BATCH, 224, 224, 3, generator=gen, device="cuda"),)
+    if name == "dinov2_vitb14":
+        return (torch.randn(EV_BATCH, 3, 224, 224, generator=gen, device="cuda"),)
+    if name == "dino_vitb16":
+        return (img.permute(0, 3, 1, 2),)
+    if name == "hps_text":
+        return (torch.randint(2, 49408, (1, 77), generator=gen, device="cuda"),)
+    if name == "image_reward":
+        mask = torch.ones(1, 35, dtype=torch.long, device="cuda")
+        mask[:, 12:] = 0
+        return img, torch.randint(103, 30000, (1, 35), generator=gen, device="cuda"), mask
+    return (img,)
+
+
+def _he_scaled(layers) -> None:
+    """Layers' weights rescaled from the bench's N(0, 0.02) to He's
+    N(0, 2 / fan_in): InceptionV3's 94 convolutions (0.02 leaves features
+    near 1e-9 and an FID near 1e-18, where float rounding is the whole
+    value) and ImageReward's MLP head (0.02 leaves every score within 1e-4
+    of -IR_MEAN / IR_STD, below what CUDA against the CPU can tell)."""
+    import torch
+
+    with torch.no_grad():
+        for m in layers:
+            m.weight.mul_((2.0 / m.weight[0].numel()) ** 0.5 / 0.02)
+
+
+def ev_write_encoders(wdir: str, card: str) -> dict:
+    """Each metric encoder at its published width, built on the card one at
+    a time with the bench's random weights (float32, `random_weights`;
+    InceptionV3's convolutions and ImageReward's head `_he_scaled`),
+    written to `wdir` as `metrics.main` reads it, timed (ms per call of
+    `_ev_inputs`, CUDA events) and freed before the next."""
+    import torch
+
+    from freefine_tpu_torch.metrics.main import ENCODER_FILES, build_encoder
+    from freefine_tpu_torch.weights import random_weights, write_safetensors
+
+    out = {}
+    for seed, name in enumerate(ENCODER_FILES):
+        t0 = time.perf_counter()
+        model = random_weights(build_encoder(name, "cuda"), seed)
+        if name == "inception_fid":
+            _he_scaled(m for m in model.modules() if isinstance(m, torch.nn.Conv2d))
+        elif name == "image_reward":
+            _he_scaled(model.mlp.layers.values())
+        nbytes = write_safetensors(model.state_dict(), os.path.join(wdir, f"{name}.safetensors"))
+        write_s = time.perf_counter() - t0
+        inputs = _ev_inputs(name)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model(*inputs), iters=3)
+        per = "batch of 64" if name in ("inception_fid", "dinov2_vitb14") else "image"
+        out[name] = dict(parameters=sum(p.numel() for p in model.parameters()), bytes=nbytes,
+                         build_and_write_s=write_s, ms=ms, per=per)
+        log(f"  EV encoder {name}: {out[name]['parameters'] / 1e6:.1f} M parameters, "
+            f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s; {ms:.3f} ms a {per} [{card}]")
+        del model, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ev_tail_rows(paths: dict, wdir: str) -> dict:
+    """The real folder's tail batch (EV_REAL % EV_BATCH images) through the
+    FID family's models unpadded, as the CPU runs it, against the same
+    images' rows of the batch zero-padded to EV_BATCH that the card's
+    encoders run (`metrics.fid.pad_to`; the JAX package pads every tail):
+    within EV_TAIL_TOL of max |ref|."""
+    import torch
+
+    from freefine_tpu_torch.metrics.main import build_encoder
+    from freefine_tpu_torch.metrics.preprocess import fid_input_transform
+    from freefine_tpu_torch.utils.image_io import read_png
+    from freefine_tpu_torch.weights import read_safetensors
+
+    real = sorted(os.listdir(paths["real"]))[-(EV_REAL % EV_BATCH):]
+    tail = torch.from_numpy(np.concatenate([
+        fid_input_transform(read_png(os.path.join(paths["real"], f), "RGB")) for f in real]))
+    padded = torch.cat([tail, tail.new_zeros((EV_BATCH - len(tail),) + tail.shape[1:])])
+    out = {}
+    for name in ("dinov2_vitb14", "inception_fid"):
+        model = build_encoder(name, "cuda")
+        model.load_state_dict(read_safetensors(os.path.join(wdir, f"{name}.safetensors")))
+
+        def run(x):
+            x = x.cuda()
+            with torch.no_grad():
+                return (model(x.permute(0, 3, 1, 2))[1] if name == "dinov2_vitb14"
+                        else model(x)).cpu().numpy()
+
+        got, want = run(tail), run(padded)[:len(tail)]
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        out[name] = dict(rows=len(tail), max_abs_err_of_max_ref=err, tol=EV_TAIL_TOL[name],
+                         bitwise_equal=bool(np.array_equal(got, want)))
+        log(f"  EV tail batch {name}: {len(tail)} rows unpadded against a batch of {EV_BATCH}: "
+            f"{err:.3g} of max |ref| (tol {EV_TAIL_TOL[name]}), bit for bit "
+            f"{out[name]['bitwise_equal']}")
+        if not err <= EV_TAIL_TOL[name]:
+            raise AssertionError(f"EV tail batch {name}: {out[name]}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ev_checked(key: str, res: dict) -> None:
+    """Every metric but MD computed, finite, in its range."""
+    if sorted(res) != sorted(EV_METRICS) or any(res[m] is None or not np.isfinite(res[m])
+                                                for m in EV_METRICS):
+        raise AssertionError(f"{key}: metrics {res}")
+    bad = [m for m, lo, hi in (("BGC", 0, 1), ("SUBC", 0, 1), ("HPS", -1, 1),
+                               ("WRAP_E", 0, 1)) if not lo <= res[m] <= hi]
+    if bad:
+        raise AssertionError(f"{key}: {bad} out of range: {res}")
+
+
+def phase_ev(record):
+    """Phase EV: GeoBench's scoring through `metrics.main` at every metric
+    but MD, every encoder at its published width with random weights made
+    on the card (InceptionV3-FID, BLIP ImageReward's ViT-L and BERT, CLIP
+    ViT-H/14 with the OpenCLIP-H text tower, CLIP B/32, DINO-v1 B/16,
+    DINOv2 B/14; float32), under PyTorch's TF32 defaults (cuDNN's
+    convolutions TF32, matmuls float32).  On a synthetic results set
+    (`ev_results_set`): the encoders written and timed
+    (`ev_write_encoders`); the FID family's tail batch against a padded one
+    (`ev_tail_rows`); one `metrics.main` call counted (row 1's launches by
+    shape against `_expected_ev`), each metric's seconds (its encoders'
+    loading included) and the peak; then the same `main` on a subset on the
+    card and with --device cpu, each metric held within EV_TOL.  Returns
+    path EV's launches."""
+    import tempfile
+
+    import torch
+
+    from freefine_tpu_torch.metrics import main as MAIN
+    from freefine_tpu_torch.utils.profiling import StageTimer
+
+    card = record["card"]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import scipy
+
+    out = record["ev"] = dict(tf32=dict(cudnn_convolutions=True, matmul=False),
+                              task=EV_TASK, images=EV_IMAGES, cases=EV_CASES, real=EV_REAL,
+                              side=EV_SIDE, scipy=scipy.__version__)
+    log(f"  EV under TF32 for cuDNN's convolutions, float32 matmuls; scipy {scipy.__version__}")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = ev_results_set(root)
+        out["write_results_s"] = time.perf_counter() - t0
+        wdir = os.path.join(root, "weights")
+        os.makedirs(wdir)
+        out["encoders"] = ev_write_encoders(wdir, card)
+        out["tail_batch"] = ev_tail_rows(paths, wdir)
+        common = ["--weights-dir", wdir, "--task", EV_TASK]
+        n_gen = EV_IMAGES * EV_CASES
+        totals, want_shapes = _expected_ev(n_gen, EV_REAL)
+        timer = StageTimer()
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, shapes = counted("EV metrics.main", lambda: MAIN.main(
+            ["--path", paths["full"], "--fid_path", paths["real"], *common], timer=timer),
+            totals)
+        if dict(shapes) != want_shapes:
+            raise AssertionError(f"EV: launches by shape {dict(shapes)} != {want_shapes}")
+        _ev_checked("EV", res)
+        stages = {k: v["total_s"] for k, v in timer.summary().items()}
+        out.update(metrics=res, seconds=secs, stages_s=stages,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   launches=[[*k, n] for k, n in sorted(shapes.items())])
+        for m in EV_METRICS:
+            stage = "FID_DINO+FID_KD" if m.startswith("FID_") else m
+            log(f"  EV {m}: {res[m]:.6g} ({stage} {stages[stage]:.2f} s)")
+        by_shape = ", ".join(f"batch {k[1]} heads {k[2]} Sq {k[3]} Sk {k[4]}"
+                             f"{' masked' if k[7] else ''}: {n}" for k, n in sorted(shapes.items()))
+        log(f"  EV metrics.main: {secs:.2f} s, peak {out['peak_memory_bytes'] / 2**30:.2f} GiB; "
+            f"row 1 launches {sum(shapes.values())} as the configs give ({by_shape}) [{card}]")
+
+        sub = ["--path", paths["subset"], "--fid_path", paths["real_subset"], *common]
+        got = MAIN.main(sub)
+        t0 = time.perf_counter()
+        want = MAIN.main(sub + ["--device", "cpu"])
+        out["cpu_subset_s"] = time.perf_counter() - t0
+        held = {}
+        for m in EV_METRICS:
+            scale = max(abs(want[m]), 1e-30) if m in EV_RELATIVE else 1.0
+            err = abs(got[m] - want[m]) / scale
+            held[m] = dict(cuda=got[m], cpu=want[m], err=err, tol=EV_TOL[m],
+                           relative=m in EV_RELATIVE)
+            log(f"  EV subset {m} CUDA vs CPU: {got[m]:.6g} / {want[m]:.6g}, "
+                f"{'relative' if m in EV_RELATIVE else 'absolute'} {err:.3g} (tol {EV_TOL[m]})")
+        out["cuda_vs_cpu"] = held
+        bad = [m for m, h in held.items() if not h["err"] <= h["tol"]]
+        if bad:
+            raise AssertionError(f"EV subset: CUDA and CPU disagree on {bad}: {held}")
+    return shapes
+
+
+TINY_BLIP = dict(image_size=32, patch_size=16, vision_width=64, vision_layers=2,
+                 vision_heads=2, text_width=64, text_layers=2, text_heads=2,
+                 text_intermediate=128, vocab_size=300)
+TINY_OPEN_CLIP = dict(vocab_size=1000, width=64, heads=2, layers=2, projection_dim=32)
+
+
+def phase_tiny_ev(record):
+    """Phase 3's metric encoders, CUDA against the CPU with the same float32
+    weights (TF32 off), within TINY_TOL of max |ref|: InceptionV3-FID at its
+    only width, batch 2 from 224^2; a tiny BLIP ImageReward (scores of two
+    prompts under the hash tokenizer, one padded, so BERT's key mask and the
+    cross-attention run through row 1 at head dim 32); a tiny OpenCLIPText
+    (pooled at argmax(ids))."""
+    import torch
+
+    from freefine_tpu_torch.config import OpenCLIPTextConfig
+    from freefine_tpu_torch.models.blip import BlipConfig, HashWordTokenizer, ImageReward
+    from freefine_tpu_torch.models.inception import InceptionV3FID
+    from freefine_tpu_torch.models.open_clip_text import OpenCLIPText
+    from freefine_tpu_torch.models.tokenizer import HashTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = record.setdefault("tiny_ev", {})
+    gen = torch.Generator().manual_seed(3)
+    prompts = ["a red cup moved to the left", "a slightly rotated wooden chair by a window"]
+    runs = (
+        ("inception", lambda dev: InceptionV3FID(device=dev),
+         lambda: (torch.randn(2, 224, 224, 3, generator=gen),)),
+        ("blip_image_reward", lambda dev: ImageReward(BlipConfig(**TINY_BLIP), device=dev),
+         lambda: (torch.randn(2, 32, 32, 3, generator=gen),
+                  *(torch.as_tensor(np.stack(a)).long() for a in zip(
+                      *(HashWordTokenizer(300).encode(p) for p in prompts))))),
+        ("open_clip_text", lambda dev: OpenCLIPText(OpenCLIPTextConfig(**TINY_OPEN_CLIP),
+                                                    device=dev),
+         lambda: (torch.as_tensor(np.stack([HashTokenizer(1000).encode(p)
+                                            for p in prompts])).long(),)),
+    )
+    for seed, (name, make, inputs) in enumerate(runs):
+        cpu, gpu = _tiny_pair(make, 40 + seed)
+        args = inputs()
+        with torch.no_grad():
+            want = cpu(*args)
+            got = gpu(*(a.cuda() for a in args))
+        if not want.abs().max() > 0:
+            raise AssertionError(f"tiny EV {name}: zero output on the CPU")
+        _held(out, name, got, want, label="EV")
+
+
 def save_record(record, **extra):
     """The run's record so far, with `extra` beside it, to
     chiprun_out/chip_smoke.json (written again after each of the early
@@ -5302,7 +5741,8 @@ def main():
     ap.add_argument("--skip-sd15", action="store_true",
                     help="skip phases 4 to 9b, 3D, SV3D, FLOW, MG, RD, DE, SG, GD, DH, DD, "
                          "G-XL and PX (kernel and tiny checks only)")
-    ap.add_argument("--timed-runs", type=int, default=2)
+    ap.add_argument("--timed-runs", type=int, default=1,
+                    help="timed edits or calls a timed phase runs after its warm-up")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one edit of each path (torch.profiler)")
     args = ap.parse_args()
@@ -5347,6 +5787,7 @@ def main():
     phase_tiny_mg(record)
     phase_tiny_baselines(record)
     phase_tiny_dh_dd(record)
+    phase_tiny_ev(record)
     counts = None
     if args.profile:  # the process's first profiler session: later ones can miss short calls
         log("phase 10 (before the profiled edits): group_norm_silu launches per call")
@@ -5393,17 +5834,18 @@ def main():
         counts["RD"] = phase_rd(record, pipe, store, args.timed_runs)
         log("phase DE: DesignEdit.move on the SD-1.5 512^2 pipe (50 steps, CFG 7.5)")
         counts["DE"] = phase_de(record, pipe, store, args.timed_runs)
-        log("phase SG: SelfGuidance.edit on the SD-1.5 512^2 pipe (50 steps, CFG 7.5, "
-            "inversion 1.5, weight 15)")
+        log(f"phase SG: SelfGuidance.edit on the SD-1.5 512^2 pipe ({GRADIENT_BASELINE_STEPS} "
+            "of the protocol's 50 steps, CFG 7.5, inversion 1.5, weight 15)")
         counts["SG"] = phase_sg(record, pipe, store)
-        log("phase GD: GeoDiffuser.edit on the SD-1.5 512^2 pipe (50 steps, lr 0.03)")
+        log(f"phase GD: GeoDiffuser.edit on the SD-1.5 512^2 pipe ({GRADIENT_BASELINE_STEPS} "
+            "of the protocol's 50 steps, lr 0.03)")
         counts["GD"] = phase_gd(record, pipe, store)
         log("phase DH: DiffusionHandles.edit on the SD-1.5 512^2 pipe (50 steps, null-text "
-            "inversion 10 a step, 3 latent steps a guided step to step 38; Depth-Anything's "
-            "depth)")
+            "inversion cut to 2 a step, 1 latent step a guided step to step 38; "
+            "Depth-Anything's depth)")
         counts["DH"] = phase_dh(record, pipe, store)
-        log("phase DD: DragDiffusion.drag on the SD-1.5 512^2 pipe (LoRA rank 16, 80 steps; "
-            "inversion 0.7, 80 drag iterations, MasaCtrl denoise)")
+        log("phase DD: DragDiffusion.drag on the SD-1.5 512^2 pipe (LoRA rank 16 cut to 20 "
+            "steps; inversion 0.7, at most 20 drag iterations, MasaCtrl denoise)")
         counts["DD"] = phase_dd(record, pipe, store)
         del pipe, case, store
         gc.collect()
@@ -5412,6 +5854,11 @@ def main():
         counts["XL"] = phase_sdxl(record, args.timed_runs, args.profile)
         log("phase PX: PixArt 512^2 edit (FreeFine.generation on the DiT, T5-XXL captions)")
         counts["PX"] = phase_pixart(record, args.timed_runs, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase EV: GeoBench's scoring (metrics.main, task {EV_TASK}: every metric but MD) "
+            f"of {EV_IMAGES * EV_CASES} edits at {EV_SIDE}^2 against {EV_REAL} real images")
+        counts["EV"] = phase_ev(record)
     if not args.profile:
         log("phase 10: group_norm_silu launches per call at every path shape (profiled last)")
         gn_launches_per_call(checked["group_norm_silu"][0])

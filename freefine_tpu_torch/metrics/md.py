@@ -1,18 +1,21 @@
-"""The mean-distance metric's ground truth (mirrors the geometry half of
-`freefine_tpu.metrics.md`): where every source pixel lands after a GeoBench
-edit.  Plain numpy, as in the JAX package.
+"""The mean-distance metric's ground truth and distances (mirrors
+`freefine_tpu.metrics.md` but its keypoints): where every source pixel lands
+after a GeoBench edit, and how far the matched points fall from it.  Plain
+numpy, as in the JAX package.
 
   * 2D translate: analytic pixel offsets;
   * 2D rotate / scale: the rotation or scale matrix about the mask's centre
     of mass;
   * 3D: a precomputed dense correspondence `.npy`, axes flipped.
 
-The keypoint matching and the DIFT distance of the metric are not ported
-yet (ROADMAP A15).
+`sift_keypoints_in_mask` (cv2's SIFT, ORB and BFMatcher, which the card's
+machine lacks) and `compute_md`, which calls it, are not ported yet
+(ROADMAP A15).
 """
 
 from __future__ import annotations
 
+import os.path as osp
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,3 +58,31 @@ def transform_coordinates(
     if path_3d is None:
         raise ValueError("a 3D edit needs its dense correspondence .npy (path_3d)")
     return np.load(path_3d)[..., ::-1].copy()
+
+
+def default_corr_path(gen_path: str) -> str:
+    """The 3D ground-truth correspondence .npy of a generated image, derived
+    from its path as the reference derives it: the 4th-from-last component
+    (the method's name) becomes 'correspondence', the extension .npy."""
+    parts = gen_path.split("/")
+    if len(parts) >= 4:
+        parts[-4] = "correspondence"
+    root, _ = osp.splitext("/".join(parts))
+    return root + ".npy"
+
+
+def _is_2d_param(p) -> bool:
+    """An edit the metric handles analytically: a shift, a z-rotation or a
+    uniform scale; anything else needs the 3D .npy."""
+    p = list(map(float, p))
+    return (p[0] != 0 or p[1] != 0) or (p[5] != 0 or p[6] != 1)
+
+
+def mean_distance_single(
+    matched_rc: np.ndarray,      # [N, 2] matched (row, col) in the edit
+    keypoints_rc: np.ndarray,    # [N, 2] source keypoints
+    gt_coords: np.ndarray,       # [H, W, 2] ground-truth (row, col)
+) -> np.ndarray:
+    """Per-point distances ||gt[k] - matched[k]||."""
+    tp = gt_coords[keypoints_rc[:, 0], keypoints_rc[:, 1]]
+    return np.linalg.norm(tp - matched_rc.astype(np.float64), axis=-1)

@@ -321,6 +321,63 @@ def _clip_image_items(tree: Mapping):
                parts["q"][1])
 
 
+_INCEPTION_BN = {"bn_scale": "bn.weight", "bn_bias": "bn.bias", "bn_mean": "bn.running_mean",
+                 "bn_var": "bn.running_var"}
+
+
+def _inception_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of the FID
+    InceptionV3's flax tree, in torchvision's names (`<block>.conv.weight`,
+    `<block>.bn.{weight, bias, running_mean, running_var}`): the inverse of
+    `freefine_tpu.weights.convert_inception_fid`."""
+    for path, leaf in _flatten(tree):
+        mods = [m for m in path[:-1] if m not in ("params", "conv")]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        yield ".".join(mods + [_INCEPTION_BN.get(name, "conv.weight")]), \
+            _torch_layout(name, a), where
+
+
+_BLIP_VIT = {"patch_embed": "patch_embed.proj", "qkv": "attn.qkv", "proj": "attn.proj",
+             "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2"}
+_BLIP_BERT = {"word_embeddings": "embeddings.word_embeddings",
+              "position_embeddings": "embeddings.position_embeddings",
+              "emb_ln": "embeddings.LayerNorm", "self_query": "attention.self.query",
+              "self_key": "attention.self.key", "self_value": "attention.self.value",
+              "self_output": "attention.output.dense", "self_ln": "attention.output.LayerNorm",
+              "cross_query": "crossattention.self.query", "cross_key": "crossattention.self.key",
+              "cross_value": "crossattention.self.value",
+              "cross_output": "crossattention.output.dense",
+              "cross_ln": "crossattention.output.LayerNorm",
+              "intermediate": "intermediate.dense", "output": "output.dense",
+              "output_ln": "output.LayerNorm"}
+
+
+def _blip_items(tree: Mapping):
+    """(state-dict key, array, flax path) of each leaf of an ImageReward's
+    flax tree, in ImageReward-v1.0's names: the inverse of
+    `freefine_tpu.weights.convert_blip_image_reward`."""
+    from freefine_tpu_torch.models.blip import MLP_LAYERS
+
+    for path, leaf in _flatten(tree):
+        mods = [m for m in path[:-1] if m not in ("params", "LayerNorm_0")]
+        name, a, where = path[-1], np.asarray(leaf), "/".join(path)
+        top, *rest = mods
+        if top.startswith("mlp_"):
+            key = f"mlp.layers.{MLP_LAYERS[int(top[4:])]}"
+        elif top == "visual_encoder":
+            segs = [(f"blocks.{m.rsplit('_', 1)[1]}" if m.startswith("blocks_")
+                     else _BLIP_VIT.get(m, m)) for m in rest]
+            if not segs:  # cls_token, pos_embed
+                yield f"blip.visual_encoder.{name}", a, where
+                continue
+            key = ".".join(["blip.visual_encoder", *segs])
+        else:
+            segs = [(f"encoder.layer.{m.rsplit('_', 1)[1]}" if m.startswith("layer_")
+                     else _BLIP_BERT[m]) for m in rest]
+            key = ".".join(["blip.text_encoder", *segs])
+        yield f"{key}.{_LEAF_MAP[name]}", _torch_layout(name, a), where
+
+
 _U2NET_BN = {"bn_scale": "bn_s1.weight", "bn_bias": "bn_s1.bias",
              "bn_mean": "bn_s1.running_mean", "bn_var": "bn_s1.running_var"}
 
@@ -445,14 +502,17 @@ def _raft_items(tree: Mapping):
 def _flax_items(tree: Mapping, model: nn.Module):
     """(state-dict key, array in the torch layout, flax path) of each leaf."""
     from freefine_tpu_torch.models.clip_image import CLIPImageEncoder
-    from freefine_tpu_torch.models.open_clip_text import OpenCLIPTextHidden
+    from freefine_tpu_torch.models.blip import ImageReward
+    from freefine_tpu_torch.models.inception import InceptionV3FID
+    from freefine_tpu_torch.models.open_clip_text import OpenCLIPText
     from freefine_tpu_torch.models.raft import RAFT
     from freefine_tpu_torch.models.t5 import T5Encoder
     from freefine_tpu_torch.models.u2net import U2Net
     from freefine_tpu_torch.models.video_unet import VideoUNet
 
-    special = {OpenCLIPTextHidden: _open_clip_items, T5Encoder: _t5_items,
-               CLIPImageEncoder: _clip_image_items, U2Net: _u2net_items, RAFT: _raft_items}
+    special = {OpenCLIPText: _open_clip_items, T5Encoder: _t5_items,
+               CLIPImageEncoder: _clip_image_items, U2Net: _u2net_items, RAFT: _raft_items,
+               InceptionV3FID: _inception_items, ImageReward: _blip_items}
     for cls, items in special.items():
         if isinstance(model, cls):
             yield from items(tree)
@@ -1105,3 +1165,90 @@ def load_raft(model: nn.Module, path: str) -> nn.Module:
         raw = raw.get("state_dict", raw)
     model.load_state_dict(_raft_state_dict(raw), strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# GeoBench's metric encoders
+# ---------------------------------------------------------------------------
+
+def _read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A `torch.save`d state dict (`torch.load(weights_only=True)`, a
+    "state_dict" entry unwrapped)."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return raw.get("state_dict", raw)
+
+
+def _fill(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> nn.Module:
+    model.load_state_dict(_convert(tensors, model.state_dict()))
+    return model
+
+
+def load_inception_fid(model: nn.Module, path: str) -> nn.Module:
+    """Fill an `InceptionV3FID` in place from pytorch-fid's weights
+    (pt_inception-2015-12-05-6726825d.pth, torchvision's names); the
+    classifier, the auxiliary head and `num_batches_tracked`, which the FID
+    features never read, are ignored, as JAX's `convert_inception_fid`
+    ignores them.  A missing or misshapen tensor raises.  Returns the
+    model."""
+    return _fill(model, _read_checkpoint(path))
+
+
+def _open_clip_text_tensors(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An open_clip text tower's tensors (`token_embedding.weight`,
+    `positional_embedding`, `transformer.resblocks.N.{ln_1, ln_2,
+    attn.in_proj_weight, attn.in_proj_bias, attn.out_proj, mlp.c_fc,
+    mlp.c_proj}`, `ln_final`, `text_projection` [width, proj]) in the port's
+    `OpenCLIPText` names: the fused in_proj split into q, k, v (in that
+    order), the projection transposed into the bias-free Linear's weight."""
+    layer = {"ln_1": "layer_norm1", "ln_2": "layer_norm2", "attn.out_proj": "self_attn.out_proj",
+             "mlp.c_fc": "mlp.fc1", "mlp.c_proj": "mlp.fc2"}
+    pre = "text_model."
+    out = {f"{pre}embeddings.token_embedding.weight": sd["token_embedding.weight"],
+           f"{pre}embeddings.position_embedding.weight": sd["positional_embedding"],
+           "text_projection.weight": sd["text_projection"].t().contiguous()}
+    blocks = re.compile(r"transformer\.resblocks\.(\d+)\.(.+)$")
+    for k, v in sd.items():
+        if k.startswith("ln_final."):
+            out[f"{pre}final_layer_norm.{k.rsplit('.', 1)[1]}"] = v
+        elif (m := blocks.match(k)) is not None:
+            n, rest = m.groups()
+            base = f"{pre}encoder.layers.{n}"
+            if rest.startswith("attn.in_proj_"):
+                leaf = rest[len("attn.in_proj_"):]
+                for p, part in zip("qkv", v.chunk(3, dim=0)):
+                    out[f"{base}.self_attn.{p}_proj.{leaf}"] = part
+            else:
+                sub, leaf = rest.rsplit(".", 1)
+                out[f"{base}.{layer[sub]}.{leaf}"] = v
+    return out
+
+
+def load_hps(image_model: nn.Module, text_model: nn.Module, path: str):
+    """Fill `CLIPImageEncoder(clip_vit_h14())` and
+    `OpenCLIPText(open_clip_text_h14())` in place from HPSv2.1's checkpoint
+    (an open_clip ViT-H-14 state dict in a `.pt`, the image tower under
+    `visual.`, the text tower at the top level).  -> (image_model,
+    text_model)."""
+    sd = _read_checkpoint(path)
+    visual = {k[len("visual."):]: v for k, v in sd.items() if k.startswith("visual.")}
+    return _fill(image_model, visual), _fill(text_model, _open_clip_text_tensors(sd))
+
+
+def load_dino_v1(model: nn.Module, path: str) -> nn.Module:
+    """Fill a `DINOv2` at DINO-v1 ViT-B/16's shape (patch 16, a 14^2 grid:
+    SUBC's encoder) in place from dino_vitb16_pretrain.pth (torchhub's
+    names, no LayerScale: its `gamma`s are set to ones, a no-op scale, as
+    JAX's `convert_dino_v1` synthesises them).  Returns the model."""
+    sd = dict(_read_checkpoint(path))
+    for k, v in model.state_dict().items():
+        if k.endswith((".ls1.gamma", ".ls2.gamma")) and k not in sd:
+            sd[k] = torch.ones_like(v, device="cpu")
+    return _fill(model, sd)
+
+
+def load_blip_image_reward(model: nn.Module, path: str) -> nn.Module:
+    """Fill an `ImageReward` in place from ImageReward-v1.0's checkpoint
+    (ImageReward.pt, its own names); tensors the scorer never reads (BLIP's
+    text projection, the pooler, position ids) are ignored, as JAX's
+    `convert_blip_image_reward` ignores them.  Returns the model."""
+    return _fill(model, _read_checkpoint(path))

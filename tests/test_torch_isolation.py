@@ -2,9 +2,11 @@
 scripts (`chip_smoke.py`, `bench_torch.py`, `scripts/tca_graph_times.py`,
 `scripts/gn_plan_sweep.py`, `scripts/gn_route_paired.py`,
 `scripts/flash_f32_accuracy.py`) imports `jax`, `flax` or the JAX package,
-and importing the port leaves `jax` out of `sys.modules`.  The card's machine has neither `safetensors`, PIL nor cv2: no
-port module imports `safetensors` or cv2, and PIL is imported only inside
-`utils.vis.save_intermediate_gif`."""
+and importing the port leaves `jax` out of `sys.modules`.  The card's machine has neither `safetensors`, PIL, cv2 nor
+torchvision: no port module imports `safetensors`, cv2 or torchvision, PIL
+is imported only inside `utils.vis.save_intermediate_gif`, and importing
+GeoBench's metrics (`metrics.*`, their models and `utils.image_io`) loads
+none of them."""
 
 import ast
 import os
@@ -77,9 +79,15 @@ def test_import_leaves_jax_unloaded():
         "import freefine_tpu_torch.baselines.geo_diffuser, freefine_tpu_torch.baselines\n"
         "import freefine_tpu_torch.baselines.diffusion_handles\n"
         "import freefine_tpu_torch.baselines.drag_diffusion, freefine_tpu_torch.baselines.eval\n"
-        "import freefine_tpu_torch.metrics.md\n"
+        "import freefine_tpu_torch.metrics.md, freefine_tpu_torch.metrics.main\n"
+        "import freefine_tpu_torch.metrics.preprocess, freefine_tpu_torch.metrics.common\n"
+        "import freefine_tpu_torch.metrics.fid, freefine_tpu_torch.metrics.consistency\n"
+        "import freefine_tpu_torch.metrics.scoring, freefine_tpu_torch.metrics.wrap_error\n"
+        "import freefine_tpu_torch.models.inception, freefine_tpu_torch.models.blip\n"
+        "import freefine_tpu_torch.models.open_clip_text, freefine_tpu_torch.utils.image_io\n"
+        "import freefine_tpu_torch.data.geobench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2')]\n"
+        "       ('jax', 'flax', 'freefine_tpu', 'safetensors', 'PIL', 'cv2', 'torchvision')]\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -113,7 +121,8 @@ def test_no_safetensors_and_pil_only_inside_the_gif_writer():
     for path in files:
         for name, scope in _imports_with_scope(path):
             root = name.split(".")[0]
-            assert root not in ("safetensors", "cv2"), f"{path.relative_to(ROOT)} imports {name}"
+            assert root not in ("safetensors", "cv2", "torchvision"), \
+                f"{path.relative_to(ROOT)} imports {name}"
             if root == "PIL":
                 pil.append((str(path.relative_to(ROOT)), scope))
     assert pil and all(p == ("freefine_tpu_torch/utils/vis.py", ("save_intermediate_gif",))
